@@ -7,3 +7,9 @@ import sys
 os.environ.pop("XLA_FLAGS", None)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's hand-written "
+        "kernels); skips where torch sees none")
