@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
 Run from the root of a checkout, on a machine with an H100:
 
@@ -7,24 +7,35 @@ Run from the root of a checkout, on a machine with an H100:
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
-  1. card: name, compute capability, torch/CUDA versions, power limit;
-  2. build: nvcc builds every CUDA source of the port (in parallel);
-  3. every kernel against its plain PyTorch version on the card, on edge
-     cases (ragged and poisoned rows, odd shapes, mass past 2**24, ...):
-     counts and mass must agree exactly;
-  4. the main path at full size: token blocks -> sampled estimates (one
-     block_stats_batched launch a chunk) -> DV-DVFS plans -> simulated run
-     against the full-block truth, with every kernel's launch count read
+  1. card: name, compute capability, torch/CUDA versions, power limit, and
+     float32 matrix products in full float32 (no TF32);
+  2. build: nvcc builds every CUDA source of the port (one nvcc each, all
+     started together);
+  3. every kernel against its plain PyTorch version on the card: block
+     statistics on edge cases (ragged and poisoned rows, odd shapes, mass
+     past 2**24, ...), exactly; flash attention in float32 and bfloat16 on
+     MHA, GQA, SWA, non-causal and odd shapes, within 2e-5 and 2e-2;
+  4. the DV-DVFS main path at full size: token blocks -> sampled estimates
+     (one block_stats_batched launch a chunk) -> DV-DVFS plans -> simulated
+     run against the full-block truth, with its kernels' launch counts read
      after it;
   5. the same path on a small dataset, card against CPU;
   6. the five apps on the card at the paper-figure block sizes, with the
      paper's estimate -> plan -> simulate comparison against DVO;
-  7. kernel and plain times at the main path's shapes, beside the byte bound.
+  7. the serving path at full width: olmo-1b (16 layers, d_model 2048,
+     float32, random weights from a seed) serves 8 prompts of 1024 tokens
+     through ServingEngine.generate (prefill through the flash kernel, then
+     DV-DVFS decode windows), with the flash launch count read after it and
+     the prefill's logits held against the plain chunked attention;
+  8. the serving path at smoke size, card against CPU;
+  9. kernel, plain and library times at the main paths' shapes, beside the
+     least time the card could take.
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
-joules it prints come from the paper's power model in simulation; nothing
-here measures the card's energy.
+joules and savings it prints come from power models in simulation (the
+paper's for the DV-DVFS path, the copied TPU_V5E_POWER curve for serving);
+nothing here measures the card's energy.
 """
 from __future__ import annotations
 
@@ -40,17 +51,30 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.apps import ALL_APPS, measure_block_seconds  # noqa: E402
+from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (CPU_PAPER_POWER, BlockInfo,  # noqa: E402
-                              EstimateArrays, plan_dvfs, plan_dvo,
-                              plan_dvo_arrays, simulate, variety_stats)
+                              ChipSpec, EstimateArrays, RooflineTimeModel,
+                              plan_dvfs, plan_dvo, plan_dvo_arrays, simulate,
+                              variety_stats)
 from repro_torch.data import BlockDataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_stats as bs  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.convert import flatten  # noqa: E402
 from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
                                   plan_estimates, stream_estimates_tokens,
                                   token_chunk_estimates, token_cost)
+from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+# H100 SXM, NVIDIA's data sheet, at its 700 W power limit (the run prints the
+# card's own limit): device memory, dense float32 without tensor cores, dense
+# bf16 on tensor cores, NVLink each way
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+H100 = ChipSpec(peak_flops=F32_FLOPS, hbm_bw=HBM_BYTES_PER_S, ici_bw=450e9,
+                hbm_bytes=80e9)
 PATTERN = (17, 23, 5)
 POWER = CPU_PAPER_POWER       # the paper's power model (formula 7)
 SLACKS = (1.08, 1.20)         # tight and firm deadlines, benchmarks/paper_figs.py
@@ -81,7 +105,26 @@ APP_N_BLOCKS = 12
 KERNELS = {
     "block_stats_batched": "src/repro/kernels/block_stats.py:104",
     "block_stats": "src/repro/kernels/block_stats.py:62",
+    "flash_attention": "src/repro/kernels/flash_attention.py:28",
 }
+
+# the serving path: olmo-1b at its published width and depth, float32 (the
+# reference serves in float32), 8 prompts of 1024 tokens, 64 new tokens in
+# DV-DVFS windows of 16
+SERVE = dict(arch="olmo-1b", batch=8, prompt=1024, max_len=1152, window=16,
+             n_tokens=64, slack=1.2, seed=0)
+SERVE_LOGIT_TOL = 1e-3     # kernel vs chunked prefill, 16 float32 layers
+SMOKE_LOGIT_TOL = 1e-4     # card vs CPU at smoke size, float32
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+# (label, B, Hq, Hkv, S, D, causal, window); each in float32 and bfloat16
+FLASH_CASES = (
+    ("MHA 16/16 (olmo-1b heads)", 2, 16, 16, 1024, 128, True, None),
+    ("GQA 32/4 (yi-6b heads)", 1, 32, 4, 1024, 128, True, None),
+    ("GQA 8/1", 2, 8, 1, 1024, 64, True, None),
+    ("SWA 256", 1, 8, 8, 1024, 64, True, 256),
+    ("non-causal", 2, 4, 2, 512, 128, False, None),
+    ("odd S=80 D=16", 1, 2, 2, 80, 16, True, None),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -112,11 +155,17 @@ def phase_card() -> tuple:
     print(f"card: {name} | cc {cc[0]}.{cc[1]} | torch {torch.__version__} | "
           f"cuda {torch.version.cuda} | nvidia-smi: {smi}")
     check(cc == (9, 0), f"the kernels are built for sm_90a, card is cc {cc}")
+    torch.backends.cudnn.allow_tf32 = False
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matrix products would go through TF32")
+    print("float32 matrix products in full float32: allow_tf32 False, "
+          "precision 'highest'")
     return name, smi
 
 
 def phase_build() -> None:
-    for built in _build.build(bs.SOURCE):
+    for built in _build.build(bs.SOURCE, fa.SOURCE):
         print(f"build: {built.seconds:.3f} s nvcc {' '.join(_build.NVCC_FLAGS)}"
               f" -> {built.path.relative_to(_build.BUILD_ROOT.parents[1])}")
         for line in built.log.splitlines():
@@ -220,6 +269,47 @@ def phase_parity() -> dict:
     return worst
 
 
+def _qkv(rng, b, hq, hkv, s, d, dtype):
+    """q, k, v as the model hands them to the kernel: (B, H, S, D) views of
+    (B, S, H, D) tensors, from seeded normal values."""
+    return [torch.from_numpy(rng.normal(0, 1, (b, s, h, d)).astype(
+        np.float32)).to("cuda", dtype).transpose(1, 2)
+        for h in (hq, hkv, hkv)]
+
+
+def flash_close(got: torch.Tensor, want: torch.Tensor, dtype) -> bool:
+    """The reference's test: |got - want| <= tol + tol * |want|."""
+    tol = FLASH_TOL[dtype]
+    return bool(((got.double() - want.double()).abs()
+                 <= tol + tol * want.double().abs()).all())
+
+
+def phase_flash_parity(worst: dict) -> None:
+    rng = np.random.default_rng(1)
+    worst.setdefault("flash_attention", 0.0)
+    for label, b, hq, hkv, s, d, causal, window in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(rng, b, hq, hkv, s, d, dtype)
+            before = fa.LAUNCHES["flash_attention"]
+            got = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          swa_window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           swa_window=window)
+            torch.cuda.synchronize()
+            check(fa.LAUNCHES["flash_attention"] == before + 1,
+                  f"flash {label}: launch count")
+            check(got.dtype == dtype and got.shape == q.shape,
+                  f"flash {label}: output {got.dtype} {tuple(got.shape)}")
+            err = _max_err(got, want)
+            tol = FLASH_TOL[dtype]
+            check(flash_close(got, want, dtype),
+                  f"flash {label} {dtype}: max |err| {err} over tol {tol}")
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            print(f"flash parity ok: {label} B={b} S={s} D={d} "
+                  f"{str(dtype)[6:]}: max |kernel - plain| {err:.3g} "
+                  f"(tol {tol} abs + rel)")
+
+
 def phase_main_path() -> dict:
     ds = BlockDataset(**MAIN)
     cfg = PipelineConfig(fraction=FRACTION, power=POWER)
@@ -227,6 +317,7 @@ def phase_main_path() -> dict:
     parts, truth = [], []
     first_chunk = None
     bs.reset_launches()
+    fa.reset_launches()
     t_all = time.perf_counter()
     chunks = ds.iter_token_chunks(CHUNK, device="cuda")
     while True:
@@ -294,10 +385,12 @@ def phase_main_path() -> dict:
     walls["plan"] = time.perf_counter() - t0
     launches = dict(bs.LAUNCHES)
     print(f"  launches in the main path: {json.dumps(launches)}")
+    check(fa.LAUNCHES["flash_attention"] == 0,
+          "the DV-DVFS path launched flash attention")
     for slack, planner, rep in plans:
         if slack == SLACKS[-1] and planner in ("paper", "global"):
             check(rep.deadline_met, f"{planner} misses the firm deadline")
-    for name in KERNELS:
+    for name in bs.LAUNCHES:
         check(launches[name] > 0, f"main path never launched {name}")
     walls["total"] = time.perf_counter() - t_all
     print("  wall: " + ", ".join(f"{k} {v:.6f} s" for k, v in walls.items()))
@@ -400,6 +493,201 @@ def phase_apps() -> dict:
     return rows
 
 
+class TimedEngine(ServingEngine):
+    """The serving engine with the prefill's logits and wall and each
+    window's wall recorded (each timed region ends in a synchronise)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.prefill_s = 0.0
+        self.prefill_logits = None
+        self.window_s: list = []
+
+    def _prefill(self, prompts):
+        t0 = time.perf_counter()
+        logits, cache = super()._prefill(prompts)
+        self._sync()
+        self.prefill_s = time.perf_counter() - t0
+        self.prefill_logits = logits
+        return logits, cache
+
+    def _window(self, n_steps, tok, cache):
+        t0 = time.perf_counter()
+        out = super()._window(n_steps, tok, cache)
+        self._sync()
+        self.window_s.append((n_steps, time.perf_counter() - t0))
+        return out
+
+
+def serve_roofline(cfg, batch: int, max_len: int, tokens: int
+                   ) -> RooflineTimeModel:
+    """A decode window's roofline on the H100: the model's decode FLOPs over
+    the float32 rate, and the float32 weights plus the whole KV cache read
+    once a token over the memory rate."""
+    kv_bytes = 2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads \
+        * cfg.d_head * 4
+    return RooflineTimeModel.from_counts(
+        flops=tokens * T.model_flops(cfg, batch, max_len, mode="decode"),
+        hbm_bytes=tokens * (4 * cfg.param_count() + kv_bytes),
+        coll_bytes=0, spec=H100)
+
+
+def phase_serving() -> dict:
+    sv = SERVE
+    cfg = get_arch(sv["arch"], attn_impl_train="pallas")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    (params, init_s) = sync_seconds(lambda: T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(sv["seed"]),
+        dtype=torch.float32, device=dev))
+    n_params = sum(t.numel() for t in flatten(params).values())
+    prompts = np.random.default_rng(sv["seed"]).integers(
+        1, cfg.vocab, (sv["batch"], sv["prompt"])).astype(np.int32)
+    roof = serve_roofline(cfg, sv["batch"], sv["max_len"], sv["window"])
+    sc = ServeConfig(batch=sv["batch"], max_len=sv["max_len"],
+                     window=sv["window"], planner="roofline",
+                     slack=sv["slack"])
+    eng = TimedEngine(cfg, params, sc, roofline=roof, device=dev)
+    print(f"serving path: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}x{cfg.d_head} heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {n_params} float32 parameters (random, seed "
+          f"{sv['seed']}, init {init_s:.3f} s); {sv['batch']} prompts x "
+          f"{sv['prompt']} tokens, {sv['n_tokens']} new tokens, windows of "
+          f"{sv['window']}, slack {sv['slack']}")
+
+    bs.reset_launches()
+    fa.reset_launches()
+    out, gen_s = sync_seconds(lambda: eng.generate({"tokens": prompts},
+                                                   sv["n_tokens"]))
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                **bs.LAUNCHES}
+    print(f"  launches in the serving path: {json.dumps(launches)}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"prefill launched flash attention {launches['flash_attention']} "
+          f"times, not once a layer ({cfg.n_layers})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    toks = out["tokens"]
+    check(tuple(toks.shape) == (sv["batch"], sv["n_tokens"] + 1),
+          f"tokens of shape {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "tokens outside the vocab")
+    check(out["n_generated"] == sv["n_tokens"] + 1, "n_generated")
+    logits = eng.prefill_logits
+    check(tuple(logits.shape) == (sv["batch"], cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "prefill logits are not finite of shape (B, V)")
+
+    chunked = cfg.replace(attn_impl_train="chunked")
+    (want, cache), chunked_s = sync_seconds(lambda: T.prefill(
+        eng.params, chunked, {"tokens": torch.as_tensor(prompts, device=dev)},
+        sv["max_len"]))
+    err = _max_err(logits, want)
+    print(f"  prefill last logits, flash kernel vs plain chunked attention: "
+          f"max |err| {err:.6g} (tol {SERVE_LOGIT_TOL}; |logits| up to "
+          f"{float(want.abs().max()):.4f}); chunked prefill "
+          f"{chunked_s:.6f} s")
+    check(err <= SERVE_LOGIT_TOL, f"prefill logits differ by {err}")
+    check(torch.equal(logits.argmax(-1), want.argmax(-1)),
+          "first greedy tokens differ between kernel and chunked prefill")
+
+    decode_profile(eng.params, cfg, want.argmax(-1).to(torch.int32)[:, None],
+                   cache)
+
+    windows = eng.window_s
+    decoded = sum(n for n, _ in windows[1:])      # the timed windows
+    decode_s = sum(w for _, w in windows[1:])
+    freqs = [bp.rel_freq for bp in eng.plan.blocks]
+    saving = 1 - out["energy"]["busy_j"] / out["energy_dvo"]["busy_j"]
+    # the prefill's matrix products: 2 FLOP a weight of the blocks a token
+    tokens = sv["batch"] * sv["prompt"]
+    mm_flops = 2 * tokens * sum(t[0].numel() for blk in params["blocks"]
+                                for t in flatten(blk).values()) \
+        * cfg.n_repeats
+    print(f"  prefill wall {eng.prefill_s:.6f} s ({sv['batch']}x"
+          f"{sv['prompt']} tokens: {tokens / eng.prefill_s:.1f} tokens/s; "
+          f"{mm_flops} FLOP of projections and MLP at "
+          f"{mm_flops / eng.prefill_s / 1e12:.3f} TFLOP/s, {cfg.n_layers} "
+          f"kernel launches inside); generate wall {gen_s:.6f} s; peak device "
+          f"memory {peak_gb:.3f} GB")
+    print("  window walls: " + ", ".join(
+        f"{n} tok {w:.6f} s" for n, w in windows)
+        + " (the first, one untimed step; the second, the f_max calibration)")
+    print(f"  decode {decoded} steps x {sv['batch']} sequences in "
+          f"{decode_s:.6f} s: {decoded * sv['batch'] / decode_s:.1f} tokens/s"
+          f" ({1e3 * decode_s / decoded:.3f} ms a step)")
+    print(f"  roofline of a window on the H100: t_comp "
+          f"{roof.terms.t_comp:.6f} s, t_mem {roof.terms.t_mem:.6f} s "
+          f"(bound: {roof.terms.dominant}); plan ({sc.planner}) frequencies "
+          f"{freqs}, DVO {[bp.rel_freq for bp in eng.dvo_plan.blocks]}")
+    print(f"  energy vs DVO, simulated with the copied TPU_V5E_POWER curve "
+          f"(not the card's energy): {100 * saving:+.4f}% "
+          f"(ledger steps {out['energy']['steps']})")
+    check(saving >= -1e-9, "the plan spends more simulated energy than DVO")
+    return {"launches": launches, "prefill_s": eng.prefill_s,
+            "windows": windows, "decode_tokens_per_s":
+                decoded * sv["batch"] / decode_s,
+            "logit_err": err, "saving": saving}
+
+
+def decode_profile(params, cfg, tok, cache, top: int = 8) -> None:
+    """One decode step at the serving shape, timed alone and then traced
+    with torch.profiler: the device's busy share of the step (its kernels'
+    time over the untraced step's wall) and the ops whose kernels take the
+    most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync_seconds(lambda: T.decode_step(params, cfg, tok, cache))   # warm-up
+    _, step_s = sync_seconds(lambda: T.decode_step(params, cfg, tok, cache))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, traced_s = sync_seconds(
+            lambda: T.decode_step(params, cfg, tok, cache))
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_s = 1e-6 * sum(e.self_device_time_total for e in kernels)
+    if busy_s <= 0:
+        print(f"  decode step {step_s:.6f} s; device time not measured "
+              "(the profiler recorded no CUDA kernels)")
+        return
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    print(f"  decode step at position {cache['pos'] - 1}: {step_s:.6f} s "
+          f"untraced ({traced_s:.6f} s traced), {sum(e.count for e in kernels)}"
+          f" kernels; device busy {busy_s:.6f} s = "
+          f"{100 * busy_s / step_s:.2f}% of the untraced step (idle "
+          f"{100 * max(0.0, 1 - busy_s / step_s):.2f}%); ops by the device "
+          "time of their kernels:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {1e-3 * e.self_device_time_total:10.3f} ms "
+              f"{100e-6 * e.self_device_time_total / busy_s:6.2f}% "
+              f"x{e.count:<4d} {e.key}")
+
+
+def phase_serving_cpu() -> None:
+    cfg = smoke_config("olmo-1b", attn_impl_train="pallas")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    prompts = np.random.default_rng(1).integers(
+        1, cfg.vocab, (2, 48)).astype(np.int32)
+    sc = ServeConfig(batch=2, max_len=96, window=8, slack=1.2)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = TimedEngine(cfg, params, sc, device=dev)
+        out = eng.generate({"tokens": prompts}, 24)
+        outs[dev] = (eng.prefill_logits.cpu(), out["tokens"].cpu())
+    err = _max_err(outs["cuda"][0], outs["cpu"][0])
+    print(f"smoke serving ({cfg.name} at smoke size, {cfg.n_layers} layer, "
+          f"d_model {cfg.d_model}): card vs CPU prefill logits max |err| "
+          f"{err:.3g} (tol {SMOKE_LOGIT_TOL})")
+    for b in range(2):
+        print(f"  sequence {b} card: {outs['cuda'][1][b].tolist()}")
+        print(f"  sequence {b} cpu:  {outs['cpu'][1][b].tolist()}")
+    check(err <= SMOKE_LOGIT_TOL, f"card and CPU logits differ by {err}")
+    check(torch.equal(outs["cuda"][1], outs["cpu"][1]),
+          "card and CPU greedy tokens differ")
+
+
 def event_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
     """Median ms of ``fn`` on the card, each run after evicting the L2 by
     reading a buffer five times its size (a read leaves no dirty lines for
@@ -475,6 +763,60 @@ def phase_times(main: dict, worst: dict) -> list:
     return entries
 
 
+def flash_bound(b, hq, hkv, s, d, dtype) -> tuple:
+    """(bound ms, "operations" or "bytes", flops, bytes) of causal attention
+    at this shape: 4*D operations a visible (query, key) pair at the type's
+    peak rate; q, k, v read once and o written once at the memory rate."""
+    flops = 4 * d * b * hq * s * (s + 1) // 2
+    nbytes = (2 * b * hq + 2 * b * hkv) * s * d * dtype.itemsize
+    rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_flash_times(serving: dict, worst: dict) -> dict:
+    b, h, s, d = SERVE["batch"], 16, SERVE["prompt"], 128   # olmo-1b prefill
+    rng = np.random.default_rng(2)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    per_shape = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(rng, b, h, h, s, d, dtype)
+        got = fa.flash_attention_cuda(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        lib = sdpa(q, k, v, is_causal=True)
+        err = _max_err(got, want)
+        check(flash_close(got, want, dtype),
+              f"flash {dtype} at the main shape differs by {err}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        ms = event_ms(lambda: fa.flash_attention_cuda(q, k, v), flush)
+        plain_ms = event_ms(lambda: ref.flash_attention_ref(q, k, v), flush)
+        lib_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
+        bound, by, flops, nbytes = flash_bound(b, h, h, s, d, dtype)
+        per_shape.append({"dtype": str(dtype)[6:], "shape": [b, h, s, d],
+                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": bound, "bound_by": by, "flops": flops,
+                          "bytes": nbytes, "share": bound / ms,
+                          "max_abs_err": err,
+                          "library_max_abs_err": _max_err(lib, want)})
+        print(f"  flash_attention {str(dtype)[6:]} (B,H,S,D)=({b},{h},{s},"
+              f"{d}) causal, transposed views: kernel {ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, scaled_dot_product_attention {lib_ms:.6f} "
+              f"ms (yardstick only), bound {bound:.6f} ms ({by}: {flops} "
+              f"FLOP, {nbytes} bytes) = {100 * bound / ms:.4f}% of the bound;"
+              f" max |err| {err:.3g}")
+    main = per_shape[0]                  # the serving path runs float32
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + fa.SOURCE,
+            "replaces": KERNELS["flash_attention"],
+            "launches": serving["launches"]["flash_attention"],
+            "max_abs_err": worst["flash_attention"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "per_shape": per_shape}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -483,12 +825,16 @@ def main() -> int:
     kind, smi = phase_card()
     phase_build()
     worst = phase_parity()
+    phase_flash_parity(worst)
     main_path = phase_main_path()
     phase_small_path()
     phase_apps()
-    print(f"times on {kind} ({smi}); ms and plain_ms are CUDA-event medians "
-          "of 20 runs, each after evicting the L2:")
+    serving = phase_serving()
+    phase_serving_cpu()
+    print(f"times on {kind} ({smi}); ms, plain_ms and library_ms are "
+          "CUDA-event medians of 20 runs, each after evicting the L2:")
     kernels = phase_times(main_path, worst)
+    kernels.append(phase_flash_times(serving, worst))
     print(f"total wall: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

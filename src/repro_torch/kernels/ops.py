@@ -4,7 +4,7 @@ Each takes array-likes or tensors and ``device=`` (default ``"cuda"``): the
 input moves to that device once, and the kernel wrapper then runs the CUDA
 kernel on a CUDA tensor or the plain version on a CPU tensor.  Without a
 CUDA device, a call that does not pass ``device="cpu"`` raises.
-``flash_attention`` and ``ssd_scan`` are not ported yet.
+``ssd_scan`` is not ported yet (ROADMAP Queue 2 item 4).
 """
 from __future__ import annotations
 
@@ -13,8 +13,27 @@ import torch
 from repro_torch.device import to_device
 from repro_torch.kernels.block_stats import (block_stats_batched_cuda,
                                              block_stats_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-__all__ = ["block_stats", "block_stats_batched"]
+__all__ = ["flash_attention", "block_stats", "block_stats_batched"]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, swa_window=None,
+                    block_q: int = 128, block_k: int = 128, device="cuda"
+                    ) -> torch.Tensor:
+    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
+
+    Refuses what the reference refuses: S not a multiple of
+    ``min(block, S)`` here, Hq not a multiple of Hkv in the wrapper.  The
+    block sizes shape only that check: the CUDA kernel picks its own tiles.
+    """
+    q, k, v = (to_device(t, device) for t in (q, k, v))
+    s = q.shape[-2]
+    for name, block in (("block_q", block_q), ("block_k", block_k)):
+        if block < 1 or s % min(block, s):
+            raise ValueError(f"S={s} is not a multiple of {name}="
+                             f"{min(block, s)}")
+    return flash_attention_cuda(q, k, v, causal=causal, swa_window=swa_window)
 
 
 def block_stats(tokens, pattern: tuple = (17, 23, 5), *, device="cuda"

@@ -1,18 +1,47 @@
-"""Plain PyTorch versions of the block-statistics kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-They compute what ``src/repro/kernels/ref.py``'s ``block_stats_ref`` and
-``block_stats_batched_ref`` compute, on any device: the CPU path of the
-kernel wrappers, and what the tests and ``chip_smoke.py`` hold the CUDA
-kernel against.  Counts and mass are summed as int64 and cast to float32
+They compute what ``src/repro/kernels/ref.py``'s ``flash_attention_ref``,
+``block_stats_ref`` and ``block_stats_batched_ref`` compute, on any device:
+the CPU path of the kernel wrappers, and what the tests and ``chip_smoke.py``
+hold the CUDA kernels against; never the card's main path.  Counts and mass are summed as int64 and cast to float32
 once, so mass is the exact sum rounded to float32; the reference sums mass
 in float32, which is inexact past 2**24.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["row_matches", "row_stats", "block_stats_ref",
-           "block_stats_batched_ref"]
+__all__ = ["flash_attention_ref", "row_matches", "row_stats",
+           "block_stats_ref", "block_stats_batched_ref"]
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, swa_window=None) -> torch.Tensor:
+    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
+
+    Materialises the (S, S) scores in float32, masks them with the finite
+    -1e30 (causal; ``swa_window`` falsy means no window) and takes a float32
+    softmax; kv head = q head // (Hq / Hkv).
+    """
+    s, d = q.shape[2], q.shape[3]
+    rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) \
+        * (1.0 / math.sqrt(d))
+    pos = torch.arange(s, device=q.device)
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= pos[None, :] <= pos[:, None]
+    if swa_window:
+        ok &= pos[None, :] > pos[:, None] - swa_window
+    scores = torch.where(ok, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
 def row_matches(tokens: torch.Tensor, pattern) -> torch.Tensor:

@@ -1,22 +1,28 @@
 """The port on the card: each CUDA kernel against its plain version, and the
-main path's card run against its CPU run.
+main paths' card runs against their CPU runs.
 
 Marked ``cuda`` and skipped where torch sees no CUDA device.  This file
 imports no JAX, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Kernel and plain version agree exactly (counts, and mass as the exact int64
-sum cast to float32).
+Block statistics: kernel and plain version agree exactly (counts, and mass
+as the exact int64 sum cast to float32).  Flash attention: within the
+reference's kernel tolerances (float32 2e-5, bfloat16 2e-2); the serving
+path's logits within 1e-4 of the CPU's (float32, summed in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.apps import ALL_APPS
+from repro_torch.configs import smoke_config
 from repro_torch.data import BlockDataset
 from repro_torch.kernels import block_stats as bs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.models import transformer as T
+from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.pipeline import PipelineConfig, stream_estimates_tokens, \
     stream_plan
 
@@ -103,3 +109,72 @@ def test_cuda_apps_match_cpu(cuda, name):
         else:
             np.testing.assert_array_equal(card[key].cpu().numpy(),
                                           cpu[key].numpy())
+
+
+# (dtype, B, Hq, Hkv, S, D, causal, window, transposed (B, S, H, D) views)
+FLASH_CASES = {
+    "mha-f32": (torch.float32, 2, 4, 4, 256, 128, True, None, True),
+    "gqa-f32": (torch.float32, 1, 8, 2, 192, 64, True, None, False),
+    "mqa-bf16": (torch.bfloat16, 1, 8, 1, 256, 64, True, None, True),
+    "swa-f32": (torch.float32, 1, 2, 2, 512, 32, True, 100, False),
+    "noncausal-bf16": (torch.bfloat16, 2, 2, 1, 130, 128, False, None, True),
+    "odd-f32": (torch.float32, 1, 2, 2, 80, 16, True, None, False),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_cuda_flash_attention_matches_plain_version(cuda, case):
+    dtype, b, hq, hkv, s, d, causal, window, views = FLASH_CASES[case]
+    rng = np.random.default_rng(len(case))
+
+    def make(h):
+        x = torch.from_numpy(rng.normal(0, 1, (b, s, h, d)).astype(
+            np.float32)).to(cuda, dtype)
+        return x.transpose(1, 2) if views else x.transpose(1, 2).contiguous()
+
+    q, k, v = make(hq), make(hkv), make(hkv)
+    fa.reset_launches()
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, swa_window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, swa_window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_cuda_flash_attention_refuses_bad_input(cuda):
+    q = torch.zeros((1, 2, 64, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(q, q, q)
+    h = torch.zeros((1, 2, 64, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(h, h, h)
+
+
+def test_cuda_serving_smoke_matches_cpu(cuda):
+    """olmo-1b at smoke size through the flash kernel: the card's greedy
+    tokens equal the CPU's, with the same weights and prompts."""
+    cfg = smoke_config("olmo-1b", attn_impl_train="pallas")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    prompts = {"tokens": np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 48)).astype(np.int32)}
+    sc = ServeConfig(batch=2, max_len=96, window=8, slack=1.2)
+    outs = {}
+    for dev in ("cpu", cuda):
+        fa.reset_launches()
+        eng = ServingEngine(cfg, params, sc, device=dev)
+        outs[str(dev)] = eng.generate(prompts, n_tokens=20)
+        logits, _ = T.prefill(eng.params, cfg,
+                              {"tokens": torch.as_tensor(prompts["tokens"],
+                                                         device=dev)}, 96)
+        outs[str(dev)]["logits"] = logits.cpu()
+        if dev == cuda:
+            assert fa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    cpu, card = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(card["logits"], cpu["logits"], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(card["tokens"].cpu().numpy(),
+                                  cpu["tokens"].numpy())
+    assert card["energy"]["steps"] == cpu["energy"]["steps"]

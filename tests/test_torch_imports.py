@@ -22,6 +22,14 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
+@pytest.mark.parametrize("package", ["kernels", "models", "configs", "serve",
+                                     "train", "launch"])
+def test_subpackage_is_covered(package):
+    """The subprocess below imports every module of each subpackage."""
+    mods = [m for m in _modules() if m.startswith(f"repro_torch.{package}")]
+    assert f"repro_torch.{package}" in mods and len(mods) > 1, mods
+
+
 def test_every_module_imports_without_jax_or_repro():
     code = ("import sys, importlib\n"
             f"for m in {_modules()!r}: importlib.import_module(m)\n"

@@ -1,0 +1,172 @@
+"""The port's serving engine and DVFS controller against the JAX package's.
+
+``ServingEngine.generate`` on ``smoke_config("olmo-1b",
+attn_impl_train="pallas")`` with the reference's weights (carried across by
+``params_from_numpy``) and the same seeded prompts gives the reference's
+greedy tokens, with the same ledger step counts; the window walls, and so
+the plans' frequencies, are measured and differ run to run.  The copied
+``train/dvfs_controller.py`` is held bit-identical to the reference.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as rc
+import repro.train.dvfs_controller as jdc
+from repro.configs import smoke_config as jsmoke
+from repro.models import transformer as JT
+from repro.serve import ServeConfig as JServeConfig
+from repro.serve import ServingEngine as JServingEngine
+import repro_torch.core as tc
+import repro_torch.train.dvfs_controller as tdc
+from repro_torch.configs import smoke_config as tsmoke
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serve import ServeConfig, ServingEngine
+
+
+def _roofline(mod, mem_bound=True):
+    return mod.RooflineTimeModel.from_counts(
+        flops=1e9, hbm_bytes=8e9 if mem_bound else 1e6, coll_bytes=0)
+
+
+def _engines(impl="pallas", window=8, **sc_kw):
+    jc = jsmoke("olmo-1b", attn_impl_train=impl)
+    tc_ = tsmoke("olmo-1b", attn_impl_train=impl)
+    jp = JT.init_params(jc, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    sc_kw.setdefault("slack", 1.15)
+    kw = dict(batch=2, max_len=128, window=window, planner="roofline", **sc_kw)
+    jeng = JServingEngine(jc, jp, JServeConfig(**kw), roofline=_roofline(rc))
+    teng = ServingEngine(tc_, tp, ServeConfig(**kw), roofline=_roofline(tc),
+                         device="cpu")
+    prompts = np.random.default_rng(0).integers(1, jc.vocab, (2, 16)).astype(
+        np.int32)
+    return jeng, teng, prompts
+
+
+@pytest.mark.parametrize("impl,n_tokens,window", [("pallas", 24, 8),
+                                                  ("chunked", 24, 8),
+                                                  ("pallas", 8, 16),
+                                                  ("pallas", 1, 8)])
+def test_generate_matches_reference(impl, n_tokens, window):
+    jeng, teng, prompts = _engines(impl, window=window)
+    jout = jeng.generate({"tokens": jax.numpy.asarray(prompts)}, n_tokens)
+    tout = teng.generate({"tokens": prompts}, n_tokens)
+    np.testing.assert_array_equal(tout["tokens"].numpy(),
+                                  np.asarray(jout["tokens"]))
+    assert tout["tokens"].shape == (2, n_tokens + 1)
+    assert tout["n_generated"] == jout["n_generated"]
+    for key in ("energy", "energy_dvo"):
+        assert tout[key]["steps"] == jout[key]["steps"]
+    assert len(teng.actuator.history) == len(jeng.actuator.history)
+    assert (teng.plan is None) == (jeng.plan is None)
+    if teng.plan is not None:
+        assert len(teng.plan.blocks) == len(jeng.plan.blocks)
+
+
+def test_generate_is_deterministic_and_downclocks_memory_bound_decode():
+    _, teng, prompts = _engines(window=8)
+    out = teng.generate({"tokens": prompts}, 32)
+    _, teng2, _ = _engines(window=8)
+    out2 = teng2.generate({"tokens": prompts}, 32)
+    assert torch.equal(out["tokens"], out2["tokens"])
+    assert out["energy"]["busy_j"] < out["energy_dvo"]["busy_j"]
+    assert any(f < 1.0 for f in teng.actuator.history)
+
+
+def test_short_generation_has_no_windows():
+    _, teng, prompts = _engines(window=16)
+    out = teng.generate({"tokens": prompts}, 8)
+    assert out["energy"]["busy_j"] == out["energy_dvo"]["busy_j"]
+    assert teng.plan is None
+
+
+def test_replicas_are_not_ported_yet():
+    cfg = tsmoke("olmo-1b")
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(cfg, params, ServeConfig(replicas=3), device="cpu")
+
+
+def test_engine_default_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tsmoke("olmo-1b")
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params, ServeConfig())
+
+
+def test_launch_serve_runs_on_cpu(capsys):
+    launch_serve.main(["--arch", "yi-6b", "--device", "cpu", "--tokens",
+                       "12"])
+    out = capsys.readouterr().out
+    assert "arch=yi-6b" in out and "generated=13" in out
+
+
+# -------------------------------------------- dvfs_controller, bit for bit ---
+
+def _same(a, b):
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name))
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ledger_and_actuator_bit_identical(seed):
+    rng = np.random.default_rng(seed)
+    secs = rng.uniform(1e-3, 2.0, 40)
+    freqs = rng.choice(rc.DEFAULT_LADDER.states, 40)
+    utils = rng.uniform(0.2, 1.0, 40)
+    for roof in (None, True):
+        ja = jdc.SimulatedActuator(_roofline(rc) if roof else None)
+        ta = tdc.SimulatedActuator(_roofline(tc) if roof else None)
+        jl, tl = jdc.EnergyLedger(chips=4), tdc.EnergyLedger(chips=4)
+        for s, f, u in zip(secs, freqs, utils):
+            ja.set(f)
+            ta.set(f)
+            assert ta.effective_time(s) == ja.effective_time(s)
+            jl.record(ja.effective_time(s), f, u)
+            tl.record(ta.effective_time(s), f, u)
+        assert ta.history == ja.history
+        _same(tl.summary(), jl.summary())
+
+
+@pytest.mark.parametrize("planner", ["paper", "global"])
+def test_dvfs_controller_bit_identical(planner):
+    rng = np.random.default_rng(5)
+    names = ("records", "tokens")
+    feats = [{"records": float(r), "tokens": float(t)}
+             for r, t in rng.uniform(1e3, 1e5, (24, 2))]
+    secs = [0.5e-4 * f["records"] + 1e-6 * f["tokens"] for f in feats]
+    costs = [rng.gamma(2.0, 1e-4, 400) for _ in feats]
+    plans = []
+    for mod, core in ((jdc, rc), (tdc, tc)):
+        cm = core.CostModel(names).fit(feats, secs)
+        ctl = mod.DVFSController(cost_model=cm, planner=planner, seed=3)
+        blocks = ctl.estimate_blocks(feats, costs)
+        deadline = 1.2 * sum(b.est_time_fmax for b in blocks)
+        plans.append((blocks, ctl.make_plan(blocks, deadline),
+                      ctl.make_dvo_plan(blocks, deadline),
+                      [ctl.freq_for_block(i) for i in range(len(feats))]))
+    (jb, jp, jdvo, jf), (tb, tp, tdvo, tf) = plans
+    _same(tb, jb)
+    _same(tp.blocks, jp.blocks)
+    _same(tdvo.blocks, jdvo.blocks)
+    assert tf == jf
