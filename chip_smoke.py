@@ -14,7 +14,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   3. every kernel against its plain PyTorch version on the card: block
      statistics on edge cases (ragged and poisoned rows, odd shapes, mass
      past 2**24, ...), exactly; flash attention in float32 and bfloat16 on
-     MHA, GQA, SWA, non-causal and odd shapes, within 2e-5 and 2e-2;
+     MHA, GQA, SWA, non-causal and odd shapes, within 2e-5 and 2e-2; the
+     SSD scan against the naive recurrence and the plain chunked version
+     (y, and the final state) on the reference's sweep, mamba2-1.3b's and
+     jamba's head shapes, grouped B/C and a partial last chunk, within 5e-4
+     and 5e-2;
   4. the DV-DVFS main path at full size: token blocks -> sampled estimates
      (one block_stats_batched launch a chunk) -> DV-DVFS plans -> simulated
      run against the full-block truth, with its kernels' launch counts read
@@ -28,7 +32,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      DV-DVFS decode windows), with the flash launch count read after it and
      the prefill's logits held against the plain chunked attention;
   8. the serving path at smoke size, card against CPU;
-  9. kernel, plain and library times at the main paths' shapes, beside the
+  9. the Mamba serving path at full width: mamba2-1.3b (48 layers, d_model
+     2048, float32, random weights from a seed) serves the same traffic
+     through ServingEngine.generate (each layer's SSD through the ssd_scan
+     kernel in the prefill, the plain recurrence in decode), with the launch
+     counts read after the prefill and after the run, the kernel held
+     against the plain chunked version on the first and last layers' real
+     inputs, and the final state checked end to end (prefill S-1 tokens and
+     decode the last against the S-token prefill's logits);
+ 10. the Mamba serving path at smoke size, card against CPU;
+ 11. kernel, plain and library times at the main paths' shapes, beside the
      least time the card could take.
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
@@ -60,6 +73,8 @@ from repro_torch.data import BlockDataset  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import flatten  # noqa: E402
 from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
@@ -106,6 +121,7 @@ KERNELS = {
     "block_stats_batched": "src/repro/kernels/block_stats.py:104",
     "block_stats": "src/repro/kernels/block_stats.py:62",
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:27",
 }
 
 # the serving path: olmo-1b at its published width and depth, float32 (the
@@ -113,9 +129,24 @@ KERNELS = {
 # DV-DVFS windows of 16
 SERVE = dict(arch="olmo-1b", batch=8, prompt=1024, max_len=1152, window=16,
              n_tokens=64, slack=1.2, seed=0)
+MAMBA_SERVE = dict(SERVE, arch="mamba2-1.3b")   # the same traffic
 SERVE_LOGIT_TOL = 1e-3     # kernel vs chunked prefill, 16 float32 layers
+# prefill of S tokens vs prefill of S-1 and one decode step, 48 float32
+# layers: the chunked scan against the recurrence, summed in other orders
+CONTINUE_LOGIT_TOL = 1e-3
 SMOKE_LOGIT_TOL = 1e-4     # card vs CPU at smoke size, float32
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}     # test_kernels.py
+# the reference's sweep (tests/test_kernels.py:59-75) through ops.ssd_scan:
+# (BH, S, P, N, chunk)
+SSD_SWEEP = ((3, 128, 16, 32, 32), (3, 256, 32, 16, 64), (3, 64, 8, 8, 64))
+# (label, B, S, H, G, P, N) in the model's layout, B/C strided views
+SSD_CASES = (
+    ("mamba2-1.3b heads 64/128", 2, 1024, 8, 1, 64, 128),
+    ("jamba heads 128/128", 1, 512, 4, 1, 128, 128),
+    ("grouped G=4, 8 heads a group", 1, 512, 32, 4, 64, 64),
+    ("S=1000, partial last chunk", 2, 1000, 8, 1, 64, 128),
+)
 # (label, B, Hq, Hkv, S, D, causal, window); each in float32 and bfloat16
 FLASH_CASES = (
     ("MHA 16/16 (olmo-1b heads)", 2, 16, 16, 1024, 128, True, None),
@@ -130,6 +161,18 @@ FLASH_CASES = (
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def reset_launches() -> None:
+    """Zero every kernel wrapper's launch count."""
+    bs.reset_launches()
+    fa.reset_launches()
+    ss.reset_launches()
+
+
+def launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {**bs.LAUNCHES, **fa.LAUNCHES, **ss.LAUNCHES}
 
 
 def nvidia_smi() -> str:
@@ -165,7 +208,7 @@ def phase_card() -> tuple:
 
 
 def phase_build() -> None:
-    for built in _build.build(bs.SOURCE, fa.SOURCE):
+    for built in _build.build(bs.SOURCE, fa.SOURCE, ss.SOURCE):
         print(f"build: {built.seconds:.3f} s nvcc {' '.join(_build.NVCC_FLAGS)}"
               f" -> {built.path.relative_to(_build.BUILD_ROOT.parents[1])}")
         for line in built.log.splitlines():
@@ -310,14 +353,105 @@ def phase_flash_parity(worst: dict) -> None:
                   f"(tol {tol} abs + rel)")
 
 
+def ssd_close(got: torch.Tensor, want: torch.Tensor, dtype) -> bool:
+    """The reference's test: |got - want| <= tol + tol * |want|."""
+    tol = SSD_TOL[dtype]
+    return bool(torch.isfinite(got.float()).all()
+                and ((got.double() - want.double()).abs()
+                     <= tol + tol * want.double().abs()).all())
+
+
+def ssd_inputs(rng, b, s, h, g, p, n, dtype):
+    """x, dt, a_log, B, C as _run_ssd hands them to the kernel: x a reshape
+    of (B, S, H*P), B and C strided slices of one (B, S, 2*G*N) tensor;
+    seeded values in the reference test's ranges."""
+    x = torch.from_numpy(rng.normal(0, 1, (b, s, h * p)).astype(
+        np.float32)).to("cuda", dtype).reshape(b, s, h, p)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.5, (b, s, h)).astype(
+        np.float32)).to("cuda")
+    a_log = torch.from_numpy(rng.uniform(-1, 1, h).astype(np.float32)).to(
+        "cuda")
+    bc = torch.from_numpy(rng.normal(0, 1, (b, s, 2 * g * n)).astype(
+        np.float32)).to("cuda", dtype)
+    return (x, dt, a_log, bc[..., :g * n].reshape(b, s, g, n),
+            bc[..., g * n:].reshape(b, s, g, n))
+
+
+def ssd_naive(x, dt, a_log, b_mat, c_mat) -> torch.Tensor:
+    """The naive recurrence in the model's layout: each head its own row,
+    B/C repeated to it (only here, for the check)."""
+    b, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+
+    def rows(t):                       # (B, S, H, D) -> (B*H, S, D)
+        return t.transpose(1, 2).reshape(b * h, s, t.shape[-1])
+    y = ref.ssd_scan_ref(
+        rows(x), dt.transpose(1, 2).reshape(b * h, s), a_log.repeat(b),
+        rows(b_mat.repeat_interleave(h // g, dim=2)),
+        rows(c_mat.repeat_interleave(h // g, dim=2)))
+    return y.reshape(b, h, s, p).transpose(1, 2)
+
+
+def phase_ssd_parity(worst: dict) -> None:
+    worst.setdefault("ssd_scan", 0.0)
+    rng = np.random.default_rng(3)
+    for bh, s, p, n, chunk in SSD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a_log, bm, cm = ssd_inputs(rng, 1, s, bh, bh, p, n, dtype)
+            x, dt, bm, cm = (t[0].transpose(0, 1)     # (BH, S, ...) views
+                             for t in (x, dt, bm, cm))
+            before = ss.LAUNCHES["ssd_scan"]
+            got = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk,
+                               device="cuda")
+            naive = ref.ssd_scan_ref(x, dt, a_log, bm, cm)
+            torch.cuda.synchronize()
+            check(ss.LAUNCHES["ssd_scan"] == before + 1,
+                  f"ssd sweep {s}/{p}/{n}: launch count")
+            err = _max_err(got, naive)
+            check(got.dtype == dtype and got.shape == x.shape
+                  and ssd_close(got, naive, dtype),
+                  f"ssd sweep (BH,S,P,N)=({bh},{s},{p},{n}) {dtype}: max "
+                  f"|err| {err} over tol {SSD_TOL[dtype]}")
+            worst["ssd_scan"] = max(worst["ssd_scan"], err)
+            print(f"ssd parity ok: ops.ssd_scan (BH,S,P,N)=({bh},{s},{p},{n})"
+                  f" chunk {chunk} {str(dtype)[6:]}: max |kernel - naive| "
+                  f"{err:.3g} (tol {SSD_TOL[dtype]} abs + rel)")
+    for label, b, s, h, g, p, n in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(rng, b, s, h, g, p, n, dtype)
+            before = ss.LAUNCHES["ssd_scan"]
+            y, state = ss.ssd_scan_cuda(*args, final_state=True)
+            want_y, want_state = ref.ssd_chunked_ref(*args, chunk=256)
+            naive = ssd_naive(*args)
+            torch.cuda.synchronize()
+            check(ss.LAUNCHES["ssd_scan"] == before + 1,
+                  f"ssd {label}: launch count")
+            check(y.dtype == dtype and y.shape == args[0].shape
+                  and state.shape == (b, h, p, n), f"ssd {label}: shapes")
+            errs = {"y-chunked": _max_err(y, want_y),
+                    "y-naive": _max_err(y, naive),
+                    "state": _max_err(state, want_state)}
+            for what, (got, want) in {"y-chunked": (y, want_y),
+                                      "y-naive": (y, naive),
+                                      "state": (state, want_state)}.items():
+                check(ssd_close(got, want, dtype),
+                      f"ssd {label} {dtype} {what}: max |err| {errs[what]} "
+                      f"over tol {SSD_TOL[dtype]}")
+            worst["ssd_scan"] = max(worst["ssd_scan"], errs["y-chunked"],
+                                    errs["y-naive"])
+            print(f"ssd parity ok: {label} (B,S,H,G,P,N)=({b},{s},{h},{g},"
+                  f"{p},{n}) {str(dtype)[6:]}: max |err| " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in errs.items())
+                  + f" (tol {SSD_TOL[dtype]} abs + rel)")
+
+
 def phase_main_path() -> dict:
     ds = BlockDataset(**MAIN)
     cfg = PipelineConfig(fraction=FRACTION, power=POWER)
     walls = dict.fromkeys(("generate", "estimate", "truth_stats", "plan"), 0.0)
     parts, truth = [], []
     first_chunk = None
-    bs.reset_launches()
-    fa.reset_launches()
+    reset_launches()
     t_all = time.perf_counter()
     chunks = ds.iter_token_chunks(CHUNK, device="cuda")
     while True:
@@ -383,18 +517,18 @@ def phase_main_path() -> dict:
                   f"{rep.total_time_s:.6f} s of {deadline:.6f} s, "
                   f"deadline_met={rep.deadline_met}")
     walls["plan"] = time.perf_counter() - t0
-    launches = dict(bs.LAUNCHES)
-    print(f"  launches in the main path: {json.dumps(launches)}")
-    check(fa.LAUNCHES["flash_attention"] == 0,
-          "the DV-DVFS path launched flash attention")
+    counts = launches()
+    print(f"  launches in the main path: {json.dumps(counts)}")
+    check(counts["flash_attention"] == 0 and counts["ssd_scan"] == 0,
+          "the DV-DVFS path launched a serving kernel")
     for slack, planner, rep in plans:
         if slack == SLACKS[-1] and planner in ("paper", "global"):
             check(rep.deadline_met, f"{planner} misses the firm deadline")
     for name in bs.LAUNCHES:
-        check(launches[name] > 0, f"main path never launched {name}")
+        check(counts[name] > 0, f"main path never launched {name}")
     walls["total"] = time.perf_counter() - t_all
     print("  wall: " + ", ".join(f"{k} {v:.6f} s" for k, v in walls.items()))
-    return {"launches": launches, "k": k, "first_chunk": first_chunk}
+    return {"launches": counts, "k": k, "first_chunk": first_chunk}
 
 
 def phase_small_path() -> None:
@@ -509,6 +643,7 @@ class TimedEngine(ServingEngine):
         self._sync()
         self.prefill_s = time.perf_counter() - t0
         self.prefill_logits = logits
+        self.prefill_launches = launches()
         return logits, cache
 
     def _window(self, n_steps, tok, cache):
@@ -519,22 +654,40 @@ class TimedEngine(ServingEngine):
         return out
 
 
+def cache_bytes_per_token(cfg, batch: int, max_len: int) -> int:
+    """The bytes a decode step moves through the layers' caches: the whole
+    float32 KV cache read for an attention layer; the float32 SSM state and
+    the conv caches each read and written for a Mamba layer."""
+    total = 0
+    for spec in cfg.pattern:
+        if spec.mixer == "attn":
+            total += 2 * batch * max_len * cfg.n_kv_heads * cfg.d_head * 4
+        else:
+            sc = cfg.ssm
+            state = batch * sc.n_heads * sc.head_dim * sc.d_state * 4
+            conv = batch * (sc.d_conv - 1) * (sc.d_inner + sc.d_bc) * 4
+            total += 2 * (state + conv)
+    return total * cfg.n_repeats
+
+
 def serve_roofline(cfg, batch: int, max_len: int, tokens: int
                    ) -> RooflineTimeModel:
     """A decode window's roofline on the H100: the model's decode FLOPs over
-    the float32 rate, and the float32 weights plus the whole KV cache read
-    once a token over the memory rate."""
-    kv_bytes = 2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads \
-        * cfg.d_head * 4
+    the float32 rate, and the float32 weights read once a token plus each
+    layer's cache traffic over the memory rate."""
     return RooflineTimeModel.from_counts(
         flops=tokens * T.model_flops(cfg, batch, max_len, mode="decode"),
-        hbm_bytes=tokens * (4 * cfg.param_count() + kv_bytes),
+        hbm_bytes=tokens * (4 * cfg.param_count()
+                            + cache_bytes_per_token(cfg, batch, max_len)),
         coll_bytes=0, spec=H100)
 
 
-def phase_serving() -> dict:
-    sv = SERVE
-    cfg = get_arch(sv["arch"], attn_impl_train="pallas")
+def serve_run(sv: dict, cfg, kernel: str, describe: str) -> tuple:
+    """The serving path at full width: random float32 weights from the
+    seed, seeded prompts, the H100 window roofline; ``generate`` with every
+    launch count zeroed just before and read just after.  Checks one
+    ``kernel`` launch a layer, all of them in the prefill, and the outputs'
+    shapes; returns (engine, prompts, output, counts, roofline, walls)."""
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     (params, init_s) = sync_seconds(lambda: T.init_params(
@@ -549,23 +702,23 @@ def phase_serving() -> dict:
                      slack=sv["slack"])
     eng = TimedEngine(cfg, params, sc, roofline=roof, device=dev)
     print(f"serving path: {cfg.name} {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}x{cfg.d_head} heads, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab}, {n_params} float32 parameters (random, seed "
-          f"{sv['seed']}, init {init_s:.3f} s); {sv['batch']} prompts x "
-          f"{sv['prompt']} tokens, {sv['n_tokens']} new tokens, windows of "
-          f"{sv['window']}, slack {sv['slack']}")
+          f"{cfg.d_model}, {describe}, vocab {cfg.vocab}, {n_params} float32 "
+          f"parameters (random, seed {sv['seed']}, init {init_s:.3f} s); "
+          f"{sv['batch']} prompts x {sv['prompt']} tokens, {sv['n_tokens']} "
+          f"new tokens, windows of {sv['window']}, slack {sv['slack']}")
 
-    bs.reset_launches()
-    fa.reset_launches()
+    reset_launches()
     out, gen_s = sync_seconds(lambda: eng.generate({"tokens": prompts},
                                                    sv["n_tokens"]))
-    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
-                **bs.LAUNCHES}
-    print(f"  launches in the serving path: {json.dumps(launches)}")
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"prefill launched flash attention {launches['flash_attention']} "
-          f"times, not once a layer ({cfg.n_layers})")
+    counts = launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches in the serving path: {json.dumps(counts)}")
+    check(counts[kernel] == cfg.n_layers,
+          f"the path launched {kernel} {counts[kernel]} times, not once a "
+          f"layer ({cfg.n_layers})")
+    check(counts == eng.prefill_launches and sum(counts.values())
+          == counts[kernel], f"a kernel other than {kernel}, or one outside "
+          "the prefill, was launched")
 
     toks = out["tokens"]
     check(tuple(toks.shape) == (sv["batch"], sv["n_tokens"] + 1),
@@ -577,10 +730,63 @@ def phase_serving() -> dict:
     check(tuple(logits.shape) == (sv["batch"], cfg.vocab)
           and bool(torch.isfinite(logits).all()),
           "prefill logits are not finite of shape (B, V)")
+    return eng, prompts, out, counts, roof, {"generate_s": gen_s,
+                                             "peak_gb": peak_gb}
 
+
+def serve_report(eng, sv: dict, out, roof, walls: dict) -> dict:
+    """Print the prefill, window, decode, roofline and plan lines of a
+    serving run; check the plan spends no more simulated energy than
+    DVO."""
+    cfg = eng.cfg
+    windows = eng.window_s
+    decoded = sum(n for n, _ in windows[1:])      # the timed windows
+    decode_s = sum(w for _, w in windows[1:])
+    freqs = [bp.rel_freq for bp in eng.plan.blocks]
+    saving = 1 - out["energy"]["busy_j"] / out["energy_dvo"]["busy_j"]
+    # the prefill's matrix products: 2 FLOP a weight of the blocks a token
+    tokens = sv["batch"] * sv["prompt"]
+    mm_flops = 2 * tokens * sum(t[0].numel() for blk in eng.params["blocks"]
+                                for t in flatten(blk).values()) \
+        * cfg.n_repeats
+    print(f"  prefill wall {eng.prefill_s:.6f} s ({sv['batch']}x"
+          f"{sv['prompt']} tokens: {tokens / eng.prefill_s:.1f} tokens/s; "
+          f"{mm_flops} FLOP of the blocks' matrix products at "
+          f"{mm_flops / eng.prefill_s / 1e12:.3f} TFLOP/s, {cfg.n_layers} "
+          f"kernel launches inside); generate wall {walls['generate_s']:.6f}"
+          f" s; peak device memory {walls['peak_gb']:.3f} GB")
+    print("  window walls: " + ", ".join(
+        f"{n} tok {w:.6f} s" for n, w in windows)
+        + " (the first, one untimed step; the second, the f_max calibration)")
+    print(f"  decode {decoded} steps x {sv['batch']} sequences in "
+          f"{decode_s:.6f} s: {decoded * sv['batch'] / decode_s:.1f} tokens/s"
+          f" ({1e3 * decode_s / decoded:.3f} ms a step)")
+    print(f"  roofline of a window on the H100: t_comp "
+          f"{roof.terms.t_comp:.6f} s, t_mem {roof.terms.t_mem:.6f} s "
+          f"(bound: {roof.terms.dominant}; cache traffic "
+          f"{cache_bytes_per_token(cfg, sv['batch'], sv['max_len'])} bytes a "
+          f"token); plan ({eng.sc.planner}) frequencies {freqs}, DVO "
+          f"{[bp.rel_freq for bp in eng.dvo_plan.blocks]}")
+    print(f"  energy vs DVO, simulated with the copied TPU_V5E_POWER curve "
+          f"(not the card's energy): {100 * saving:+.4f}% "
+          f"(ledger steps {out['energy']['steps']})")
+    check(saving >= -1e-9, "the plan spends more simulated energy than DVO")
+    return {"prefill_s": eng.prefill_s, "windows": windows,
+            "decode_tokens_per_s": decoded * sv["batch"] / decode_s,
+            "saving": saving, **walls}
+
+
+def phase_serving() -> dict:
+    sv = SERVE
+    cfg = get_arch(sv["arch"], attn_impl_train="pallas")
+    eng, prompts, out, counts, roof, walls = serve_run(
+        sv, cfg, "flash_attention", f"{cfg.n_heads}x{cfg.d_head} heads, d_ff "
+        f"{cfg.d_ff}")
+    logits = eng.prefill_logits
     chunked = cfg.replace(attn_impl_train="chunked")
     (want, cache), chunked_s = sync_seconds(lambda: T.prefill(
-        eng.params, chunked, {"tokens": torch.as_tensor(prompts, device=dev)},
+        eng.params, chunked, {"tokens": torch.as_tensor(prompts,
+                                                        device="cuda")},
         sv["max_len"]))
     err = _max_err(logits, want)
     print(f"  prefill last logits, flash kernel vs plain chunked attention: "
@@ -593,41 +799,8 @@ def phase_serving() -> dict:
 
     decode_profile(eng.params, cfg, want.argmax(-1).to(torch.int32)[:, None],
                    cache)
-
-    windows = eng.window_s
-    decoded = sum(n for n, _ in windows[1:])      # the timed windows
-    decode_s = sum(w for _, w in windows[1:])
-    freqs = [bp.rel_freq for bp in eng.plan.blocks]
-    saving = 1 - out["energy"]["busy_j"] / out["energy_dvo"]["busy_j"]
-    # the prefill's matrix products: 2 FLOP a weight of the blocks a token
-    tokens = sv["batch"] * sv["prompt"]
-    mm_flops = 2 * tokens * sum(t[0].numel() for blk in params["blocks"]
-                                for t in flatten(blk).values()) \
-        * cfg.n_repeats
-    print(f"  prefill wall {eng.prefill_s:.6f} s ({sv['batch']}x"
-          f"{sv['prompt']} tokens: {tokens / eng.prefill_s:.1f} tokens/s; "
-          f"{mm_flops} FLOP of projections and MLP at "
-          f"{mm_flops / eng.prefill_s / 1e12:.3f} TFLOP/s, {cfg.n_layers} "
-          f"kernel launches inside); generate wall {gen_s:.6f} s; peak device "
-          f"memory {peak_gb:.3f} GB")
-    print("  window walls: " + ", ".join(
-        f"{n} tok {w:.6f} s" for n, w in windows)
-        + " (the first, one untimed step; the second, the f_max calibration)")
-    print(f"  decode {decoded} steps x {sv['batch']} sequences in "
-          f"{decode_s:.6f} s: {decoded * sv['batch'] / decode_s:.1f} tokens/s"
-          f" ({1e3 * decode_s / decoded:.3f} ms a step)")
-    print(f"  roofline of a window on the H100: t_comp "
-          f"{roof.terms.t_comp:.6f} s, t_mem {roof.terms.t_mem:.6f} s "
-          f"(bound: {roof.terms.dominant}); plan ({sc.planner}) frequencies "
-          f"{freqs}, DVO {[bp.rel_freq for bp in eng.dvo_plan.blocks]}")
-    print(f"  energy vs DVO, simulated with the copied TPU_V5E_POWER curve "
-          f"(not the card's energy): {100 * saving:+.4f}% "
-          f"(ledger steps {out['energy']['steps']})")
-    check(saving >= -1e-9, "the plan spends more simulated energy than DVO")
-    return {"launches": launches, "prefill_s": eng.prefill_s,
-            "windows": windows, "decode_tokens_per_s":
-                decoded * sv["batch"] / decode_s,
-            "logit_err": err, "saving": saving}
+    return {"launches": counts, "logit_err": err,
+            **serve_report(eng, sv, out, roof, walls)}
 
 
 def decode_profile(params, cfg, tok, cache, top: int = 8) -> None:
@@ -664,8 +837,11 @@ def decode_profile(params, cfg, tok, cache, top: int = 8) -> None:
               f"x{e.count:<4d} {e.key}")
 
 
-def phase_serving_cpu() -> None:
-    cfg = smoke_config("olmo-1b", attn_impl_train="pallas")
+def phase_serving_cpu(arch: str, kernel: str, **overrides) -> None:
+    """``arch`` at smoke size served on the card and on the CPU with the
+    same weights and prompts: one ``kernel`` launch a layer on the card,
+    none on the CPU; logits within SMOKE_LOGIT_TOL, equal greedy tokens."""
+    cfg = smoke_config(arch, **overrides)
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     prompts = np.random.default_rng(1).integers(
@@ -673,19 +849,102 @@ def phase_serving_cpu() -> None:
     sc = ServeConfig(batch=2, max_len=96, window=8, slack=1.2)
     outs = {}
     for dev in ("cuda", "cpu"):
+        reset_launches()
         eng = TimedEngine(cfg, params, sc, device=dev)
         out = eng.generate({"tokens": prompts}, 24)
         outs[dev] = (eng.prefill_logits.cpu(), out["tokens"].cpu())
+        check(launches()[kernel] == (cfg.n_layers if dev == "cuda" else 0),
+              f"smoke {cfg.name} on {dev}: {kernel} launch count")
     err = _max_err(outs["cuda"][0], outs["cpu"][0])
     print(f"smoke serving ({cfg.name} at smoke size, {cfg.n_layers} layer, "
-          f"d_model {cfg.d_model}): card vs CPU prefill logits max |err| "
-          f"{err:.3g} (tol {SMOKE_LOGIT_TOL})")
+          f"d_model {cfg.d_model}, through {kernel}): card vs CPU prefill "
+          f"logits max |err| {err:.3g} (tol {SMOKE_LOGIT_TOL})")
     for b in range(2):
         print(f"  sequence {b} card: {outs['cuda'][1][b].tolist()}")
         print(f"  sequence {b} cpu:  {outs['cpu'][1][b].tolist()}")
     check(err <= SMOKE_LOGIT_TOL, f"card and CPU logits differ by {err}")
     check(torch.equal(outs["cuda"][1], outs["cpu"][1]),
           "card and CPU greedy tokens differ")
+
+
+class SsdRecorder:
+    """A pass-through around the model's ``ssd_scan_cuda`` that keeps the
+    arguments and results of the calls numbered in ``keep``."""
+
+    def __init__(self, keep):
+        self.keep = set(keep)
+        self.calls: dict = {}
+        self.n = 0
+
+    def __call__(self, *args, **kw):
+        out = ss.ssd_scan_cuda(*args, **kw)
+        if self.n in self.keep:
+            self.calls[self.n] = (args, kw, out)
+        self.n += 1
+        return out
+
+
+def phase_mamba_serving() -> dict:
+    sv = MAMBA_SERVE
+    cfg = get_arch(sv["arch"])
+    sc = cfg.ssm
+    eng, prompts, out, counts, roof, walls = serve_run(
+        sv, cfg, "ssd_scan", f"d_inner {sc.d_inner}, {sc.n_heads}x"
+        f"{sc.head_dim} heads, d_state {sc.d_state}, {sc.n_groups} group")
+    logits = eng.prefill_logits
+    tprompts = torch.as_tensor(prompts, device="cuda")
+
+    # the kernel against the plain chunked version on the real inputs of
+    # the first and the last layer, recorded in a second prefill
+    last = cfg.n_layers - 1
+    rec = SsdRecorder((0, last))
+    M.ssd_scan_cuda = rec
+    try:
+        again, _ = T.prefill(eng.params, cfg, {"tokens": tprompts},
+                             sv["max_len"])
+    finally:
+        M.ssd_scan_cuda = ss.ssd_scan_cuda
+    again_err = _max_err(again, logits)
+    check(rec.n == cfg.n_layers and again_err <= SMOKE_LOGIT_TOL,
+          f"a second prefill of the same prompts differs by {again_err}")
+    layer_err = {}
+    for i, (args, kw, (y, state)) in sorted(rec.calls.items()):
+        want_y, want_state = ref.ssd_chunked_ref(*args, chunk=kw["chunk"])
+        layer_err[i] = (_max_err(y, want_y), _max_err(state, want_state))
+        print(f"  layer {i} SSD, kernel vs plain chunked on its real inputs: "
+              f"y max |err| {layer_err[i][0]:.3g} (|y| up to "
+              f"{float(want_y.abs().max()):.4g}), state max |err| "
+              f"{layer_err[i][1]:.3g} (|state| up to "
+              f"{float(want_state.abs().max()):.4g}); tol "
+              f"{SSD_TOL[torch.float32]} abs + rel")
+        check(ssd_close(y, want_y, torch.float32)
+              and ssd_close(state, want_state, torch.float32),
+              f"layer {i}: the kernel differs from the plain chunked SSD")
+    del rec, again
+
+    # the final state end to end: S-1 tokens of prefill, then one decode
+    # step of the last token, against the S-token prefill's last logits
+    _, cache = T.prefill(eng.params, cfg, {"tokens": tprompts[:, :-1]},
+                         sv["max_len"])
+    step, _ = T.decode_step(eng.params, cfg, tprompts[:, -1:], cache)
+    cont_err = _max_err(step, logits)
+    print(f"  continuation: prefill {sv['prompt'] - 1} tokens + decode token "
+          f"{sv['prompt']} vs the {sv['prompt']}-token prefill: last logits "
+          f"max |err| {cont_err:.6g} (tol {CONTINUE_LOGIT_TOL}; |logits| up "
+          f"to {float(logits.abs().max()):.4f})")
+    check(cont_err <= CONTINUE_LOGIT_TOL,
+          f"decode after prefill differs from the prefill by {cont_err}")
+    check(torch.equal(step.argmax(-1), logits.argmax(-1)),
+          "greedy tokens differ between continuation and prefill")
+    del cache, step
+
+    _, cache = T.prefill(eng.params, cfg, {"tokens": tprompts},
+                         sv["max_len"])
+    decode_profile(eng.params, cfg, logits.argmax(-1).to(torch.int32)[:, None],
+                   cache)
+    return {"launches": counts, "layer_err": layer_err,
+            "continuation_err": cont_err,
+            **serve_report(eng, sv, out, roof, walls)}
 
 
 def event_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
@@ -817,6 +1076,67 @@ def phase_flash_times(serving: dict, worst: dict) -> dict:
             "library_ms": main["library_ms"], "per_shape": per_shape}
 
 
+def ssd_bound(b, s, h, g, p, n, dtype) -> tuple:
+    """(bound ms, "operations" or "bytes", flops, bytes) of the SSD scan at
+    this shape: 4*P*N operations a (token, head), the state's update and
+    read-out that every exact algorithm does, at the type's peak rate; x,
+    dt, B and C read once and y and the final float32 state written once at
+    the memory rate."""
+    flops = 4 * p * n * b * s * h
+    item = dtype.itemsize
+    nbytes = (2 * b * s * h * p * item + b * s * h * 4 + h * 4
+              + 2 * b * s * g * n * item + b * h * p * n * 4)
+    rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_ssd_times(serving: dict, worst: dict) -> dict:
+    sc = get_arch(MAMBA_SERVE["arch"]).ssm
+    b, s, h, g, p, n = (MAMBA_SERVE["batch"], MAMBA_SERVE["prompt"],
+                        sc.n_heads, sc.n_groups, sc.head_dim, sc.d_state)
+    rng = np.random.default_rng(4)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    per_shape = []
+    for dtype in (torch.float32, torch.bfloat16):
+        args = ssd_inputs(rng, b, s, h, g, p, n, dtype)
+        got, state = ss.ssd_scan_cuda(*args, final_state=True)
+        want, want_state = ref.ssd_chunked_ref(*args, chunk=sc.chunk)
+        err = _max_err(got, want)
+        check(ssd_close(got, want, dtype)
+              and ssd_close(state, want_state, dtype),
+              f"ssd_scan {dtype} at the main shape differs by {err}")
+        worst["ssd_scan"] = max(worst["ssd_scan"], err)
+        ms = event_ms(lambda: ss.ssd_scan_cuda(*args, final_state=True),
+                      flush)
+        plain_ms = event_ms(lambda: ref.ssd_chunked_ref(*args,
+                                                        chunk=sc.chunk), flush)
+        bound, by, flops, nbytes = ssd_bound(b, s, h, g, p, n, dtype)
+        per_shape.append({"dtype": str(dtype)[6:],
+                          "shape": [b, s, h, g, p, n], "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": None,
+                          "bound_ms": bound, "bound_by": by, "flops": flops,
+                          "bytes": nbytes, "share": bound / ms,
+                          "max_abs_err": err,
+                          "state_max_abs_err": _max_err(state, want_state)})
+        print(f"  ssd_scan {str(dtype)[6:]} (B,S,H,G,P,N)=({b},{s},{h},{g},"
+              f"{p},{n}), B/C strided views, y and the final state: kernel "
+              f"{ms:.6f} ms, plain chunked (chunk {sc.chunk}) {plain_ms:.6f} "
+              f"ms, bound {bound:.6f} ms ({by}: {flops} FLOP, {nbytes} bytes)"
+              f" = {100 * bound / ms:.4f}% of the bound; max |err| {err:.3g};"
+              " no single PyTorch call computes the scan (library_ms null)")
+    main = per_shape[0]                  # the serving path runs float32
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + ss.SOURCE,
+            "replaces": KERNELS["ssd_scan"],
+            "launches": serving["launches"]["ssd_scan"],
+            "max_abs_err": worst["ssd_scan"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "per_shape": per_shape}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -826,15 +1146,19 @@ def main() -> int:
     phase_build()
     worst = phase_parity()
     phase_flash_parity(worst)
+    phase_ssd_parity(worst)
     main_path = phase_main_path()
     phase_small_path()
     phase_apps()
     serving = phase_serving()
-    phase_serving_cpu()
+    phase_serving_cpu("olmo-1b", "flash_attention", attn_impl_train="pallas")
+    mamba = phase_mamba_serving()
+    phase_serving_cpu("mamba2-1.3b", "ssd_scan")
     print(f"times on {kind} ({smi}); ms, plain_ms and library_ms are "
           "CUDA-event medians of 20 runs, each after evicting the L2:")
     kernels = phase_times(main_path, worst)
     kernels.append(phase_flash_times(serving, worst))
+    kernels.append(phase_ssd_times(mamba, worst))
     print(f"total wall: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

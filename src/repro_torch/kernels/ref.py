@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels.
 
 They compute what ``src/repro/kernels/ref.py``'s ``flash_attention_ref``,
-``block_stats_ref`` and ``block_stats_batched_ref`` compute, on any device:
-the CPU path of the kernel wrappers, and what the tests and ``chip_smoke.py``
-hold the CUDA kernels against; never the card's main path.  Counts and mass are summed as int64 and cast to float32
-once, so mass is the exact sum rounded to float32; the reference sums mass
-in float32, which is inexact past 2**24.
+``ssd_scan_ref``, ``block_stats_ref`` and ``block_stats_batched_ref``
+compute, on any device: the CPU path of the kernel wrappers, and what the
+tests and ``chip_smoke.py`` hold the CUDA kernels against; never the card's
+main path.  ``ssd_chunked_ref`` is the chunked SSD of
+``src/repro/models/mamba2.py:_ssd_chunked`` without its D-skip term, the
+plain version of the ``ssd_scan`` kernel.  Counts and mass are summed as
+int64 and cast to float32 once, so mass is the exact sum rounded to
+float32; the reference sums mass in float32, which is inexact past 2**24.
 """
 from __future__ import annotations
 
@@ -13,8 +16,9 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "row_matches", "row_stats",
-           "block_stats_ref", "block_stats_batched_ref"]
+__all__ = ["flash_attention_ref", "ssd_scan_ref", "ssd_chunked_ref",
+           "row_matches", "row_stats", "block_stats_ref",
+           "block_stats_batched_ref"]
 
 NEG_INF = -1e30
 
@@ -42,6 +46,86 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.where(ok, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b_mat: torch.Tensor, c_mat: torch.Tensor) -> torch.Tensor:
+    """Naive O(S) recurrence. x: (BH,S,P), dt: (BH,S), b/c: (BH,S,N) ->
+    y (BH,S,P) in x's dtype; the state is float32."""
+    bh, s, p = x.shape
+    n = b_mat.shape[-1]
+    a = -torch.exp(a_log.float())                        # (BH,)
+    h = torch.zeros((bh, p, n), dtype=torch.float32, device=x.device)
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b_mat.float(), c_mat.float()
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * a)                 # (BH,)
+        h = h * decay[:, None, None] + torch.einsum(
+            "b,bn,bp->bpn", dtf[:, t], bf[:, t], xf[:, t])
+        ys.append(torch.einsum("bpn,bn->bp", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bh, 0, p))
+    return y.to(x.dtype)
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                    b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                    chunk: int = 256) -> tuple:
+    """Chunked SSD without the D-skip term.
+
+    x (B,S,H,P), dt (B,S,H) (post-softplus), a_log (H,), b/c (B,S,G,N) with
+    H = G*R -> (y (B,S,H,P) in x's dtype, final state (B,H,P,N) float32).
+    The chunk is the reference model's: ``min(chunk, S)``, decremented
+    until it divides S.  Every product is pairwise: the largest intermediate
+    is the (B,q,q,G,R) decay, never a (B,q,q,G,R,P) tensor.  Decays are exp
+    of non-positive sums (A < 0), and exp is taken only on and below the
+    diagonal.
+    """
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    r = h // g
+    q = max(min(chunk, s), 1)
+    while s % q:
+        q -= 1
+    nc = s // q
+    a = -torch.exp(a_log.float())                         # (H,) negative
+    dtf = dt.float()
+    dta = dtf * a                                         # (B,S,H)
+
+    def cm(t, shape):   # chunk-major: (nc, B, q, ...)
+        return t.reshape((bsz, nc, q) + shape).transpose(0, 1)
+
+    xc_all = cm(x, (g, r, p))
+    dtc_all = cm(dtf, (g, r))
+    dtac_all = cm(dta, (g, r))
+    bc_all = cm(b_mat, (g, n))
+    cc_all = cm(c_mat, (g, n))
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    below = tri[None, :, :, None, None]
+    hprev = torch.zeros((bsz, g, r, p, n), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c in range(nc):
+        xc = xc_all[c].float()                            # (B,q,g,r,p)
+        dtc, dtac = dtc_all[c], dtac_all[c]               # (B,q,g,r)
+        bc, cc = bc_all[c].float(), cc_all[c].float()     # (B,q,g,n)
+        seg = torch.cumsum(dtac, dim=1)                   # (B,q,g,r)
+        li = seg[:, :, None] - seg[:, None, :]            # (B,q,q,g,r)
+        decay = torch.exp(li.masked_fill(~below, -torch.inf))
+        scores = torch.einsum("bign,bjgn->bijg", cc, bc)
+        wgt = scores[..., None] * decay * dtc[:, None]    # (B,q,q,g,r)
+        y_intra = torch.einsum("bijgr,bjgrp->bigrp", wgt, xc)
+        entry = torch.exp(seg)                            # (B,q,g,r)
+        y_inter = torch.einsum("bign,bgrpn->bigrp", cc, hprev) \
+            * entry[..., None]
+        tail = torch.exp(seg[:, -1:] - seg)               # (B,q,g,r)
+        xw = xc * (tail * dtc)[..., None]                 # (B,q,g,r,p)
+        state = torch.einsum("bjgrp,bjgn->bgrpn", xw, bc)
+        hprev = hprev * torch.exp(seg[:, -1])[..., None, None] + state
+        ys.append((y_intra + y_inter).to(x.dtype))
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p) if ys \
+        else torch.empty_like(x)
+    return y, hprev.reshape(bsz, h, p, n)
 
 
 def row_matches(tokens: torch.Tensor, pattern) -> torch.Tensor:

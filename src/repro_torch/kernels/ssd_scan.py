@@ -1,0 +1,138 @@
+"""Mamba-2 SSD chunk scan in the model's layout.
+
+``ssd_scan_cuda(x, dt, a_log, b_mat, c_mat, chunk=, final_state=)`` takes
+x (B, S, H, P), dt (B, S, H) float32 (post-softplus), a_log (H,) float32 and
+B/C (B, S, G, N) with H a multiple of G, and returns y (B, S, H, P) in x's
+type, with the final state (B, H, P, N) float32 when ``final_state``.  A CPU
+tensor goes to the plain chunked version in ``repro_torch.kernels.ref``
+(chunked by ``chunk`` as the reference model chunks); a CUDA tensor goes to
+the CUDA kernel in ``csrc/ssd_scan.cu`` (built for ``sm_90a`` at first use),
+or the call raises.  ``LAUNCHES`` counts the kernel's launches.
+
+Input rule: x, B and C of one dtype (float32 or bfloat16), dt and a_log
+float32, P and N in ``SIZES``.  The kernel reads every input through its
+strides, so the model's views (x a reshape of the conv output, B and C
+slices of ``bc_conv``, one group for many heads) are neither copied nor
+repeated per head; a tensor whose last dimension is not contiguous is
+copied once.  y has x's memory layout (``torch.empty_like``).  The kernel
+picks its own chunk length (64 rows); ``chunk`` shapes only the CPU path.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import ssd_chunked_ref
+
+__all__ = ["LAUNCHES", "SIZES", "reset_launches", "ssd_scan_cuda"]
+
+SOURCE = "ssd_scan.cu"
+SIZES = (8, 16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches; chip_smoke.py zeroes it before the serving path and reads
+# it after
+LAUNCHES = {"ssd_scan": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["ssd_scan"] = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    if lib.ssd_scan_launch.argtypes is None:
+        lib.ssd_scan_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+        lib.ssd_scan_launch.restype = ctypes.c_int
+        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, dt, a_log, b_mat, c_mat) -> None:
+    named = (("x", x), ("dt", dt), ("a_log", a_log), ("b_mat", b_mat),
+             ("c_mat", c_mat))
+    for name, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name} on unsupported device {t.device}")
+    for name, t, rank in (("x", x, 4), ("dt", dt, 3), ("a_log", a_log, 1),
+                          ("b_mat", b_mat, 4), ("c_mat", c_mat, 4)):
+        if t.dim() != rank:
+            raise ValueError(f"{name} must have rank {rank}, got shape "
+                             f"{tuple(t.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not (x.dtype == b_mat.dtype == c_mat.dtype):
+        raise TypeError(f"x, b_mat, c_mat differ in dtype: {x.dtype}, "
+                        f"{b_mat.dtype}, {c_mat.dtype}")
+    if dt.dtype != torch.float32 or a_log.dtype != torch.float32:
+        raise TypeError(f"dt and a_log must be float32, got {dt.dtype} and "
+                        f"{a_log.dtype}")
+    if len({t.device for _, t in named}) != 1:
+        raise ValueError("x, dt, a_log, b_mat, c_mat lie on different "
+                         "devices")
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    if tuple(dt.shape) != (bsz, s, h) or tuple(a_log.shape) != (h,):
+        raise ValueError(f"dt {tuple(dt.shape)} / a_log {tuple(a_log.shape)}"
+                         f" do not match x {tuple(x.shape)}")
+    if tuple(b_mat.shape) != (bsz, s, g, n) or c_mat.shape != b_mat.shape:
+        raise ValueError(f"b_mat {tuple(b_mat.shape)} / c_mat "
+                         f"{tuple(c_mat.shape)} do not match x "
+                         f"{tuple(x.shape)} in batch and length, or differ")
+    if g == 0 or h % g:
+        raise ValueError(f"H={h} is not a multiple of G={g}")
+    if p not in SIZES or n not in SIZES:
+        raise ValueError(f"head dim P={p} and state dim N={n} must be in "
+                         f"{SIZES}")
+
+
+def _launch(lib, x, dt, a_log, b_mat, c_mat, y, state) -> int:
+    """Call the C entry on tensors that satisfy ``_check``; returns its
+    error code."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    strides = [t.stride()[:3] for t in (x, dt, b_mat, c_mat, y)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
+        c_mat.data_ptr(), y.data_ptr(),
+        state.data_ptr() if state is not None else None, _DTYPES[x.dtype],
+        bsz, s, h, g, p, n, *[v for st in strides for v in st], stream)
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                  b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                  chunk: int = 256, final_state: bool = False):
+    """x (B,S,H,P), dt (B,S,H), a_log (H,), b/c (B,S,G,N) -> y (B,S,H,P) in
+    x's dtype, or (y, state (B,H,P,N) float32) when ``final_state``."""
+    _check(x, dt, a_log, b_mat, c_mat)
+    if x.device.type == "cpu":
+        y, state = ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, chunk=chunk)
+        return (y, state) if final_state else y
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    x, b_mat, c_mat = (t if t.stride(-1) == 1 else t.contiguous()
+                       for t in (x, b_mat, c_mat))
+    y = torch.empty_like(x)
+    run = bool(bsz and s and h)
+    state = None
+    if final_state:   # the kernel writes every entry; S = 0 leaves zeros
+        state = (torch.empty if run else torch.zeros)(
+            (bsz, h, p, n), dtype=torch.float32, device=x.device)
+    if run:
+        lib = _library()
+        with torch.cuda.device(x.device):
+            err = _launch(lib, x, dt, a_log.contiguous(), b_mat, c_mat, y,
+                          state)
+        if err != 0:
+            msg = lib.ssd_scan_error_string(err).decode()
+            raise RuntimeError(f"ssd_scan CUDA launch failed: {msg} ({err})")
+        LAUNCHES["ssd_scan"] += 1
+    return (y, state) if final_state else y

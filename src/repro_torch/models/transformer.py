@@ -4,9 +4,9 @@ The port of ``src/repro/models/transformer.py``.  One super-block
 (cfg.pattern) of layers is repeated cfg.n_repeats times: the parameter tree
 is the reference's (``blocks`` a tuple over the pattern, every leaf with a
 leading ``n_repeats`` dimension), and the reference's ``lax.scan`` over
-repeats is a Python loop over that leading index.  Attention + dense-MLP
-layers are ported; ``mixer="mamba"`` and ``ffn="moe"`` raise
-``NotImplementedError`` until their slices (ROADMAP Queue 1 item 9), and
+repeats is a Python loop over that leading index.  Attention and Mamba-2
+mixers with dense-MLP (or no) FFNs are ported; ``ffn="moe"`` raises
+``NotImplementedError`` until its slice (ROADMAP Queue 1 item 9), and
 ``loss_fn`` comes with training.
 
 API (pure functions over parameter trees of tensors; caches are updated in
@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.common import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        normal)
@@ -39,15 +40,13 @@ def _dims(cfg: ArchConfig) -> attn.AttnDims:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    """Raise unless every layer of the pattern is attention + dense/none."""
+    """Raise unless every layer of the pattern is attention or Mamba-2 +
+    dense/none."""
     for spec in cfg.pattern:
-        if spec.mixer == "mamba":
-            raise NotImplementedError(
-                "mixer='mamba' is not ported yet (ROADMAP Queue 1 item 9)")
         if spec.ffn == "moe":
             raise NotImplementedError(
                 "ffn='moe' is not ported yet (ROADMAP Queue 1 item 9)")
-        if spec.mixer != "attn":
+        if spec.mixer not in ("attn", "mamba"):
             raise ValueError(spec.mixer)
         if spec.ffn not in ("dense", "none"):
             raise ValueError(spec.ffn)
@@ -57,9 +56,12 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 def _init_layer(cfg: ArchConfig, spec: LayerSpec, generator, dtype) -> dict:
     dev = generator.device
-    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
-         "attn": attn.init_attention(generator, _dims(cfg), dtype,
-                                     qkv_bias=cfg.qkv_bias)}
+    p = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev)}
+    if spec.mixer == "attn":
+        p["attn"] = attn.init_attention(generator, _dims(cfg), dtype,
+                                        qkv_bias=cfg.qkv_bias)
+    else:
+        p["mamba"] = mamba2.init_mamba(generator, cfg.ssm, dtype)
     if spec.ffn == "dense":
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
         p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
@@ -67,12 +69,30 @@ def _init_layer(cfg: ArchConfig, spec: LayerSpec, generator, dtype) -> dict:
     return p
 
 
-def _stack(trees: list):
-    """One tree whose leaves stack the leaves of ``trees`` on a new dim 0."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stacked_layers(cfg: ArchConfig, spec: LayerSpec, generator, dtype):
+    """``cfg.n_repeats`` layers of ``spec`` drawn one after another, as one
+    tree whose leaves have a leading ``n_repeats`` dimension.  Each layer is
+    copied into its slot as soon as it is drawn, so the weights are never
+    held twice (a ``torch.stack`` of all layers would double the peak)."""
+    def empty(t):
+        if isinstance(t, dict):
+            return {k: empty(v) for k, v in t.items()}
+        return t.new_empty((cfg.n_repeats,) + tuple(t.shape))
+
+    def put(out, t, i):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                put(out[k], v, i)
+        else:
+            out[i].copy_(t)
+
+    layer = _init_layer(cfg, spec, generator, dtype)
+    out = empty(layer)
+    for rep in range(cfg.n_repeats):
+        if rep:
+            layer = _init_layer(cfg, spec, generator, dtype)
+        put(out, layer, rep)
+    return out
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
@@ -103,10 +123,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
             float(1.0 / np.sqrt(cfg.patch_dim)))
 
     # stacked blocks: tuple over pattern positions, leading dim = n_repeats
-    params["blocks"] = tuple(
-        _stack([_init_layer(cfg, spec, generator, dtype)
-                for _ in range(cfg.n_repeats)])
-        for spec in cfg.pattern)
+    params["blocks"] = tuple(_stacked_layers(cfg, spec, generator, dtype)
+                             for spec in cfg.pattern)
     return params
 
 
@@ -129,9 +147,12 @@ def _pin_batch(cfg: ArchConfig, x):
     return x
 
 
-def _mix(cfg: ArchConfig, p: dict, x, positions):
-    """norm1 -> attention over the full sequence; returns (out, k, v)."""
+def _mix(cfg: ArchConfig, spec: LayerSpec, p: dict, x, positions):
+    """norm1 -> the mixer over the full sequence; returns (out, k, v), with
+    k and v None for a Mamba layer."""
     h = apply_norm(cfg.norm, p["norm1"], x)
+    if spec.mixer == "mamba":
+        return mamba2.mamba_train(p["mamba"], h, cfg.ssm)[0], None, None
     return attn.attention_train(
         p["attn"], h, _dims(cfg), positions=positions,
         swa_window=cfg.swa_window, rope_theta=cfg.rope_theta,
@@ -166,7 +187,7 @@ def forward(params, cfg: ArchConfig, batch):
         x = _pin_batch(cfg, x)
         for j, spec in enumerate(cfg.pattern):
             p = _index(params["blocks"][j], rep)
-            out, _, _ = _mix(cfg, p, x, positions)
+            out, _, _ = _mix(cfg, spec, p, x, positions)
             x = _ffn(cfg, spec, p, x + out)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -186,10 +207,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     _check_ported(cfg)
     blocks = []
-    for _ in cfg.pattern:
-        one = attn.init_attention_cache(
-            batch, max_len, _dims(cfg), dtype, kv_quant=cfg.kv_quant,
-            swa_window=cfg.swa_window, device=dev)
+    for spec in cfg.pattern:
+        if spec.mixer == "attn":
+            one = attn.init_attention_cache(
+                batch, max_len, _dims(cfg), dtype, kv_quant=cfg.kv_quant,
+                swa_window=cfg.swa_window, device=dev)
+        else:
+            one = mamba2.init_mamba_cache(batch, cfg.ssm, dtype, device=dev)
         blocks.append({k: v.expand((cfg.n_repeats,) + v.shape).clone()
                        for k, v in one.items()})
     return {"blocks": tuple(blocks), "pos": 0}
@@ -211,9 +235,12 @@ def decode_step(params, cfg: ArchConfig, tokens, cache):
             p = _index(params["blocks"][j], rep)
             c = _index(cache["blocks"][j], rep)
             h = apply_norm(cfg.norm, p["norm1"], x)
-            out, _ = attn.attention_decode(p["attn"], h, c, pos, _dims(cfg),
-                                           swa_window=cfg.swa_window,
-                                           rope_theta=cfg.rope_theta)
+            if spec.mixer == "attn":
+                out, _ = attn.attention_decode(
+                    p["attn"], h, c, pos, _dims(cfg),
+                    swa_window=cfg.swa_window, rope_theta=cfg.rope_theta)
+            else:
+                out, _ = mamba2.mamba_decode(p["mamba"], h, c, cfg.ssm)
             x = _ffn(cfg, spec, p, x + out)
     h = apply_norm(cfg.norm, params["final_norm"], x[:, 0])
     cache["pos"] = pos + 1
@@ -224,8 +251,9 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
             dtype=torch.float32):
     """Process a full prompt, build the cache, return last-position logits.
 
-    Runs the train forward (``cfg.attn_impl_train``) and bulk-fills a fresh
-    cache on the device of the weights.
+    Runs the train forward (``cfg.attn_impl_train``; Mamba layers through
+    the ``ssd_scan`` kernel) and bulk-fills a fresh cache on the device of
+    the weights.
     """
     x, positions = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
@@ -234,9 +262,15 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
         x = _pin_batch(cfg, x)
         for j, spec in enumerate(cfg.pattern):
             p = _index(params["blocks"][j], rep)
-            out, k, v = _mix(cfg, p, x, positions)
-            attn.fill_attention_cache(_index(cache["blocks"][j], rep), k, v,
-                                      swa_window=cfg.swa_window)
+            c = _index(cache["blocks"][j], rep)
+            if spec.mixer == "attn":
+                out, k, v = _mix(cfg, spec, p, x, positions)
+                attn.fill_attention_cache(c, k, v, swa_window=cfg.swa_window)
+            else:
+                out, filled = mamba2.mamba_prefill(
+                    p["mamba"], apply_norm(cfg.norm, p["norm1"], x), cfg.ssm)
+                for key, t in filled.items():   # conv caches take c's dtype
+                    c[key].copy_(t)
             x = _ffn(cfg, spec, p, x + out)
     h = apply_norm(cfg.norm, params["final_norm"], x[:, -1])
     cache["pos"] = s
@@ -255,8 +289,11 @@ def model_flops(cfg: ArchConfig, tokens: int, kv_len: int | None = None,
     dims = _dims(cfg)
     per_block = 0.0
     for spec in cfg.pattern:
-        per_block += attn.attn_flops(dims, tokens, kv,
-                                     causal=(mode != "decode"))
+        if spec.mixer == "attn":
+            per_block += attn.attn_flops(dims, tokens, kv,
+                                         causal=(mode != "decode"))
+        else:
+            per_block += mamba2.mamba_flops(cfg.ssm, tokens)
         if spec.ffn == "dense":
             n_mats = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
             per_block += 2.0 * n_mats * d * cfg.d_ff * tokens

@@ -8,8 +8,10 @@ imports no JAX, so it runs on the card's machine:
 
 Block statistics: kernel and plain version agree exactly (counts, and mass
 as the exact int64 sum cast to float32).  Flash attention: within the
-reference's kernel tolerances (float32 2e-5, bfloat16 2e-2); the serving
-path's logits within 1e-4 of the CPU's (float32, summed in another order).
+reference's kernel tolerances (float32 2e-5, bfloat16 2e-2).  SSD scan: y
+and the final state within the reference's kernel tolerances (float32 5e-4,
+bfloat16 5e-2, absolute plus relative).  The serving paths' logits within
+1e-4 of the CPU's (float32, summed in another order).
 """
 import numpy as np
 import pytest
@@ -19,8 +21,10 @@ from repro_torch.apps import ALL_APPS
 from repro_torch.configs import smoke_config
 from repro_torch.data import BlockDataset
 from repro_torch.kernels import block_stats as bs
+from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import transformer as T
 from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.pipeline import PipelineConfig, stream_estimates_tokens, \
@@ -172,6 +176,86 @@ def test_cuda_serving_smoke_matches_cpu(cuda):
         outs[str(dev)]["logits"] = logits.cpu()
         if dev == cuda:
             assert fa.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    cpu, card = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(card["logits"], cpu["logits"], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(card["tokens"].cpu().numpy(),
+                                  cpu["tokens"].numpy())
+    assert card["energy"]["steps"] == cpu["energy"]["steps"]
+
+
+# (dtype, B, S, H, G, P, N): model-layout views, as _run_ssd hands them in
+SSD_CASES = {
+    "mamba2-heads-f32": (torch.float32, 2, 256, 4, 1, 64, 128),
+    "jamba-heads-bf16": (torch.bfloat16, 1, 192, 2, 1, 128, 128),
+    "grouped-f32": (torch.float32, 1, 128, 8, 2, 32, 16),
+    "partial-chunk-f32": (torch.float32, 2, 200, 2, 1, 16, 64),
+    "tiny-bf16": (torch.bfloat16, 1, 5, 3, 1, 8, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_cuda_ssd_scan_matches_plain_version(cuda, case):
+    dtype, b, s, h, g, p, n = SSD_CASES[case]
+    rng = np.random.default_rng(len(case))
+    x = torch.from_numpy(rng.normal(0, 1, (b, s, h * p)).astype(
+        np.float32)).to(cuda, dtype).reshape(b, s, h, p)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.5, (b, s, h)).astype(
+        np.float32)).to(cuda)
+    a_log = torch.from_numpy(rng.uniform(-1, 1, h).astype(np.float32)).to(
+        cuda)
+    bc = torch.from_numpy(rng.normal(0, 1, (b, s, 2 * g * n)).astype(
+        np.float32)).to(cuda, dtype)
+    bm = bc[..., :g * n].reshape(b, s, g, n)     # strided views, not copies
+    cm = bc[..., g * n:].reshape(b, s, g, n)
+    ss.reset_launches()
+    y, state = ss.ssd_scan_cuda(x, dt, a_log, bm, cm, final_state=True)
+    want_y, want_state = ref.ssd_chunked_ref(x, dt, a_log, bm, cm, chunk=64)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert state.dtype == torch.float32 and state.shape == (b, h, p, n)
+    tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+
+
+def test_cuda_ssd_scan_op_matches_naive_recurrence(cuda):
+    rng = np.random.default_rng(5)
+    bh, s, p, n = 3, 256, 32, 16
+    x, bm, cm = (torch.from_numpy(rng.normal(0, 1, shape).astype(
+        np.float32)).to(cuda) for shape in ((bh, s, p), (bh, s, n),
+                                            (bh, s, n)))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.5, (bh, s)).astype(
+        np.float32)).to(cuda)
+    a_log = torch.from_numpy(rng.uniform(-1, 1, bh).astype(np.float32)).to(
+        cuda)
+    y = ops.ssd_scan(x, dt, a_log, bm, cm, chunk=64, device=cuda)
+    want = ref.ssd_scan_ref(x, dt, a_log, bm, cm)
+    torch.testing.assert_close(y, want, rtol=5e-4, atol=5e-4)
+
+
+def test_cuda_mamba_serving_smoke_matches_cpu(cuda):
+    """mamba2-1.3b at smoke size through the ssd_scan kernel: the card's
+    logits and greedy tokens equal the CPU's, with one launch a layer in
+    each prefill and none in decode."""
+    cfg = smoke_config("mamba2-1.3b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    prompts = {"tokens": np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 48)).astype(np.int32)}
+    sc = ServeConfig(batch=2, max_len=96, window=8, slack=1.2)
+    outs = {}
+    for dev in ("cpu", cuda):
+        ss.reset_launches()
+        eng = ServingEngine(cfg, params, sc, device=dev)
+        outs[str(dev)] = eng.generate(prompts, n_tokens=20)
+        if dev == cuda:
+            assert ss.LAUNCHES["ssd_scan"] == cfg.n_layers
+        logits, _ = T.prefill(eng.params, cfg,
+                              {"tokens": torch.as_tensor(prompts["tokens"],
+                                                         device=dev)}, 96)
+        outs[str(dev)]["logits"] = logits.cpu()
     cpu, card = outs["cpu"], outs[str(cuda)]
     torch.testing.assert_close(card["logits"], cpu["logits"], rtol=1e-4,
                                atol=1e-4)

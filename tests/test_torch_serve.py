@@ -1,10 +1,11 @@
 """The port's serving engine and DVFS controller against the JAX package's.
 
 ``ServingEngine.generate`` on ``smoke_config("olmo-1b",
-attn_impl_train="pallas")`` with the reference's weights (carried across by
-``params_from_numpy``) and the same seeded prompts gives the reference's
-greedy tokens, with the same ledger step counts; the window walls, and so
-the plans' frequencies, are measured and differ run to run.  The copied
+attn_impl_train="pallas")`` and on ``smoke_config("mamba2-1.3b")`` (its
+prefill through the ``ssd_scan`` wrapper) with the reference's weights
+(carried across by ``params_from_numpy``) and the same seeded prompts gives
+the reference's greedy tokens, with the same ledger step counts; the window
+walls, and so the plans' frequencies, are measured and differ run to run.  The copied
 ``train/dvfs_controller.py`` is held bit-identical to the reference.
 """
 import dataclasses
@@ -34,9 +35,9 @@ def _roofline(mod, mem_bound=True):
         flops=1e9, hbm_bytes=8e9 if mem_bound else 1e6, coll_bytes=0)
 
 
-def _engines(impl="pallas", window=8, **sc_kw):
-    jc = jsmoke("olmo-1b", attn_impl_train=impl)
-    tc_ = tsmoke("olmo-1b", attn_impl_train=impl)
+def _engines(impl="pallas", window=8, arch="olmo-1b", **sc_kw):
+    jc = jsmoke(arch, attn_impl_train=impl)
+    tc_ = tsmoke(arch, attn_impl_train=impl)
     jp = JT.init_params(jc, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     sc_kw.setdefault("slack", 1.15)
@@ -54,7 +55,16 @@ def _engines(impl="pallas", window=8, **sc_kw):
                                                   ("pallas", 8, 16),
                                                   ("pallas", 1, 8)])
 def test_generate_matches_reference(impl, n_tokens, window):
-    jeng, teng, prompts = _engines(impl, window=window)
+    _check_generate(*_engines(impl, window=window), n_tokens)
+
+
+def test_mamba_generate_matches_reference():
+    """mamba2-1.3b at smoke size: prefill through the ssd_scan wrapper,
+    decode through the recurrence, three DV-DVFS windows."""
+    _check_generate(*_engines(window=8, arch="mamba2-1.3b"), 24)
+
+
+def _check_generate(jeng, teng, prompts, n_tokens):
     jout = jeng.generate({"tokens": jax.numpy.asarray(prompts)}, n_tokens)
     tout = teng.generate({"tokens": prompts}, n_tokens)
     np.testing.assert_array_equal(tout["tokens"].numpy(),
@@ -108,6 +118,13 @@ def test_launch_serve_runs_on_cpu(capsys):
                        "12"])
     out = capsys.readouterr().out
     assert "arch=yi-6b" in out and "generated=13" in out
+
+
+def test_launch_serve_runs_mamba_on_cpu(capsys):
+    launch_serve.main(["--arch", "mamba2-1.3b", "--device", "cpu",
+                       "--tokens", "12"])
+    out = capsys.readouterr().out
+    assert "arch=mamba2-1.3b" in out and "generated=13" in out
 
 
 # -------------------------------------------- dvfs_controller, bit for bit ---
