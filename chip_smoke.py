@@ -155,6 +155,8 @@ FLASH_CASES = (
     ("SWA 256", 1, 8, 8, 1024, 64, True, 256),
     ("non-causal", 2, 4, 2, 512, 128, False, None),
     ("odd S=80 D=16", 1, 2, 2, 80, 16, True, None),
+    ("SWA 48, under one tile", 1, 8, 2, 1024, 128, True, 48),
+    ("S=1000, ragged last tiles", 2, 8, 8, 1000, 64, True, None),
 )
 
 
@@ -208,7 +210,7 @@ def phase_card() -> tuple:
 
 
 def phase_build() -> None:
-    for built in _build.build(bs.SOURCE, fa.SOURCE, ss.SOURCE):
+    for built in _build.build(bs.SOURCE, *fa.SOURCES.values(), ss.SOURCE):
         print(f"build: {built.seconds:.3f} s nvcc {' '.join(_build.NVCC_FLAGS)}"
               f" -> {built.path.relative_to(_build.BUILD_ROOT.parents[1])}")
         for line in built.log.splitlines():
@@ -1034,6 +1036,65 @@ def flash_bound(b, hq, hkv, s, d, dtype) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def ptxas_usage(log: str, entry: str) -> dict:
+    """Registers and spill bytes that ``-Xptxas -v`` printed for the first
+    entry function whose mangled name contains ``entry``."""
+    usage, inside = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if inside:
+                break
+            inside = entry in line
+        elif inside and "spill stores" in line:
+            words = line.split()
+            usage.setdefault("spill_stores",
+                             int(words[words.index("spill") - 2]))
+            usage.setdefault("spill_loads", int(words[-4]))
+        elif inside and "Used" in line and "registers" in line:
+            words = line.split()
+            usage.setdefault("registers", int(words[words.index("Used") + 1]))
+    check({"registers", "spill_stores", "spill_loads"} <= set(usage),
+          f"no ptxas usage for {entry} in the build log")
+    return usage
+
+
+def device_kernels(fn) -> list:
+    """Names of the CUDA kernels that ``fn()`` launches, as torch.profiler
+    records them."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):   # a process's first session has missed them once
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    return names
+
+
+def clock_under_load(fn, seconds: float = 1.0) -> dict:
+    """Median SM clock (MHz) and board power (W) that nvidia-smi samples
+    every 100 ms while ``fn`` runs back to back for ``seconds``."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    rows = [[float(x) for x in line.split(",")]
+            for line in out.strip().splitlines() if line.strip()]
+    check(len(rows) > 2, "nvidia-smi gave no clock samples")
+    mhz, watts = zip(*rows[1:])        # the first sample precedes the load
+    return {"sm_mhz": float(np.median(mhz)), "power_w": float(np.median(watts))}
+
+
 def phase_flash_times(serving: dict, worst: dict) -> dict:
     b, h, s, d = SERVE["batch"], 16, SERVE["prompt"], 128   # olmo-1b prefill
     rng = np.random.default_rng(2)
@@ -1053,21 +1114,42 @@ def phase_flash_times(serving: dict, worst: dict) -> dict:
         plain_ms = event_ms(lambda: ref.flash_attention_ref(q, k, v), flush)
         lib_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
         bound, by, flops, nbytes = flash_bound(b, h, h, s, d, dtype)
+        source = fa.route(dtype)
+        (built,) = _build.build(source)
+        kernel = "flash_bf16_kernel" if dtype == torch.bfloat16 \
+            else "flash_f32_kernel"
+        design = {**ptxas_usage(built.log, f"{kernel}ILi{d}E"),
+                  **fa.occupancy(dtype, d)}
+        lib_kernels = device_kernels(lambda: sdpa(q, k, v, is_causal=True))
+        load = clock_under_load(lambda: fa.flash_attention_cuda(q, k, v))
         per_shape.append({"dtype": str(dtype)[6:], "shape": [b, h, s, d],
+                          "source": "src/repro_torch/kernels/csrc/" + source,
                           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                           "bound_ms": bound, "bound_by": by, "flops": flops,
                           "bytes": nbytes, "share": bound / ms,
                           "max_abs_err": err,
-                          "library_max_abs_err": _max_err(lib, want)})
+                          "library_max_abs_err": _max_err(lib, want),
+                          "library_kernels": lib_kernels, **design,
+                          **load})
         print(f"  flash_attention {str(dtype)[6:]} (B,H,S,D)=({b},{h},{s},"
               f"{d}) causal, transposed views: kernel {ms:.6f} ms, plain "
               f"{plain_ms:.6f} ms, scaled_dot_product_attention {lib_ms:.6f} "
               f"ms (yardstick only), bound {bound:.6f} ms ({by}: {flops} "
               f"FLOP, {nbytes} bytes) = {100 * bound / ms:.4f}% of the bound;"
               f" max |err| {err:.3g}")
+        print(f"    route {source}: {design['registers']} registers a "
+              f"thread, spills {design['spill_stores']} B stored / "
+              f"{design['spill_loads']} B loaded (ptxas), "
+              f"{design['threads']} threads and "
+              f"{design['smem_bytes']} B of dynamic shared memory a CTA, "
+              f"{design['ctas_per_sm']} CTA(s) an SM (occupancy API); SM "
+              f"clock {load['sm_mhz']:.0f} MHz and board power "
+              f"{load['power_w']:.1f} W while it runs back to back "
+              f"(nvidia-smi, median); SDPA launched "
+              f"{', '.join(lib_kernels) or 'no kernel the profiler saw'}")
     main = per_shape[0]                  # the serving path runs float32
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/" + fa.SOURCE,
+            "source": main["source"],
             "replaces": KERNELS["flash_attention"],
             "launches": serving["launches"]["flash_attention"],
             "max_abs_err": worst["flash_attention"],

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and is compiled
 for Hopper (``sm_90a``) into ``build/kernels/<hash>/lib<name>.so`` at the
-root of the checkout; the hash covers the source and the flags, so an edited
-source builds anew.  Nothing here runs when the module is imported.  If
-``nvcc`` is missing or the build fails, the caller gets the error: there is
-no other way to run a kernel.
+root of the checkout; the hash covers the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew.
+Nothing here runs when the module is imported.  If ``nvcc`` is missing or
+the build fails, the caller gets the error: there is no other way to run a
+kernel.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 class Built:
     """One built library: its path, the nvcc wall time in seconds (0 when it
     was already built) and what nvcc printed (register and shared-memory use
-    from ``-Xptxas -v``)."""
+    from ``-Xptxas -v``; kept beside the library as ``lib<name>.log``)."""
 
     source: str
     path: Path
@@ -55,8 +56,10 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(h.read_bytes()
+                                       for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_ROOT / digest / f"lib{src.stem}.so"
 
 
@@ -70,7 +73,9 @@ def build(*sources: str) -> list:
             continue
         out = _target(source)
         if out.exists():
-            _BUILT[source] = Built(source, out, 0.0, "")
+            log = out.with_suffix(".log")
+            _BUILT[source] = Built(source, out, 0.0,
+                                   log.read_text() if log.exists() else "")
             continue
         nvcc = nvcc or _nvcc()
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -87,6 +92,7 @@ def build(*sources: str) -> list:
             failures.append(f"nvcc failed on {source} "
                             f"(exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)   # atomic: a concurrent build sees all or none
         _BUILT[source] = Built(source, out, seconds, log)
     if failures:

@@ -3,17 +3,36 @@
 ``flash_attention_cuda(q, k, v, causal=, swa_window=)`` takes q (B, Hq, S, D)
 and k, v (B, Hkv, S, D), float32 or bfloat16, and returns (B, Hq, S, D) in
 q's type.  A CPU tensor goes to the plain version in
-``repro_torch.kernels.ref``; a CUDA tensor goes to the CUDA kernel in
-``csrc/flash_attention.cu`` (built for ``sm_90a`` at first use), or the call
-raises.  ``LAUNCHES`` counts the kernel's launches.
+``repro_torch.kernels.ref``; a CUDA tensor goes to one of two CUDA kernels
+(built for ``sm_90a`` at first use), or the call raises.  ``LAUNCHES`` counts
+the launches.  Both replace ``flash_attention_kernel`` /
+``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py:28``,
+``:79``); the route is chosen by the input type (``route``):
+
+* bfloat16, ``csrc/flash_attention_bf16.cu``: bound by the bytes at the
+  serving shape (989 TFLOP/s of tensor-core math outruns 3.35 TB/s).  A
+  persistent grid of warp-specialised CTAs, one an SM: two consumer
+  warpgroups (128 q rows) take turns running ``wgmma`` on 128-key tiles that
+  one TMA loader thread brings in through a 2-stage mbarrier ring, with the
+  softmax in registers and P fed to ``wgmma`` from registers.  The CTAs
+  take work items from a counter in device memory, one a stream, that the
+  last CTA of each launch zeroes for the next.
+* float32, ``csrc/flash_attention_f32.cu``: bound by operations at the
+  67 TFLOP/s float32 rate (the kernel never uses TF32).  256 threads own a
+  128-row q tile; each thread an 8 x 4 score tile and an 8-row slice of the
+  output in registers; K and V come through a 2-stage ``cp.async`` ring that
+  overlaps the next tile's copy with the current tile's FMAs, with one
+  block-wide barrier a tile.
 
 Input rule: rank 4, one dtype (float32 or bfloat16) for all three, Hq a
-multiple of Hkv, k and v of one shape, D in ``HEAD_DIMS``.  The kernel reads
+multiple of Hkv, k and v of one shape, D in ``HEAD_DIMS``.  Both kernels read
 q, k and v through their strides, so the transposed views the model hands in
-are not copied; a tensor whose last dimension is not contiguous is copied
-once.  The output has q's memory layout (``torch.empty_like``), so the model's
-transpose back is free.  The CUDA kernel tiles by itself (64 queries x 64
-keys); it has no block-size arguments.
+are not copied.  Both copy in 16-byte pieces (TMA, ``cp.async``), so a
+tensor whose base is not 16-byte aligned, whose last dimension is not
+contiguous, or whose other strides are not positive multiples of 16 bytes is
+copied once into a contiguous tensor (``tma_ready``, ``prepare``).  The
+output has q's memory layout (``torch.empty_like``), so the model's transpose
+back is free.  The kernels tile by themselves; they take no block sizes.
 """
 from __future__ import annotations
 
@@ -24,11 +43,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["LAUNCHES", "HEAD_DIMS", "reset_launches", "flash_attention_cuda"]
+__all__ = ["LAUNCHES", "HEAD_DIMS", "SOURCES", "reset_launches", "route",
+           "tma_ready", "prepare", "occupancy", "flash_attention_cuda"]
 
-SOURCE = "flash_attention.cu"
+# one CUDA source (and library) per input type
+SOURCES = {torch.float32: "flash_attention_f32.cu",
+           torch.bfloat16: "flash_attention_bf16.cu"}
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches; chip_smoke.py zeroes it before the serving path and reads
 # it after
@@ -39,16 +60,43 @@ def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def route(dtype: torch.dtype) -> str:
+    """The CUDA source whose kernel takes inputs of ``dtype``."""
+    try:
+        return SOURCES[dtype]
+    except KeyError:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got "
+                        f"{dtype}") from None
+
+
+def _library(dtype: torch.dtype) -> ctypes.CDLL:
+    lib = _build.load(route(dtype))
     if lib.flash_attention_launch.argtypes is None:
         lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_occupancy.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_occupancy.restype = ctypes.c_int
     return lib
+
+
+def occupancy(dtype: torch.dtype, d: int) -> dict:
+    """How the CUDA runtime sees the kernel of this route and head dim on the
+    current card: threads and dynamic shared memory (bytes) a CTA, CTAs an
+    SM at once.  (Registers and spills a thread are in the build's ptxas
+    log, ``_build.build(route(dtype))``.)"""
+    lib = _library(dtype)
+    out = (ctypes.c_int * 3)()
+    err = lib.flash_attention_occupancy(int(d), out)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention occupancy query failed: {msg} "
+                           f"({err})")
+    return dict(zip(("threads", "smem_bytes", "ctas_per_sm"), out))
 
 
 def _check(q, k, v) -> None:
@@ -58,7 +106,7 @@ def _check(q, k, v) -> None:
         if t.dim() != 4:
             raise ValueError(f"{name} must have rank 4 (B, H, S, D), got "
                              f"shape {tuple(t.shape)}")
-        if t.dtype not in _DTYPES:
+        if t.dtype not in SOURCES:
             raise TypeError(f"{name} must be float32 or bfloat16, got "
                             f"{t.dtype}")
         if t.device.type not in ("cpu", "cuda"):
@@ -81,17 +129,35 @@ def _check(q, k, v) -> None:
         raise ValueError(f"head dim {d} not supported; one of {HEAD_DIMS}")
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the kernels can copy ``t`` (B, H, S, D) in 16-byte pieces as
+    it lies: base 16-byte aligned, D contiguous, the B, H and S strides
+    positive multiples of 16 bytes (what TMA's tensor maps and ``cp.async``
+    need)."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(st > 0 and st * t.element_size() % 16 == 0
+               for st in t.stride()[:3])
+
+
+def prepare(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if ``tma_ready``, else one contiguous, aligned copy."""
+    if tma_ready(t):
+        return t
+    c = t.contiguous()
+    return c if tma_ready(c) else c.clone()
+
+
 def _launch(lib, q, k, v, out, causal: bool, window: int) -> int:
-    """Call the C entry on tensors that satisfy ``_check``; returns its
-    error code."""
+    """Call the C entry on tensors that satisfy ``_check`` and ``tma_ready``;
+    returns its error code."""
     b, hq, s, d = q.shape
     strides = [t.stride()[:3] for t in (q, k, v, out)]
-    stream = torch.cuda.current_stream(q.device).cuda_stream \
-        if q.is_cuda else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     return lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, hq, k.shape[1], s, d, int(bool(causal)),
-        int(window), *[x for st in strides for x in st], stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        k.shape[1], s, d, int(bool(causal)), int(window),
+        *[x for st in strides for x in st], stream)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,9 +171,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    swa_window=swa_window)
     if q.shape[0] == 0 or q.shape[1] == 0 or q.shape[2] == 0:
         return torch.empty_like(q)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = prepare(q), prepare(k), prepare(v)
     out = torch.empty_like(q)
-    lib = _library()
+    lib = _library(q.dtype)
     with torch.cuda.device(q.device):
         err = _launch(lib, q, k, v, out, causal, int(swa_window or 0))
     if err != 0:

@@ -115,28 +115,51 @@ def test_cuda_apps_match_cpu(cuda, name):
                                           cpu[key].numpy())
 
 
-# (dtype, B, Hq, Hkv, S, D, causal, window, transposed (B, S, H, D) views)
+# (dtype, B, Hq, Hkv, S, D, causal, window, layout): layout "view" is the
+# model's (B, H, S, D) view of a (B, S, H, D) tensor, "contig" a contiguous
+# tensor, "padded" a view of (B, S, H, D + 2) rows, whose S stride is no
+# multiple of 16 bytes, so the wrapper copies it first
 FLASH_CASES = {
-    "mha-f32": (torch.float32, 2, 4, 4, 256, 128, True, None, True),
-    "gqa-f32": (torch.float32, 1, 8, 2, 192, 64, True, None, False),
-    "mqa-bf16": (torch.bfloat16, 1, 8, 1, 256, 64, True, None, True),
-    "swa-f32": (torch.float32, 1, 2, 2, 512, 32, True, 100, False),
-    "noncausal-bf16": (torch.bfloat16, 2, 2, 1, 130, 128, False, None, True),
-    "odd-f32": (torch.float32, 1, 2, 2, 80, 16, True, None, False),
+    "mha-f32": (torch.float32, 2, 4, 4, 256, 128, True, None, "view"),
+    "gqa-f32": (torch.float32, 1, 8, 2, 192, 64, True, None, "contig"),
+    "mqa-bf16": (torch.bfloat16, 1, 8, 1, 256, 64, True, None, "view"),
+    "swa-f32": (torch.float32, 1, 2, 2, 512, 32, True, 100, "contig"),
+    "noncausal-bf16": (torch.bfloat16, 2, 2, 1, 130, 128, False, None,
+                       "view"),
+    "odd-f32": (torch.float32, 1, 2, 2, 80, 16, True, None, "contig"),
+    "d16-s80-bf16": (torch.bfloat16, 1, 2, 2, 80, 16, True, None, "view"),
+    "d32-s130-bf16": (torch.bfloat16, 2, 4, 2, 130, 32, True, None, "contig"),
+    "d32-s130-f32": (torch.float32, 2, 4, 2, 130, 32, True, None, "view"),
+    "d64-s1000-f32": (torch.float32, 1, 4, 4, 1000, 64, True, None, "view"),
+    "d128-s1000-bf16": (torch.bfloat16, 1, 4, 4, 1000, 128, True, None,
+                        "contig"),
+    "d16-s1000-f32": (torch.float32, 1, 2, 1, 1000, 16, True, None, "view"),
+    "mqa-f32": (torch.float32, 1, 8, 1, 256, 128, True, None, "view"),
+    "gqa-bf16": (torch.bfloat16, 2, 8, 2, 192, 32, True, None, "view"),
+    "swa48-f32": (torch.float32, 1, 4, 2, 1000, 128, True, 48, "view"),
+    "swa48-bf16": (torch.bfloat16, 1, 4, 2, 1000, 128, True, 48, "view"),
+    "swa48-d16-bf16": (torch.bfloat16, 1, 2, 1, 300, 16, True, 48, "contig"),
+    "noncausal-f32": (torch.float32, 1, 4, 4, 1000, 32, False, None, "view"),
+    "noncausal-d64-bf16": (torch.bfloat16, 1, 2, 2, 80, 64, False, None,
+                           "contig"),
+    "padded-bf16": (torch.bfloat16, 1, 2, 1, 200, 16, True, None, "padded"),
+    "padded-f32": (torch.float32, 1, 2, 1, 200, 16, True, None, "padded"),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_cuda_flash_attention_matches_plain_version(cuda, case):
-    dtype, b, hq, hkv, s, d, causal, window, views = FLASH_CASES[case]
+    dtype, b, hq, hkv, s, d, causal, window, layout = FLASH_CASES[case]
     rng = np.random.default_rng(len(case))
 
     def make(h):
-        x = torch.from_numpy(rng.normal(0, 1, (b, s, h, d)).astype(
-            np.float32)).to(cuda, dtype)
-        return x.transpose(1, 2) if views else x.transpose(1, 2).contiguous()
+        pad = 2 if layout == "padded" else 0
+        x = torch.from_numpy(rng.normal(0, 1, (b, s, h, d + pad)).astype(
+            np.float32)).to(cuda, dtype)[..., :d].transpose(1, 2)
+        return x.contiguous() if layout == "contig" else x
 
     q, k, v = make(hq), make(hkv), make(hkv)
+    assert fa.tma_ready(q) == (layout != "padded")
     fa.reset_launches()
     got = fa.flash_attention_cuda(q, k, v, causal=causal, swa_window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, swa_window=window)
@@ -145,6 +168,26 @@ def test_cuda_flash_attention_matches_plain_version(cuda, case):
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_repeats_on_one_and_two_streams(cuda, dtype):
+    """Launches queued back to back on one stream, and launches on two
+    streams that may overlap, each give the first launch's output (the
+    bfloat16 kernel's work counters are per stream and reset by each
+    launch)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 300, h, 64)).astype(
+        np.float32)).to(cuda, dtype).transpose(1, 2) for h in (8, 2, 2))
+    first = fa.flash_attention_cuda(q, k, v)
+    outs = [fa.flash_attention_cuda(q, k, v) for _ in range(8)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    for i in range(8):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(fa.flash_attention_cuda(q, k, v))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
 
 
 def test_cuda_flash_attention_refuses_bad_input(cuda):
