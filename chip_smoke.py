@@ -17,8 +17,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      MHA, GQA, SWA, non-causal and odd shapes, within 2e-5 and 2e-2; the
      SSD scan against the naive recurrence and the plain chunked version
      (y, and the final state) on the reference's sweep, mamba2-1.3b's and
-     jamba's head shapes, grouped B/C and a partial last chunk, within 5e-4
-     and 5e-2;
+     jamba's head shapes, grouped B/C, a partial last chunk, P = 8 and a
+     sequence under one chunk, within 5e-4 and 5e-2;
   4. the DV-DVFS main path at full size: token blocks -> sampled estimates
      (one block_stats_batched launch a chunk) -> DV-DVFS plans -> simulated
      run against the full-block truth, with its kernels' launch counts read
@@ -42,7 +42,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      decode the last against the S-token prefill's logits);
  10. the Mamba serving path at smoke size, card against CPU;
  11. kernel, plain and library times at the main paths' shapes, beside the
-     least time the card could take.
+     least time the card could take; for flash attention and the SSD scan
+     also registers, spills, occupancy, the SM clock and power under load,
+     and (SSD) the device kernels one call launches and the FLOP the design
+     does beside the bound's.
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
@@ -146,6 +149,8 @@ SSD_CASES = (
     ("jamba heads 128/128", 1, 512, 4, 1, 128, 128),
     ("grouped G=4, 8 heads a group", 1, 512, 32, 4, 64, 64),
     ("S=1000, partial last chunk", 2, 1000, 8, 1, 64, 128),
+    ("P=8, head dim under one slice", 2, 300, 8, 2, 8, 16),
+    ("S=40, under one chunk", 2, 40, 4, 1, 64, 128),
 )
 # (label, B, Hq, Hkv, S, D, causal, window); each in float32 and bfloat16
 FLASH_CASES = (
@@ -1060,18 +1065,20 @@ def ptxas_usage(log: str, entry: str) -> dict:
 
 def device_kernels(fn) -> list:
     """Names of the CUDA kernels that ``fn()`` launches, as torch.profiler
-    records them."""
+    records them: two sessions of two calls each (a session has missed the
+    first kernel launched in it, and a process's first session has missed
+    all)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(2):   # a process's first session has missed them once
+    names = set()
+    for _ in range(2):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
+            fn()
             torch.cuda.synchronize()
-        names = sorted({e.name for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA})
-        if names:
-            break
-    return names
+        names |= {e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+    return sorted(names)
 
 
 def clock_under_load(fn, seconds: float = 1.0) -> dict:
@@ -1180,6 +1187,7 @@ def phase_ssd_times(serving: dict, worst: dict) -> dict:
                         sc.n_heads, sc.n_groups, sc.head_dim, sc.d_state)
     rng = np.random.default_rng(4)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    (built,) = _build.build(ss.SOURCE)
     per_shape = []
     for dtype in (torch.float32, torch.bfloat16):
         args = ssd_inputs(rng, b, s, h, g, p, n, dtype)
@@ -1190,24 +1198,60 @@ def phase_ssd_times(serving: dict, worst: dict) -> dict:
               and ssd_close(state, want_state, dtype),
               f"ssd_scan {dtype} at the main shape differs by {err}")
         worst["ssd_scan"] = max(worst["ssd_scan"], err)
-        ms = event_ms(lambda: ss.ssd_scan_cuda(*args, final_state=True),
-                      flush)
+
+        def call():
+            return ss.ssd_scan_cuda(*args, final_state=True)
+        ms = event_ms(call, flush)
         plain_ms = event_ms(lambda: ref.ssd_chunked_ref(*args,
                                                         chunk=sc.chunk), flush)
         bound, by, flops, nbytes = ssd_bound(b, s, h, g, p, n, dtype)
+        design_flops = 2 * ss.fmas(b, s, h, g, p, n)
+        kernel = "IfEEv" if dtype == torch.float32 else "I13__nv_bfloat16EEv"
+        usage = {"scan": ptxas_usage(built.log, "ssd_scan_kernel" + kernel),
+                 "cb": ptxas_usage(built.log, "ssd_cb_kernel" + kernel)}
+        occ = ss.occupancy(dtype, p, n)
+        names = device_kernels(call)
+        check(len(names) == ss.DEVICE_KERNELS,
+              f"one ssd_scan call launched {names}, expected "
+              f"{ss.DEVICE_KERNELS} kernels")
+        load = clock_under_load(call)
         per_shape.append({"dtype": str(dtype)[6:],
                           "shape": [b, s, h, g, p, n], "ms": ms,
                           "plain_ms": plain_ms, "library_ms": None,
                           "bound_ms": bound, "bound_by": by, "flops": flops,
+                          "design_flops": design_flops,
                           "bytes": nbytes, "share": bound / ms,
+                          "fma_rate_share": design_flops / (ms * 1e-3)
+                          / F32_FLOPS,
                           "max_abs_err": err,
-                          "state_max_abs_err": _max_err(state, want_state)})
+                          "state_max_abs_err": _max_err(state, want_state),
+                          "ptxas": usage, **occ,
+                          "ctas": ss.ctas(b, s, h, g, p),
+                          "device_kernels": names, **load})
         print(f"  ssd_scan {str(dtype)[6:]} (B,S,H,G,P,N)=({b},{s},{h},{g},"
               f"{p},{n}), B/C strided views, y and the final state: kernel "
               f"{ms:.6f} ms, plain chunked (chunk {sc.chunk}) {plain_ms:.6f} "
               f"ms, bound {bound:.6f} ms ({by}: {flops} FLOP, {nbytes} bytes)"
               f" = {100 * bound / ms:.4f}% of the bound; max |err| {err:.3g};"
               " no single PyTorch call computes the scan (library_ms null)")
+        print(f"    design: {design_flops} FLOP of float32 FMAs "
+              f"({design_flops / flops:.4f}x the bound's), "
+              f"{design_flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s = "
+              f"{100 * design_flops / (ms * 1e-3) / F32_FLOPS:.2f}% of the "
+              f"67 TFLOP/s FMA rate; {len(names)} device kernels a call: "
+              f"{', '.join(names)}")
+        for key, label in (("scan", "scan"), ("cb", "C B^T")):
+            pre = "" if key == "scan" else "cb_"
+            print(f"    {label} kernel: {usage[key]['registers']} registers a "
+                  f"thread, spills {usage[key]['spill_stores']} B stored / "
+                  f"{usage[key]['spill_loads']} B loaded (ptxas), "
+                  f"{occ[pre + 'threads']} threads and "
+                  f"{occ[pre + 'smem_bytes']} B of dynamic shared memory a "
+                  f"CTA, {occ[pre + 'ctas_per_sm']} CTA(s) an SM (occupancy "
+                  f"API), {ss.ctas(b, s, h, g, p)[key]} CTAs a call")
+        print(f"    SM clock {load['sm_mhz']:.0f} MHz and board power "
+              f"{load['power_w']:.1f} W while it runs back to back "
+              "(nvidia-smi, median)")
     main = per_shape[0]                  # the serving path runs float32
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + ss.SOURCE,

@@ -33,6 +33,8 @@ contiguous, or whose other strides are not positive multiples of 16 bytes is
 copied once into a contiguous tensor (``tma_ready``, ``prepare``).  The
 output has q's memory layout (``torch.empty_like``), so the model's transpose
 back is free.  The kernels tile by themselves; they take no block sizes.
+A negative ``swa_window`` is refused: the reference masks every key for one,
+which gives a result that depends on its tile sizes.
 """
 from __future__ import annotations
 
@@ -99,7 +101,7 @@ def occupancy(dtype: torch.dtype, d: int) -> dict:
     return dict(zip(("threads", "smem_bytes", "ctas_per_sm"), out))
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, swa_window=None) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -127,6 +129,9 @@ def _check(q, k, v) -> None:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[1]}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported; one of {HEAD_DIMS}")
+    if swa_window is not None and swa_window < 0:
+        raise ValueError(f"swa_window={swa_window} is negative; give None or "
+                         "0 for no window, or a positive window")
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -164,8 +169,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, swa_window=None
                          ) -> torch.Tensor:
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
-    ``swa_window`` falsy means no sliding window."""
-    _check(q, k, v)
+    ``swa_window`` None or 0 means no sliding window; a negative one is
+    refused."""
+    _check(q, k, v, swa_window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    swa_window=swa_window)

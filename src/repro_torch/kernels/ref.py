@@ -6,9 +6,12 @@ compute, on any device: the CPU path of the kernel wrappers, and what the
 tests and ``chip_smoke.py`` hold the CUDA kernels against; never the card's
 main path.  ``ssd_chunked_ref`` is the chunked SSD of
 ``src/repro/models/mamba2.py:_ssd_chunked`` without its D-skip term, the
-plain version of the ``ssd_scan`` kernel.  Counts and mass are summed as
-int64 and cast to float32 once, so mass is the exact sum rounded to
-float32; the reference sums mass in float32, which is inexact past 2**24.
+plain version of the ``ssd_scan`` kernel; ``ssd_split_ref`` computes the
+same function split as that kernel splits it (64-row chunks, C B^T once per
+group, the head dim in slices), for the tests only.  Counts and mass are
+summed as int64 and cast to float32 once, so mass is the exact sum rounded
+to float32; the reference sums mass in float32, which is inexact past
+2**24.
 """
 from __future__ import annotations
 
@@ -17,10 +20,12 @@ import math
 import torch
 
 __all__ = ["flash_attention_ref", "ssd_scan_ref", "ssd_chunked_ref",
-           "row_matches", "row_stats", "block_stats_ref",
-           "block_stats_batched_ref"]
+           "ssd_split_ref", "SSD_CHUNK", "SSD_P_SLICE", "row_matches",
+           "row_stats", "block_stats_ref", "block_stats_batched_ref"]
 
 NEG_INF = -1e30
+SSD_CHUNK = 64      # rows of a chunk in the CUDA SSD kernel
+SSD_P_SLICE = 64    # head-dim columns of one CTA of the CUDA SSD kernel
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -126,6 +131,68 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     y = torch.stack(ys, dim=1).reshape(bsz, s, h, p) if ys \
         else torch.empty_like(x)
     return y, hprev.reshape(bsz, h, p, n)
+
+
+def ssd_split_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                  b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                  chunk: int = SSD_CHUNK, p_slice: int = SSD_P_SLICE
+                  ) -> tuple:
+    """The SSD of ``ssd_chunked_ref`` split as the CUDA kernel splits it.
+
+    Same arguments and result.  S is padded to whole chunks of ``chunk``
+    rows with dt = 0 (a padded row adds nothing and decays nothing) and
+    zeros, and the padded rows are dropped from y.  First C B^T, masked to
+    its lower triangle, once per (batch, group, chunk); then for each head
+    and each slice of ``min(P, p_slice)`` head-dim columns, which carries
+    its own rows of the state: M = (C B^T) * exp(seg_i - seg_j) dt_j on and
+    below the diagonal, y = exp(seg) (C h^T) + M x, and h = exp(seg_last) h
+    + (w x)^T B with w_j = exp(seg_last - seg_j) dt_j.
+    """
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    r = h // g
+    ps = min(p, p_slice)
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunked(t):   # (B, S, ...) float32, zero-padded -> (B, nc, L, ...)
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape((bsz, nc, chunk) + t.shape[2:])
+
+    xf = chunked(x).reshape(bsz, nc, chunk, g, r, p)
+    dtf = chunked(dt).reshape(bsz, nc, chunk, g, r)
+    bf, cf = chunked(b_mat), chunked(c_mat)               # (B,nc,L,G,N)
+    a = -torch.exp(a_log.float()).reshape(g, r)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    cb = torch.einsum("bcign,bcjgn->bcgij", cf, bf).masked_fill(~tri, 0.0)
+    state = torch.zeros((bsz, g, r, p, n), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c in range(nc):
+        dtc = dtf[:, c].permute(0, 2, 3, 1)               # (B,G,R,L)
+        seg = torch.cumsum(dtc * a[None, :, :, None], dim=-1)
+        diff = seg[..., :, None] - seg[..., None, :]      # (B,G,R,L,L)
+        decay = torch.exp(diff.masked_fill(~tri, -torch.inf))
+        m = cb[:, c, :, None] * decay * dtc[..., None, :]
+        es = torch.exp(seg)
+        w = torch.exp(seg[..., -1:] - seg) * dtc
+        last = torch.exp(seg[..., -1])[..., None, None]
+        xc = xf[:, c].permute(0, 2, 3, 1, 4)             # (B,G,R,L,P)
+        bc, cc = bf[:, c], cf[:, c]                       # (B,L,G,N)
+        yc = torch.empty_like(xc)
+        for p0 in range(0, p, ps):
+            cols = slice(p0, p0 + ps)
+            hprev = state[..., cols, :]                   # (B,G,R,ps,N)
+            yc[..., cols] = es[..., None] * torch.einsum(
+                "bign,bgrpn->bgrip", cc, hprev) + torch.einsum(
+                "bgrij,bgrjp->bgrip", m, xc[..., cols])
+            state[..., cols, :] = last * hprev + torch.einsum(
+                "bgrjp,bjgn->bgrpn", w[..., None] * xc[..., cols], bc)
+        ys.append(yc.reshape(bsz, h, chunk, p).transpose(1, 2))
+    y = torch.cat(ys, dim=1)[:, :s] if ys else x.new_zeros(x.shape).float()
+    return y.to(x.dtype), state.reshape(bsz, h, p, n)
 
 
 def row_matches(tokens: torch.Tensor, pattern) -> torch.Tensor:

@@ -6,16 +6,27 @@ B/C (B, S, G, N) with H a multiple of G, and returns y (B, S, H, P) in x's
 type, with the final state (B, H, P, N) float32 when ``final_state``.  A CPU
 tensor goes to the plain chunked version in ``repro_torch.kernels.ref``
 (chunked by ``chunk`` as the reference model chunks); a CUDA tensor goes to
-the CUDA kernel in ``csrc/ssd_scan.cu`` (built for ``sm_90a`` at first use),
-or the call raises.  ``LAUNCHES`` counts the kernel's launches.
+the CUDA kernels in ``csrc/ssd_scan.cu`` (built for ``sm_90a`` at first use),
+or the call raises.  ``LAUNCHES`` counts the calls that launched them.
+
+One call launches two device kernels (``DEVICE_KERNELS``): C B^T once per
+(batch, group, 64-row chunk) into a float32 scratch of ``scratch_shape``
+that the wrapper allocates, then the scan, one CTA per (batch, head, slice
+of ``p_slice(P)`` head-dim columns), with the next chunk staged while the
+current one is computed.  ``ref.ssd_split_ref`` is the same split in plain
+PyTorch.
 
 Input rule: x, B and C of one dtype (float32 or bfloat16), dt and a_log
-float32, P and N in ``SIZES``.  The kernel reads every input through its
+float32, P and N in ``SIZES``.  The kernels read every input through its
 strides, so the model's views (x a reshape of the conv output, B and C
 slices of ``bc_conv``, one group for many heads) are neither copied nor
-repeated per head; a tensor whose last dimension is not contiguous is
-copied once.  y has x's memory layout (``torch.empty_like``).  The kernel
-picks its own chunk length (64 rows); ``chunk`` shapes only the CPU path.
+repeated per head.  x, B and C are staged in 16-byte pieces, so one whose
+base is not 16-byte aligned, whose last dimension is not contiguous or
+whose other strides are not positive multiples of 16 bytes is copied once
+(``flash_attention.tma_ready`` and ``prepare``, the rule the flash kernels
+follow).  y has x's memory layout (``torch.empty_like``) where that allows
+16-byte stores.  The kernels pick
+their own chunk length (64 rows); ``chunk`` shapes only the CPU path.
 """
 from __future__ import annotations
 
@@ -24,12 +35,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_chunked_ref
+# the 16-byte copy rule the flash kernels follow holds for cp.async here too
+from repro_torch.kernels.flash_attention import prepare, tma_ready
+from repro_torch.kernels.ref import SSD_CHUNK, SSD_P_SLICE, ssd_chunked_ref
 
-__all__ = ["LAUNCHES", "SIZES", "reset_launches", "ssd_scan_cuda"]
+__all__ = ["LAUNCHES", "SIZES", "DEVICE_KERNELS", "reset_launches",
+           "p_slice", "n_chunks", "scratch_shape", "ctas", "fmas",
+           "smem_bytes", "occupancy", "ssd_scan_cuda"]
 
 SOURCE = "ssd_scan.cu"
 SIZES = (8, 16, 32, 64, 128)
+DEVICE_KERNELS = 2   # C B^T, then the scan
+SMEM_LIMIT = 232448  # bytes of shared memory a CTA may have on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches; chip_smoke.py zeroes it before the serving path and reads
@@ -41,16 +58,78 @@ def reset_launches() -> None:
     LAUNCHES["ssd_scan"] = 0
 
 
+def p_slice(p: int) -> int:
+    """Head-dim columns one scan CTA owns (a divisor of P)."""
+    return min(p, SSD_P_SLICE)
+
+
+def n_chunks(s: int) -> int:
+    """64-row chunks of a sequence of S rows, the last one maybe short."""
+    return -(-s // SSD_CHUNK)
+
+
+def scratch_shape(bsz: int, s: int, g: int) -> tuple:
+    """Shape of the float32 C B^T scratch of one call."""
+    return (bsz, g, n_chunks(s), SSD_CHUNK, SSD_CHUNK)
+
+
+def ctas(bsz: int, s: int, h: int, g: int, p: int) -> dict:
+    """CTAs of the two kernels of one call."""
+    return {"cb": bsz * g * n_chunks(s), "scan": bsz * h * (p // p_slice(p))}
+
+
+def fmas(bsz: int, s: int, h: int, g: int, p: int, n: int) -> int:
+    """Float32 FMAs the two kernels of one call do: per (chunk, head) 64 P N
+    for C h^T, 64 P N for the state update and 2048 P for the causal M x (a
+    thread's 8 rows run to the diagonal in 4-row steps); per (chunk, group)
+    64 * 64 * N for C B^T."""
+    nc, rows = n_chunks(s), SSD_CHUNK
+    return (nc * bsz * h * (2 * rows * p * n + 2048 * p)
+            + nc * bsz * g * rows * rows * n)
+
+
+def smem_bytes(p: int, n: int) -> dict:
+    """Dynamic shared memory (bytes) a CTA of each kernel asks for, as
+    ``csrc/ssd_scan.cu`` computes it: the scan kernel's two stages of x
+    slice, B, C, C B^T and dt, the state and each update warp's w; the
+    C B^T kernel's B and C (rows padded to N + 4)."""
+    ps, rows = p_slice(p), SSD_CHUNK
+    stage = rows * ps + 2 * rows * n + rows * rows + rows
+    return {"scan": 4 * (2 * stage + n * ps + 4 * rows),
+            "cb": 4 * 2 * rows * (n + 4)}
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if lib.ssd_scan_launch.argtypes is None:
         lib.ssd_scan_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
         lib.ssd_scan_launch.restype = ctypes.c_int
+        lib.ssd_scan_occupancy.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.ssd_scan_occupancy.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def occupancy(dtype: torch.dtype, p: int, n: int) -> dict:
+    """How the CUDA runtime sees the two kernels for inputs of ``dtype``,
+    head dim ``p`` and state dim ``n`` on the current card: threads and
+    dynamic shared memory (bytes) a CTA and CTAs an SM at once, of the scan
+    kernel (``threads``, ``smem_bytes``, ``ctas_per_sm``) and of the C B^T
+    kernel (the same keys with ``cb_`` in front).  (Registers and spills
+    are in the build's ptxas log.)"""
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    err = lib.ssd_scan_occupancy(_DTYPES[dtype], int(p), int(n), out)
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan occupancy query failed: {msg} ({err})")
+    keys = ("threads", "smem_bytes", "ctas_per_sm")
+    return dict(zip(keys + tuple("cb_" + k for k in keys), out))
 
 
 def _check(x, dt, a_log, b_mat, c_mat) -> None:
@@ -93,9 +172,9 @@ def _check(x, dt, a_log, b_mat, c_mat) -> None:
                          f"{SIZES}")
 
 
-def _launch(lib, x, dt, a_log, b_mat, c_mat, y, state) -> int:
-    """Call the C entry on tensors that satisfy ``_check``; returns its
-    error code."""
+def _launch(lib, x, dt, a_log, b_mat, c_mat, y, state, cb) -> int:
+    """Call the C entry on tensors that satisfy ``_check`` and
+    ``tma_ready``; returns its error code."""
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     strides = [t.stride()[:3] for t in (x, dt, b_mat, c_mat, y)]
@@ -103,8 +182,9 @@ def _launch(lib, x, dt, a_log, b_mat, c_mat, y, state) -> int:
     return lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(),
         c_mat.data_ptr(), y.data_ptr(),
-        state.data_ptr() if state is not None else None, _DTYPES[x.dtype],
-        bsz, s, h, g, p, n, *[v for st in strides for v in st], stream)
+        state.data_ptr() if state is not None else None, cb.data_ptr(),
+        _DTYPES[x.dtype], bsz, s, h, g, p, n, cb.shape[2],
+        *[v for st in strides for v in st], stream)
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -117,10 +197,11 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         y, state = ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, chunk=chunk)
         return (y, state) if final_state else y
     bsz, s, h, p = x.shape
-    n = b_mat.shape[3]
-    x, b_mat, c_mat = (t if t.stride(-1) == 1 else t.contiguous()
-                       for t in (x, b_mat, c_mat))
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    x, b_mat, c_mat = prepare(x), prepare(b_mat), prepare(c_mat)
     y = torch.empty_like(x)
+    if not tma_ready(y):
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     run = bool(bsz and s and h)
     state = None
     if final_state:   # the kernel writes every entry; S = 0 leaves zeros
@@ -128,9 +209,11 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             (bsz, h, p, n), dtype=torch.float32, device=x.device)
     if run:
         lib = _library()
+        cb = torch.empty(scratch_shape(bsz, s, g), dtype=torch.float32,
+                         device=x.device)
         with torch.cuda.device(x.device):
             err = _launch(lib, x, dt, a_log.contiguous(), b_mat, c_mat, y,
-                          state)
+                          state, cb)
         if err != 0:
             msg = lib.ssd_scan_error_string(err).decode()
             raise RuntimeError(f"ssd_scan CUDA launch failed: {msg} ({err})")

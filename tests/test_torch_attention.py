@@ -136,6 +136,34 @@ def test_flash_attention_refuses_what_it_cannot_run(kw, err):
                             block_k=kw.get("block_k", 64), device="cpu")
 
 
+@pytest.mark.parametrize("window", [-1, -48])
+def test_flash_attention_refuses_a_negative_window(window):
+    """The reference's result for a negative window depends on its tile
+    sizes (it masks every key), so both entries refuse one."""
+    q = torch.zeros((1, 2, 16, 16))
+    with pytest.raises(ValueError, match="negative"):
+        ops.flash_attention(q, q, q, swa_window=window, block_q=8,
+                            block_k=8, device="cpu")
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="negative"):
+        fa.flash_attention_cuda(q, q, q, swa_window=window)
+    assert fa.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("window", [None, 0])
+def test_flash_attention_no_window_matches_pallas(window):
+    rng = np.random.default_rng(11)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(_rand(rng, (1, 2, 16, 16)), torch.float32) for _ in range(3))
+    got = ops.flash_attention(tq, tk, tv, swa_window=window, block_q=8,
+                              block_k=8, device="cpu")
+    want = jops.flash_attention(jq, jk, jv, swa_window=window, block_q=8,
+                                block_k=8, interpret=True)
+    _assert_close(got, want, **_tol(torch.float32))
+    _assert_close(fa.flash_attention_cuda(tq, tk, tv, swa_window=window),
+                  want, **_tol(torch.float32))
+
+
 def test_flash_attention_cpu_tensor_takes_plain_version_without_launch():
     fa.reset_launches()
     q = torch.randn(1, 2, 32, 16)

@@ -199,6 +199,17 @@ def test_cuda_flash_attention_refuses_bad_input(cuda):
         fa.flash_attention_cuda(h, h, h)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_refuses_a_negative_window(cuda, dtype):
+    q = torch.zeros((1, 2, 64, 64), device=cuda, dtype=dtype)
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="negative"):
+        fa.flash_attention_cuda(q, q, q, swa_window=-1)
+    with pytest.raises(ValueError, match="negative"):
+        ops.flash_attention(q, q, q, swa_window=-1, device=cuda)
+    assert fa.LAUNCHES["flash_attention"] == 0
+
+
 def test_cuda_serving_smoke_matches_cpu(cuda):
     """olmo-1b at smoke size through the flash kernel: the card's greedy
     tokens equal the CPU's, with the same weights and prompts."""
@@ -234,6 +245,9 @@ SSD_CASES = {
     "grouped-f32": (torch.float32, 1, 128, 8, 2, 32, 16),
     "partial-chunk-f32": (torch.float32, 2, 200, 2, 1, 16, 64),
     "tiny-bf16": (torch.bfloat16, 1, 5, 3, 1, 8, 8),
+    "p8-one-slice-bf16": (torch.bfloat16, 2, 300, 8, 2, 8, 16),
+    "under-one-chunk-f32": (torch.float32, 2, 40, 4, 1, 64, 128),
+    "grouped-g4-ragged-bf16": (torch.bfloat16, 1, 1000, 8, 4, 32, 128),
 }
 
 
@@ -258,6 +272,28 @@ def test_cuda_ssd_scan_matches_plain_version(cuda, case):
     assert ss.LAUNCHES["ssd_scan"] == 1
     assert y.dtype == dtype and y.shape == x.shape
     assert state.dtype == torch.float32 and state.shape == (b, h, p, n)
+    tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_scan_copies_what_it_cannot_stage(cuda, dtype):
+    """x and B/C whose rows are not 16-byte multiples apart are copied once
+    and give the plain version's result."""
+    rng = np.random.default_rng(9)
+    b, s, h, g, p, n = 1, 130, 4, 2, 16, 8
+    x = torch.from_numpy(rng.normal(0, 1, (b, s, h, p + 2)).astype(
+        np.float32)).to(cuda, dtype)[..., :p]
+    bm, cm = (torch.from_numpy(rng.normal(0, 1, (b, s, g, n + 2)).astype(
+        np.float32)).to(cuda, dtype)[..., :n] for _ in range(2))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.5, (b, s, h)).astype(
+        np.float32)).to(cuda)
+    a_log = torch.from_numpy(rng.uniform(-1, 1, h).astype(np.float32)).to(
+        cuda)
+    assert not any(ss.tma_ready(t) for t in (x, bm, cm))
+    y, state = ss.ssd_scan_cuda(x, dt, a_log, bm, cm, final_state=True)
+    want_y, want_state = ref.ssd_chunked_ref(x, dt, a_log, bm, cm, chunk=65)
     tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)

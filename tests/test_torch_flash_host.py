@@ -115,6 +115,22 @@ def test_prefill_timing_runs_at_smoke_size_on_cpu():
     assert len(walls) == 2 and all(w > 0 for w in walls)
 
 
+@pytest.mark.parametrize("argv,arch", [([], "olmo-1b"),
+                                       (["--arch", "mamba2-1.3b"],
+                                        "mamba2-1.3b")])
+def test_prefill_timing_takes_an_arch(argv, arch):
+    from repro_torch.launch import prefill_timing
+    assert prefill_timing.parse_args(argv).arch == arch
+
+
+def test_prefill_timing_runs_mamba_at_smoke_size_on_cpu():
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import prefill_timing
+    cfg = smoke_config("mamba2-1.3b")
+    walls = prefill_timing.prefill_walls(cfg, 2, 16, 2, torch.device("cpu"))
+    assert len(walls) == 2 and all(w > 0 for w in walls)
+
+
 def test_both_routes_include_the_shared_host_header():
     for source in fa.SOURCES.values():
         assert '#include "flash_attention_host.cuh"' in (CSRC / source
