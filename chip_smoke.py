@@ -13,8 +13,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      started together);
   3. every kernel against its plain PyTorch version on the card: block
      statistics on edge cases (ragged and poisoned rows, odd shapes, mass
-     past 2**24, ...), exactly; flash attention in float32 and bfloat16 on
-     MHA, GQA, SWA, non-causal and odd shapes, within 2e-5 and 2e-2; the
+     past 2**24, spans and views off 16-byte boundaries, a 100000-token row,
+     5000 blocks, int64 lengths past int32, a block of 0 rows on reused
+     output memory, one block over a cluster of 16, ...), exactly; flash
+     attention in float32 and bfloat16 on MHA, GQA, SWA, non-causal and odd
+     shapes, within 2e-5 and 2e-2; the
      SSD scan against the naive recurrence and the plain chunked version
      (y, and the final state) on the reference's sweep, mamba2-1.3b's and
      jamba's head shapes, grouped B/C, a partial last chunk, P = 8 and a
@@ -45,7 +48,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      least time the card could take; for flash attention and the SSD scan
      also registers, spills, occupancy, the SM clock and power under load,
      and (SSD) the device kernels one call launches and the FLOP the design
-     does beside the bound's.
+     does beside the bound's; for block statistics registers, spills,
+     shared memory, CTAs an SM, the cluster size and grid, one device kernel
+     a call (profiler), the SM clock and power under load and a read
+     yardstick (torch.sum of the same tokens, not the same function).
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
@@ -77,6 +83,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.launch.block_stats_timing import event_ms  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import flatten  # noqa: E402
@@ -304,6 +311,31 @@ def phase_parity() -> dict:
     lp = rng.integers(0, 4, (3, 50, 64)).astype(np.int32)
     lp[:, ::3, 10:50] = long_pat
     case("40-token pattern", lp, np.array([50, 25, 1]), long_pat)
+    # the redesign's edges: spans and toks[b, :n] views off 16-byte
+    # boundaries, a row over many ring stages with the pattern across the
+    # first stage boundary, more blocks than the persistent grid has
+    # clusters, int64 lengths past the int32 range, a pattern longer than
+    # the kernel keeps in shared memory
+    odd = rng.integers(0, 50, (3, 37, 13)).astype(np.int32)
+    odd[:, ::3, 1:4] = PATTERN
+    case("odd L, int32 lengths", odd, np.array([37, 20, 1], np.int32))
+    row = rng.integers(0, 50, (1, 1, 100000)).astype(np.int32)
+    row[0, 0, 4094:4097] = PATTERN
+    row[0, 0, 99997:] = PATTERN
+    case("one 100000-token row", row)
+    many = rng.integers(0, 50, (5000, 4, 8)).astype(np.int32)
+    many[:, ::2, 1:4] = PATTERN
+    case("5000 blocks of (4, 8)", many,
+         rng.integers(-2, 6, 5000).astype(np.int32))
+    case("int64 lengths of +-2**40", short[:4],
+         np.array([2 ** 40, -2 ** 40, 3, 2 ** 40]))
+    pat300 = tuple(range(1, 301))   # past the 256 kept in shared memory
+    lp = rng.integers(0, 4, (2, 4, 700)).astype(np.int32)
+    lp[:, ::2, 100:400] = pat300
+    lp[1, 2, 399] = 0
+    case("300-token pattern", lp, None, pat300)
+    phase_parity_reuse(dev)
+    phase_parity_cluster_16(rng, dev)
 
     before = dict(bs.LAUNCHES)
     for shape in ((0, 8, 8), (3, 0, 8), (2, 4, 0)):
@@ -317,6 +349,43 @@ def phase_parity() -> dict:
     check(bs.LAUNCHES == before, "empty input launched a kernel")
     print("parity ok: empty inputs return zeros without a launch")
     return worst
+
+
+def phase_parity_reuse(dev) -> None:
+    """A block of 0 valid rows between full blocks reads back as zeros when
+    its output lands on memory that held non-zero statistics."""
+    host = np.random.default_rng(1).integers(1, 50, (3, 64, 32)).astype(
+        np.int32)
+    host[:, ::4, 1:4] = PATTERN
+    toks = torch.as_tensor(host, device=dev)
+    lens = torch.tensor([64, 0, 64], dtype=torch.int32, device=dev)
+    first = bs.block_stats_batched_cuda(toks, None, PATTERN)
+    torch.cuda.synchronize()
+    check(bool((first != 0).all()), "reuse case: first call has zeros")
+    ptr = first.data_ptr()
+    del first
+    got = bs.block_stats_batched_cuda(toks, lens, PATTERN)
+    check(got.data_ptr() == ptr, "reuse case: the allocator moved the output")
+    err = _max_err(got, ref.block_stats_batched_ref(toks, lens, PATTERN))
+    check(err == 0.0 and not bool(got[1].any()),
+          f"a block of 0 rows on reused memory reads {got[1].tolist()}")
+    print("parity ok: a block of 0 valid rows on reused output memory")
+
+
+def phase_parity_cluster_16(rng, dev) -> None:
+    """One (2048, 256) block spread over a cluster of 16 CTAs."""
+    facts = bs.occupancy(torch.cuda.current_device())
+    shape = bs.launch_shape(1, 2048, 256, facts["slots"], facts["max_cluster"])
+    check(shape == (16, 1), f"one block launches as {shape}, not (16, 1)")
+    one = torch.as_tensor(rng.integers(0, 50, (2048, 256)).astype(np.int32),
+                          device=dev)
+    one[::5, 7:10] = torch.tensor(PATTERN, dtype=torch.int32, device=dev)
+    err = _max_err(bs.block_stats_cuda(one, PATTERN),
+                   ref.block_stats_ref(one, PATTERN))
+    check(err == 0.0, f"cluster of 16 differs by {err}")
+    print(f"parity ok: one block over a cluster of 16 ({facts['max_cluster']}"
+          f" the card's largest; {facts['max_active_clusters']} such clusters"
+          " at once)")
 
 
 def _qkv(rng, b, hq, hkv, s, d, dtype):
@@ -954,24 +1023,6 @@ def phase_mamba_serving() -> dict:
             **serve_report(eng, sv, out, roof, walls)}
 
 
-def event_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
-    """Median ms of ``fn`` on the card, each run after evicting the L2 by
-    reading a buffer five times its size (a read leaves no dirty lines for
-    the timed run to write back)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    fn()                                        # warm-up
-    ts = []
-    for _ in range(reps):
-        flush.sum()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        ts.append(start.elapsed_time(end))
-    return float(np.median(ts))
-
-
 def phase_times(main: dict, worst: dict) -> list:
     toks = main["first_chunk"]                  # (256, 2048, 256) int32
     k = main["k"]
@@ -992,6 +1043,16 @@ def phase_times(main: dict, worst: dict) -> list:
             ("one block", single, (toks[0], PATTERN),
              rows * length * 4 + pat_bytes + 12)],
     }
+    (built,) = _build.build(bs.SOURCE)
+    usage = ptxas_usage(built.log, "block_stats_kernel")
+    facts = bs.occupancy(toks.device.index)
+    print(f"  block_stats kernel: {usage['registers']} registers a thread, "
+          f"spills {usage['spill_stores']} B stored / {usage['spill_loads']} "
+          f"B loaded (ptxas), {facts['threads']} threads and "
+          f"{facts['smem_bytes']} B of dynamic shared memory a CTA, "
+          f"{facts['ctas_per_sm']} CTA(s) an SM on {facts['sms']} SMs, "
+          f"clusters up to {facts['max_cluster']} CTAs "
+          f"({facts['max_active_clusters']} of them at once) (occupancy API)")
     entries = []
     for name, cases in shapes.items():
         per_shape = []
@@ -1000,21 +1061,44 @@ def phase_times(main: dict, worst: dict) -> list:
             err = _max_err(kernel(*args), plain(*args))
             check(err == 0.0, f"{name} [{label}] differs from plain by {err}")
             worst[name] = max(worst[name], err)
-            ms = event_ms(lambda: kernel(*args), flush)
+
+            def call():
+                return kernel(*args)
+            ms = event_ms(call, flush)
             plain_ms = event_ms(lambda: plain(*args), flush)
+            read_ms = event_ms(lambda: torch.sum(x, dtype=torch.int64), flush)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
+            cluster, clusters = bs.launch_shape(
+                *(x.shape if x.dim() == 3 else (1, *x.shape)),
+                facts["slots"], facts["max_cluster"])
+            events = device_events(call)
+            check(all(len(names) in (DEVICE_CALLS - 1, DEVICE_CALLS)
+                      and all("block_stats_kernel" in n for n in names)
+                      for names in events),
+                  f"{name} [{label}]: {DEVICE_CALLS} calls recorded "
+                  f"{events}, not one block_stats_kernel a call")
+            load = clock_under_load(call)
             host = x.cpu().numpy()
             _, copy_s = sync_seconds(
                 lambda: torch.from_numpy(host).to(toks.device))
             per_shape.append({"label": label, "shape": list(x.shape),
                               "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound, "share": bound / ms,
+                              "read_yardstick_ms": read_ms,
+                              "cluster": cluster, "ctas": cluster * clusters,
+                              "device_kernels_a_call": 1, **load,
                               "h2d_copy_s": copy_s})
             print(f"  {name} [{label}] {tuple(x.shape)}: kernel {ms:.6f} ms, "
                   f"plain {plain_ms:.6f} ms, bound {bound:.6f} ms (bytes, "
                   f"{nbytes} at 3.35 TB/s) = {100 * bound / ms:.4f}% of the "
                   f"bound; host->device copy {copy_s:.6f} s; no single "
                   "PyTorch call computes these statistics (library_ms null)")
+            print(f"    read yardstick, not the same function: torch.sum(x, "
+                  f"dtype=torch.int64) {read_ms:.6f} ms; clusters of "
+                  f"{cluster}, {cluster * clusters} CTAs; 1 device kernel a "
+                  f"call ({events[-1][0]}); SM clock {load['sm_mhz']:.0f} MHz "
+                  f"and board power {load['power_w']:.1f} W while it runs back "
+                  "to back (nvidia-smi, median)")
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + bs.SOURCE,
@@ -1025,6 +1109,8 @@ def phase_times(main: dict, worst: dict) -> list:
             "plain_ms": sum(s["plain_ms"] for s in per_shape),
             "bound_ms": sum(s["bound_ms"] for s in per_shape),
             "bound_by": "bytes", "library_ms": None,
+            "ptxas": usage, **{k: facts[k] for k in (
+                "threads", "smem_bytes", "ctas_per_sm", "max_cluster")},
             "per_shape": per_shape})
     return entries
 
@@ -1065,20 +1151,35 @@ def ptxas_usage(log: str, entry: str) -> dict:
 
 def device_kernels(fn) -> list:
     """Names of the CUDA kernels that ``fn()`` launches, as torch.profiler
-    records them: two sessions of two calls each (a session has missed the
-    first kernel launched in it, and a process's first session has missed
-    all)."""
+    records them over ``device_events``."""
+    return sorted({name for names in device_events(fn) for name in names})
+
+
+DEVICE_CALLS = 4
+
+
+def device_events(fn) -> list:
+    """For two torch.profiler sessions of ``DEVICE_CALLS`` calls of ``fn``
+    each, the names of the device events (kernels, copies, memsets) they
+    recorded.  A session has missed the first kernel launched in it, and
+    now and then all of them: a session that recorded nothing is run again,
+    up to six sessions in all."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    names = set()
-    for _ in range(2):
+    sessions = []
+    for _ in range(6):
         with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            fn()
+            for _ in range(DEVICE_CALLS):
+                fn()
             torch.cuda.synchronize()
-        names |= {e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA}
-    return sorted(names)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            sessions.append(names)
+        if len(sessions) == 2:
+            return sessions
+    raise RuntimeError("chip_smoke: six profiler sessions, fewer than two "
+                       "recorded a device event")
 
 
 def clock_under_load(fn, seconds: float = 1.0) -> dict:

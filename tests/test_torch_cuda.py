@@ -57,7 +57,43 @@ def _cases():
         "40-token-pattern": (rng.integers(0, 4, (3, 50, 64)).astype(np.int32),
                              None, tuple(range(1, 41))),
         "L<p": (np.full((3, 8, 2), 17, np.int32), None, PAT),
+        "odd-L-int32-lengths": (_planted(rng, (3, 37, 13), 3),
+                                np.array([37, 20, 1], np.int32), PAT),
+        "100000-token-row": (_long_row(rng), None, PAT),
+        "5000-blocks": (_planted(rng, (5000, 4, 8), 2),
+                        rng.integers(-2, 6, 5000).astype(np.int32), PAT),
+        "int64-lengths-2**40": (_planted(rng, (4, 20, 16), 1),
+                                np.array([2 ** 40, -2 ** 40, 3, 2 ** 40]),
+                                PAT),
+        "300-token-pattern": (_long_pattern(rng), None, LONG_PAT),
     }
+
+
+# longer than the 256 tokens the kernel keeps in shared memory
+LONG_PAT = tuple(range(1, 301))
+
+
+def _long_pattern(rng):
+    toks = rng.integers(0, 4, (2, 4, 700)).astype(np.int32)
+    toks[:, ::2, 100:400] = LONG_PAT
+    toks[1, 2, 399] = 0                  # one window wrong in its last token
+    return toks
+
+
+def _planted(rng, shape, every):
+    """Random tokens with the pattern planted in every ``every``-th row."""
+    toks = rng.integers(0, 50, shape).astype(np.int32)
+    toks[:, ::every, 1:4] = PAT
+    return toks
+
+
+def _long_row(rng):
+    """One 100,000-token row with the pattern across token 4096, the first
+    16 KiB stage boundary of the kernel's ring, and at the row's end."""
+    toks = rng.integers(0, 50, (1, 1, 100000)).astype(np.int32)
+    toks[0, 0, 4094:4097] = PAT
+    toks[0, 0, 99997:] = PAT
+    return toks
 
 
 @pytest.mark.parametrize("case", list(_cases()))
@@ -74,6 +110,92 @@ def test_cuda_kernel_matches_plain_version(cuda, case):
         one.cpu().numpy(),
         ref.block_stats_ref(torch.from_numpy(toks[0]), pattern).numpy())
     assert bs.LAUNCHES == {"block_stats": 1, "block_stats_batched": 1}
+
+
+def test_cuda_kernel_views_at_odd_offsets(cuda):
+    """``toks[b, :n]`` views of odd-L blocks start off 16-byte boundaries."""
+    rng = np.random.default_rng(10)
+    toks = _planted(rng, (4, 9, 13), 2)
+    dev = torch.from_numpy(toks).to(cuda)
+    for b in range(4):
+        view = dev[b, :7 - b]
+        assert view.data_ptr() % 16 == (4 * b * 9 * 13) % 16
+        np.testing.assert_array_equal(
+            bs.block_stats_cuda(view, PAT).cpu().numpy(),
+            ref.block_stats_ref(torch.from_numpy(toks[b, :7 - b]), PAT).numpy())
+
+
+def test_cuda_kernel_writes_zeros_for_an_empty_block(cuda):
+    """A block of 0 valid rows between full blocks reads back as zeros when
+    its output lands on memory that held non-zero statistics."""
+    rng = np.random.default_rng(11)
+    dev = torch.from_numpy(_planted(rng, (3, 64, 32), 1)).to(cuda)
+    lens = torch.tensor([64, 0, 64], dtype=torch.int32, device=cuda)
+    first = bs.block_stats_batched_cuda(dev, None, PAT)
+    torch.cuda.synchronize()
+    assert bool((first != 0).all())
+    ptr = first.data_ptr()
+    del first
+    got = bs.block_stats_batched_cuda(dev, lens, PAT)
+    assert got.data_ptr() == ptr      # the allocator gave the memory back
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ref.block_stats_batched_ref(
+                                      dev.cpu(), lens.cpu(), PAT).numpy())
+    assert float(got[1].abs().sum()) == 0.0
+
+
+def test_cuda_kernel_one_block_over_a_cluster_of_16(cuda):
+    rng = np.random.default_rng(12)
+    toks = _planted(rng, (1, 2048, 256), 5)
+    facts = bs.occupancy(torch.cuda.current_device())
+    assert facts["max_cluster"] == 16
+    assert bs.launch_shape(1, 2048, 256, facts["slots"], 16) == (16, 1)
+    dev = torch.from_numpy(toks).to(cuda)
+    want = ref.block_stats_ref(torch.from_numpy(toks[0]), PAT).numpy()
+    np.testing.assert_array_equal(bs.block_stats_cuda(dev[0], PAT).cpu()
+                                  .numpy(), want)
+    np.testing.assert_array_equal(bs.block_stats_batched_cuda(dev, None, PAT)
+                                  .cpu().numpy()[0], want)
+
+
+def _device_events(fn, calls: int = 4) -> list:
+    """Names of the device events (kernels, copies, memsets) that ``calls``
+    calls of ``fn`` record in one torch.profiler session, for two sessions
+    that recorded any (a session has missed the first kernel launched in
+    it, and now and then all of them; up to six sessions)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sessions = []
+    for _ in range(6):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            sessions.append(names)
+        if len(sessions) == 2:
+            break
+    assert len(sessions) == 2, "the profiler recorded no device events"
+    return sessions
+
+
+@pytest.mark.parametrize("entry", ["batched-int32-lengths", "batched-None",
+                                   "single"])
+def test_cuda_kernel_is_one_device_kernel_a_call(cuda, entry):
+    """No memset, no cast kernel, no aten:: kernel: one launch a call."""
+    rng = np.random.default_rng(13)
+    dev = torch.from_numpy(_planted(rng, (8, 103, 256), 4)).to(cuda)
+    lens = torch.full((8,), 90, dtype=torch.int32, device=cuda)
+    fn = {"batched-int32-lengths": lambda: bs.block_stats_batched_cuda(
+              dev, lens, PAT),
+          "batched-None": lambda: bs.block_stats_batched_cuda(dev, None, PAT),
+          "single": lambda: bs.block_stats_cuda(dev[0], PAT)}[entry]
+    fn()
+    for names in _device_events(fn):
+        assert names and all("block_stats_kernel" in n for n in names), names
+        assert 3 <= len(names) <= 4, names
 
 
 def test_cuda_main_path_matches_cpu(cuda):

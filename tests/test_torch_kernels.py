@@ -185,12 +185,73 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build.build(bs.SOURCE)
 
 
-@pytest.mark.parametrize("nb,rows,length", [(1, 2048, 256), (256, 103, 256),
-                                            (256, 2048, 256), (4, 3, 24),
-                                            (1, 1, 100000)])
-def test_tile_rows_spreads_the_grid(nb, rows, length):
-    t = bs.tile_rows(nb, rows, length)
-    assert 1 <= t <= rows
-    ctas = nb * -(-rows // t)
-    assert ctas >= min(1024, nb * rows)
-    assert t * length <= max(4096, length)
+# (n_blocks, rows, length) -> (C, clusters) on a card with 396 CTA slots
+# (132 SMs x 3) that launches clusters of 16
+LAUNCH_SHAPES = {(1, 2048, 256): (16, 1), (256, 103, 256): (1, 256),
+                 (256, 2048, 256): (1, 256), (4, 3, 24): (1, 4),
+                 (1, 1, 100000): (16, 1), (5000, 4, 8): (1, 396)}
+
+
+@pytest.mark.parametrize("shape", list(LAUNCH_SHAPES))
+def test_launch_shape_fills_the_card(shape):
+    """C doubles while the doubled grid fits the card and each CTA keeps a
+    ring stage of its block; clusters fill the card, at most one a block."""
+    nb, rows, length = shape
+    assert bs.launch_shape(nb, rows, length, 396, 16) == LAUNCH_SHAPES[shape]
+    for slots, max_cluster in ((396, 16), (264, 8), (132, 16), (7, 16)):
+        c, clusters = bs.launch_shape(nb, rows, length, slots, max_cluster)
+        assert c in bs.CLUSTER_SIZES and c <= max_cluster
+        assert 1 <= clusters <= nb
+        assert c == 1 or (nb * c <= slots and clusters * c <= slots
+                          and 4 * rows * length >= c * bs.MIN_SPAN_BYTES)
+        doubled = (2 * c <= max_cluster and nb * 2 * c <= slots
+                   and 4 * rows * length >= 2 * c * bs.MIN_SPAN_BYTES)
+        assert not doubled
+        assert clusters == min(nb, slots // c)
+
+
+def test_block_stats_odd_length_matches_jax():
+    """Odd L: the kernel's spans and views start off 16-byte boundaries."""
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, 50, (3, 37, 13)).astype(np.int32)
+    toks[:, ::3, 2:5] = PAT
+    toks[:, 1, 10:13] = PAT                  # ends on the row's last column
+    lens = np.array([37, 20, 1], np.int32)
+    got = ops.block_stats_batched(toks, lens, PAT, device="cpu")
+    _check(got, jops.block_stats_batched(jnp.asarray(toks), jnp.asarray(lens),
+                                         PAT, interpret=True))
+    for b, n in enumerate(lens):
+        _check(ops.block_stats(toks[b, :n], PAT, device="cpu"),
+               jops.block_stats(jnp.asarray(toks[b, :n]), PAT,
+                                interpret=True))
+
+
+def test_block_stats_long_row_pattern_across_4096_matches_jax():
+    """One row of 6000 tokens (over a 16 KiB ring stage) with the pattern
+    planted across token 4096, the kernel's first stage boundary."""
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, 50, (2, 1, 6000)).astype(np.int32)
+    toks[:, 0, 4094:4097] = PAT
+    toks[:, 0, 4095:4098] = PAT[0]           # only block 1 keeps the match
+    toks[1, 0, 4094:4097] = PAT
+    toks[:, 0, 5997:] = PAT
+    got = ops.block_stats_batched(toks, None, PAT, device="cpu")
+    _check(got, jops.block_stats_batched(jnp.asarray(toks), None, PAT,
+                                         interpret=True))
+    assert got[:, 1].tolist() == [1.0, 2.0]
+
+
+def test_block_stats_int64_lengths_past_int32_clamp():
+    """int64 lengths of +-2**40 clamp to all rows and none; they do not
+    wrap.  The reference takes int32 lengths, so it is given the same
+    lengths clamped to [-1, R + 1], which select the same rows."""
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, 50, (4, 20, 16)).astype(np.int32)
+    toks[:, :, :3] = PAT
+    lens = np.array([2 ** 40, -2 ** 40, 3, 2 ** 32 + 1], np.int64)
+    got = ops.block_stats_batched(toks, lens, PAT, device="cpu")
+    _check(got, jops.block_stats_batched(
+        jnp.asarray(toks), jnp.asarray(np.clip(lens, -1, 21).astype(np.int32)),
+        PAT, interpret=True))
+    assert float(got[1].abs().sum()) == 0.0
+    assert torch.equal(got[3], ops.block_stats(toks[3], PAT, device="cpu"))
