@@ -24,8 +24,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      sequence under one chunk, within 5e-4 and 5e-2;
   4. the DV-DVFS main path at full size: token blocks -> sampled estimates
      (one block_stats_batched launch a chunk) -> DV-DVFS plans -> simulated
-     run against the full-block truth, with its kernels' launch counts read
-     after it;
+     run against the full-block truth, then the same estimates planned over
+     the four nodes of examples/cluster_sim.py, uncapped and under a power
+     cap, with its kernels' launch counts read after it;
   5. the same path on a small dataset, card against CPU;
   6. the five apps on the card at the paper-figure block sizes, with the
      paper's estimate -> plan -> simulate comparison against DVO;
@@ -44,7 +45,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      inputs, and the final state checked end to end (prefill S-1 tokens and
      decode the last against the S-token prefill's logits);
  10. the Mamba serving path at smoke size, card against CPU;
- 11. kernel, plain and library times at the main paths' shapes, beside the
+ 11. the MoE serving path at full width: qwen2-moe-a2.7b (24 layers, d_model
+     2048, 60 routed experts top-4 and 4 shared, float32, random weights
+     from a seed) serves the same traffic (prefill through the flash kernel
+     and the MoE FFN over all 8192 tokens at once, decode through the plain
+     products), with the flash launch count read after it, the kernel held
+     against its plain version on the first and last layers' real q/k/v, a
+     second prefill bit-identical to the first, and the routes and logits
+     of a plain chunked-attention prefill compared; then the same traffic
+     over three replicas planned by the cluster planner;
+ 12. the MoE serving paths at smoke size, card against CPU: qwen2-moe-a2.7b,
+     and jamba-1.5-large-398b (Mamba, attention and MoE layers in one
+     model, through both the flash and the SSD kernels);
+ 13. kernel, plain and library times at the main paths' shapes, beside the
      least time the card could take; for flash attention and the SSD scan
      also registers, spills, occupancy, the SM clock and power under load,
      and (SSD) the device kernels one call launches and the FLOP the design
@@ -61,6 +74,8 @@ nothing here measures the card's energy.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -73,6 +88,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.apps import ALL_APPS, measure_block_seconds  # noqa: E402
+from repro_torch.cluster import (NodeSpec, assign_blocks,  # noqa: E402
+                                 simulate_cluster_reference)
 from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (CPU_PAPER_POWER, BlockInfo,  # noqa: E402
                               ChipSpec, EstimateArrays, RooflineTimeModel,
@@ -85,8 +102,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.launch.block_stats_timing import event_ms  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.convert import flatten  # noqa: E402
+from repro_torch.models.convert import SEP, flatten  # noqa: E402
 from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
                                   plan_estimates, stream_estimates_tokens,
                                   token_chunk_estimates, token_cost)
@@ -140,6 +158,16 @@ KERNELS = {
 SERVE = dict(arch="olmo-1b", batch=8, prompt=1024, max_len=1152, window=16,
              n_tokens=64, slack=1.2, seed=0)
 MAMBA_SERVE = dict(SERVE, arch="mamba2-1.3b")   # the same traffic
+MOE_SERVE = dict(SERVE, arch="qwen2-moe-a2.7b")  # the same traffic
+# the reference's multi-replica case (tests/test_serve.py:62-91)
+REPLICAS = dict(replicas=3, replica_speeds=(1.0, 0.8, 1.25), slack=1.4)
+# the main path's cluster: the four nodes of examples/cluster_sim.py:45-46,
+# its deadline rule (1.2x the largest f_max time of a round-robin split,
+# :47-49), and a power cap at this share of the uncapped plan's peak draw
+NODE_SPEEDS = (1.0, 0.7, 1.3, 0.9)
+NODE_SLACK = 1.2
+CAP_SHARE = 0.85
+MIXER_KERNEL = {"attn": "flash_attention", "mamba": "ssd_scan"}
 SERVE_LOGIT_TOL = 1e-3     # kernel vs chunked prefill, 16 float32 layers
 # prefill of S tokens vs prefill of S-1 and one decode step, 48 float32
 # layers: the chunked scan against the recurrence, summed in other orders
@@ -593,6 +621,9 @@ def phase_main_path() -> dict:
                   f"{rep.total_time_s:.6f} s of {deadline:.6f} s, "
                   f"deadline_met={rep.deadline_met}")
     walls["plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_over_nodes(est, truth_blocks)
+    walls["node_plan"] = time.perf_counter() - t0
     counts = launches()
     print(f"  launches in the main path: {json.dumps(counts)}")
     check(counts["flash_attention"] == 0 and counts["ssd_scan"] == 0,
@@ -605,6 +636,76 @@ def phase_main_path() -> dict:
     walls["total"] = time.perf_counter() - t_all
     print("  wall: " + ", ".join(f"{k} {v:.6f} s" for k, v in walls.items()))
     return {"launches": counts, "k": k, "first_chunk": first_chunk}
+
+
+def peak_power_w(cpa, util: np.ndarray) -> float:
+    """The plan's conservative concurrent draw, as the planner's power
+    screen counts it: every node at its own highest-power block, an empty
+    node at idle."""
+    total = 0.0
+    for np_ in cpa.node_plans:
+        pw = np_.node.power
+        if not len(np_.plan.index):
+            total += pw.p_idle
+            continue
+        draw = pw.p_idle + (pw.p_full - pw.p_idle) \
+            * np.clip(util[np_.plan.index], 0.0, 1.0) \
+            * np.clip(np_.plan.rel_freq, 0.0, 1.0) ** pw.alpha
+        total += float(draw.max())
+    return total
+
+
+def at_fmax(plan):
+    """``plan`` with every block at f_max: DVO on the same assignment."""
+    return dataclasses.replace(plan, node_plans=tuple(
+        dataclasses.replace(np_, blocks=tuple(
+            dataclasses.replace(bp, rel_freq=1.0) for bp in np_.blocks))
+        for np_ in plan.node_plans))
+
+
+def plan_over_nodes(est: EstimateArrays, truth_blocks: list) -> dict:
+    """The main path's estimates planned over four nodes
+    (``plan_estimates(nodes=...)``), uncapped and then capped at CAP_SHARE
+    of the uncapped plan's peak draw; each plan run against the truth
+    beside DVO on the same assignment (simulate_cluster_reference)."""
+    nodes = [NodeSpec(name, speed=s) for name, s in zip("abcd", NODE_SPEEDS)]
+    groups = assign_blocks(truth_blocks, nodes, strategy="round_robin")
+    deadline = NODE_SLACK * max(sum(b.est_time_fmax for b in g) / nd.speed
+                                for g, nd in zip(groups, nodes))
+    util = est.to_block_arrays().util
+    cap, out = None, {}
+    for label in ("uncapped", "capped"):
+        cpa = plan_estimates(est, deadline, PipelineConfig(power=POWER),
+                             nodes=nodes, power_cap_w=cap)
+        peak = peak_power_w(cpa, util)
+        plan = cpa.to_cluster_plan()
+        rep = simulate_cluster_reference(plan, truth_blocks)
+        dvo = simulate_cluster_reference(at_fmax(plan), truth_blocks)
+        saving = rep.improvement_vs(dvo)
+        print(f"  over {len(nodes)} nodes (speeds {NODE_SPEEDS}), deadline "
+              f"{deadline:.6f} s ({NODE_SLACK}x the largest round-robin f_max "
+              f"time), {label}"
+              + ("" if cap is None else f" at {cap:.3f} W ({CAP_SHARE} of the"
+                 " uncapped peak)")
+              + f": predicted makespan {cpa.pred_makespan_s:.6f} s, "
+              f"feasible={cpa.feasible}, power_cap_ok={cpa.power_cap_ok}, "
+              f"peak draw {peak:.3f} W; simulated against the truth: "
+              f"makespan {rep.makespan_s:.6f} s, deadline_met="
+              f"{rep.deadline_met}, {rep.total_energy_j:.6f} J "
+              f"({100 * saving:+.4f}% vs DVO on the same assignment, "
+              "TPU_V5E_POWER nodes)")
+        check(all(np.isfinite(x) for x in (
+            cpa.pred_makespan_s, cpa.pred_total_energy, peak, rep.makespan_s,
+            rep.total_energy_j, dvo.total_energy_j)),
+            f"the {label} node plan is not finite")
+        if cap is not None and cpa.feasible:
+            check(cpa.power_cap_ok and peak <= cap + 1e-9,
+                  f"the capped plan draws {peak} W over its {cap} W cap")
+        out[label] = {"makespan_s": rep.makespan_s, "feasible": cpa.feasible,
+                      "power_cap_ok": cpa.power_cap_ok, "peak_w": peak,
+                      "saving_vs_dvo": saving}
+        cap = CAP_SHARE * peak
+    return out
 
 
 def phase_small_path() -> None:
@@ -810,6 +911,26 @@ def serve_run(sv: dict, cfg, kernel: str, describe: str) -> tuple:
                                              "peak_gb": peak_gb}
 
 
+def prefill_mm_flops(cfg, params, tokens: int) -> int:
+    """The prefill's matrix products: 2 FLOP a weight of the blocks for each
+    row it multiplies; every token's row, except that a routed expert's
+    weights multiply the rows of its dispatch buffer (G groups x the
+    capacity, padding included)."""
+    rows = {}
+    if cfg.moe is not None:
+        g = cfg.moe.dispatch_groups if tokens % cfg.moe.dispatch_groups == 0 \
+            else 1
+        rows = {"wi": g * MOE._capacity(tokens // g, cfg.moe)}
+        rows["wg"] = rows["wo"] = rows["wi"]
+    total = 0
+    for blk in params["blocks"]:
+        for key, t in flatten(blk).items():
+            path = key.split(SEP)
+            expert = len(path) > 1 and path[-2] == "moe" and path[-1] in rows
+            total += 2 * (rows[path[-1]] if expert else tokens) * t[0].numel()
+    return total * cfg.n_repeats
+
+
 def serve_report(eng, sv: dict, out, roof, walls: dict) -> dict:
     """Print the prefill, window, decode, roofline and plan lines of a
     serving run; check the plan spends no more simulated energy than
@@ -820,11 +941,8 @@ def serve_report(eng, sv: dict, out, roof, walls: dict) -> dict:
     decode_s = sum(w for _, w in windows[1:])
     freqs = [bp.rel_freq for bp in eng.plan.blocks]
     saving = 1 - out["energy"]["busy_j"] / out["energy_dvo"]["busy_j"]
-    # the prefill's matrix products: 2 FLOP a weight of the blocks a token
     tokens = sv["batch"] * sv["prompt"]
-    mm_flops = 2 * tokens * sum(t[0].numel() for blk in eng.params["blocks"]
-                                for t in flatten(blk).values()) \
-        * cfg.n_repeats
+    mm_flops = prefill_mm_flops(cfg, eng.params, tokens)
     print(f"  prefill wall {eng.prefill_s:.6f} s ({sv['batch']}x"
           f"{sv['prompt']} tokens: {tokens / eng.prefill_s:.1f} tokens/s; "
           f"{mm_flops} FLOP of the blocks' matrix products at "
@@ -913,11 +1031,17 @@ def decode_profile(params, cfg, tok, cache, top: int = 8) -> None:
               f"x{e.count:<4d} {e.key}")
 
 
-def phase_serving_cpu(arch: str, kernel: str, **overrides) -> None:
+def phase_serving_cpu(arch: str, kernels: set, **overrides) -> None:
     """``arch`` at smoke size served on the card and on the CPU with the
-    same weights and prompts: one ``kernel`` launch a layer on the card,
-    none on the CPU; logits within SMOKE_LOGIT_TOL, equal greedy tokens."""
+    same weights and prompts: on the card one launch of each of ``kernels``
+    for each layer whose mixer runs it, and no other kernel; none on the
+    CPU; logits within SMOKE_LOGIT_TOL, equal greedy tokens."""
     cfg = smoke_config(arch, **overrides)
+    mixers = [spec.mixer for spec in cfg.pattern] * cfg.n_repeats
+    want = {name: sum(MIXER_KERNEL[m] == name for m in mixers)
+            if name in kernels else 0 for name in launches()}
+    check(all(want[name] for name in kernels),
+          f"smoke {cfg.name} has no layer for one of {kernels}")
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     prompts = np.random.default_rng(1).integers(
@@ -929,12 +1053,16 @@ def phase_serving_cpu(arch: str, kernel: str, **overrides) -> None:
         eng = TimedEngine(cfg, params, sc, device=dev)
         out = eng.generate({"tokens": prompts}, 24)
         outs[dev] = (eng.prefill_logits.cpu(), out["tokens"].cpu())
-        check(launches()[kernel] == (cfg.n_layers if dev == "cuda" else 0),
-              f"smoke {cfg.name} on {dev}: {kernel} launch count")
+        got = launches()
+        check(got == (want if dev == "cuda" else dict.fromkeys(got, 0)),
+              f"smoke {cfg.name} on {dev}: launches {got}, expected "
+              f"{want if dev == 'cuda' else 'none'}")
     err = _max_err(outs["cuda"][0], outs["cpu"][0])
-    print(f"smoke serving ({cfg.name} at smoke size, {cfg.n_layers} layer, "
-          f"d_model {cfg.d_model}, through {kernel}): card vs CPU prefill "
-          f"logits max |err| {err:.3g} (tol {SMOKE_LOGIT_TOL})")
+    print(f"smoke serving ({cfg.name} at smoke size, {cfg.n_layers} "
+          f"layer(s), d_model {cfg.d_model}, through "
+          f"{', '.join(f'{k} x{want[k]}' for k in sorted(kernels))}): card "
+          f"vs CPU prefill logits max |err| {err:.3g} (tol "
+          f"{SMOKE_LOGIT_TOL})")
     for b in range(2):
         print(f"  sequence {b} card: {outs['cuda'][1][b].tolist()}")
         print(f"  sequence {b} cpu:  {outs['cpu'][1][b].tolist()}")
@@ -1021,6 +1149,179 @@ def phase_mamba_serving() -> dict:
     return {"launches": counts, "layer_err": layer_err,
             "continuation_err": cont_err,
             **serve_report(eng, sv, out, roof, walls)}
+
+
+class FlashRecorder:
+    """A pass-through around the model's ``flash_attention_cuda`` that keeps
+    the inputs and output of the calls numbered in ``keep``."""
+
+    def __init__(self, keep):
+        self.keep = set(keep)
+        self.calls: dict = {}
+        self.n = 0
+
+    def __call__(self, q, k, v, **kw):
+        out = fa.flash_attention_cuda(q, k, v, **kw)
+        if self.n in self.keep:
+            self.calls[self.n] = (q, k, v, kw, out)
+        self.n += 1
+        return out
+
+
+ROUTE = MOE._route
+
+
+class RouteRecorder:
+    """A pass-through around the MoE FFN's router (``moe._route``, what
+    ``apply_moe`` dispatches by) that keeps every call's routes: the expert
+    of each (token, slot) and whether the slot is kept under the
+    capacity."""
+
+    def __init__(self):
+        self.routes: list = []
+
+    def __call__(self, *args):
+        out = ROUTE(*args)
+        self.routes.append((out[2], out[5]))       # e_flat, keep
+        return out
+
+
+def recorded_prefill(params, cfg, tokens, max_len, flash=None, route=None):
+    """``T.prefill`` with the recorders in place of the flash kernel's and
+    the router's entries (restored afterwards)."""
+    if flash is not None:
+        ops.flash_attention_cuda = flash
+    if route is not None:
+        MOE._route = route
+    try:
+        return T.prefill(params, cfg, {"tokens": tokens}, max_len)
+    finally:
+        ops.flash_attention_cuda = fa.flash_attention_cuda
+        MOE._route = ROUTE
+
+
+def free_device_memory() -> None:
+    """Drop what earlier phases left for the garbage collector and hand
+    the caching allocator's free blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+
+
+def phase_moe_serving() -> dict:
+    free_device_memory()
+    sv = MOE_SERVE
+    cfg = get_arch(sv["arch"], attn_impl_train="pallas")
+    m = cfg.moe
+    tokens = sv["batch"] * sv["prompt"]
+    cap = MOE._capacity(tokens, m)
+    eng, prompts, out, counts, roof, walls = serve_run(
+        sv, cfg, "flash_attention", f"{cfg.n_heads}x{cfg.d_head} heads, "
+        f"{m.n_experts} routed experts of d_ff {m.d_ff_expert} at top-"
+        f"{m.top_k} (capacity {cap} a expert over {tokens} tokens, factor "
+        f"{m.capacity_factor}), {m.n_shared} shared (d_ff {m.d_ff_shared})")
+    logits = eng.prefill_logits
+    tprompts = torch.as_tensor(prompts, device="cuda")
+
+    # a second prefill: the kernel against its plain version on the real
+    # q/k/v of the first and the last layer, and the routes it took
+    last = cfg.n_layers - 1
+    flash, kernel_routes = FlashRecorder((0, last)), RouteRecorder()
+    again = recorded_prefill(eng.params, cfg, tprompts, sv["max_len"],
+                             flash, kernel_routes)[0]
+    check(flash.n == cfg.n_layers and len(kernel_routes.routes)
+          == cfg.n_layers, f"the second prefill made {flash.n} flash and "
+          f"{len(kernel_routes.routes)} MoE calls")
+    check(torch.equal(again, logits), "a second prefill of the same prompts "
+          f"differs from the first by {_max_err(again, logits)}")
+    print("  a second prefill of the same prompts: logits bit-identical to "
+          "the first")
+    layer_err = {}
+    for i, (q, k, v, kw, got) in sorted(flash.calls.items()):
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        layer_err[i] = _max_err(got, want)
+        print(f"  layer {i} attention, kernel vs plain on its real q/k/v "
+              f"{tuple(q.shape)}: max |err| {layer_err[i]:.3g} (tol "
+              f"{FLASH_TOL[torch.float32]}; |o| up to "
+              f"{float(want.abs().max()):.4g})")
+        check(flash_close(got, want, torch.float32),
+              f"layer {i}: the flash kernel differs from its plain version")
+    del again, flash
+
+    # the same prompts through plain chunked attention: routes and logits
+    chunked = cfg.replace(attn_impl_train="chunked")
+    plain_routes = RouteRecorder()
+    (want, cache), chunked_s = sync_seconds(lambda: recorded_prefill(
+        eng.params, chunked, tprompts, sv["max_len"], route=plain_routes))
+    flips = [(i, int((a[0] != b[0]).sum()), int((a[1] != b[1]).sum()))
+             for i, (a, b) in enumerate(zip(kernel_routes.routes,
+                                            plain_routes.routes))]
+    n_route = sum(f[1] for f in flips)
+    n_keep = sum(f[2] for f in flips)
+    err = _max_err(logits, want)
+    print(f"  prefill vs plain chunked attention ({chunked_s:.6f} s): "
+          f"{n_route} of {cfg.n_layers * tokens * m.top_k} (layer, token, "
+          f"slot) routes and {n_keep} keep flags differ, in layers "
+          f"{[f[0] for f in flips if f[1] or f[2]]}; last logits max |err| "
+          f"{err:.6g} (tol {SERVE_LOGIT_TOL} when no route differs; |logits| "
+          f"up to {float(want.abs().max()):.4f})")
+    if n_route == 0 and n_keep == 0:
+        check(err <= SERVE_LOGIT_TOL, f"prefill logits differ by {err}")
+        check(torch.equal(logits.argmax(-1), want.argmax(-1)),
+              "first greedy tokens differ between kernel and chunked prefill")
+    # no prefill-then-continue check here: with capacity drops a prefill of
+    # S-1 tokens drops other slots than one of S, so the two prefills are
+    # not the same function
+    decode_profile(eng.params, cfg, want.argmax(-1).to(torch.int32)[:, None],
+                   cache)
+    del cache, want, kernel_routes, plain_routes
+    report = serve_report(eng, sv, out, roof, walls)
+    replicas = phase_moe_replicas(eng, sv, prompts, out, roof)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  peak device memory over the phase {peak_gb:.3f} GB")
+    check(peak_gb < 80, f"the phase needed {peak_gb} GB")
+    return {"launches": counts, "layer_err": layer_err, "route_flips": n_route,
+            "keep_flips": n_keep, "logit_err": err, "replicas": replicas,
+            **report, "phase_peak_gb": peak_gb}
+
+
+def phase_moe_replicas(eng, sv: dict, prompts, single, roof) -> dict:
+    """The same traffic over three replicas of different speeds under the
+    shared SLO: replica 0 decodes on the card, the others are accounted
+    from the cluster plan.  Checks the plan is feasible, the tokens are the
+    single replica's, the slowest replica clocks at least as high as the
+    fastest, and the simulated energy is within 1% of DVO's or below."""
+    sc = ServeConfig(batch=sv["batch"], max_len=sv["max_len"],
+                     window=sv["window"], planner="roofline", **REPLICAS)
+    eng3 = TimedEngine(eng.cfg, eng.params, sc, roofline=roof,
+                       device="cuda")
+    out, gen_s = sync_seconds(lambda: eng3.generate({"tokens": prompts},
+                                                    sv["n_tokens"]))
+    cp = eng3.cluster_plan
+    freqs = [[bp.rel_freq for bp in np_.blocks] for np_ in cp.node_plans]
+    mean = [float(np.mean(f)) for f in freqs]
+    busy, dvo = out["energy"]["busy_j"], out["energy_dvo"]["busy_j"]
+    print(f"  {sc.replicas} replicas (speeds {sc.replica_speeds}, slack "
+          f"{sc.slack}): generate wall {gen_s:.6f} s; plan feasible="
+          f"{cp.feasible}; window frequencies "
+          + "; ".join(f"replica {r} ({np_.node.speed}): {f}"
+                      for r, (np_, f) in enumerate(zip(cp.node_plans, freqs)))
+          + f"; energy vs DVO, simulated with the copied TPU_V5E_POWER curve "
+          f"(not the card's energy): {100 * (1 - busy / dvo):+.4f}% (ledger "
+          f"steps {out['energy']['steps']})")
+    check(cp.feasible, "the replicas' plan is not feasible")
+    check(torch.equal(out["tokens"], single["tokens"]),
+          "the replicas' tokens differ from the single replica's")
+    slow = int(np.argmin(sc.replica_speeds))
+    fast = int(np.argmax(sc.replica_speeds))
+    check(mean[slow] >= mean[fast], f"the slowest replica clocks at "
+          f"{mean[slow]}, below the fastest's {mean[fast]}")
+    check(busy <= dvo * 1.01, f"the replicas spend {busy} J against DVO's "
+          f"{dvo} J")
+    return {"feasible": cp.feasible, "mean_freq": mean,
+            "saving": 1 - busy / dvo, "generate_s": gen_s}
 
 
 def phase_times(main: dict, worst: dict) -> list:
@@ -1156,30 +1457,36 @@ def device_kernels(fn) -> list:
 
 
 DEVICE_CALLS = 4
+SPIN_CYCLES = 2_000_000      # about 1 ms of torch.cuda._sleep at 1980 MHz
 
 
 def device_events(fn) -> list:
     """For two torch.profiler sessions of ``DEVICE_CALLS`` calls of ``fn``
     each, the names of the device events (kernels, copies, memsets) they
-    recorded.  A session has missed the first kernel launched in it, and
-    now and then all of them: a session that recorded nothing is run again,
-    up to six sessions in all."""
+    recorded.  Sessions have missed the first kernels launched in them (one
+    of four, two of four, now and then all), so each session first runs a
+    spin kernel of about 1 ms and the calls run on the device after it; its
+    event is left out.  A session that still recorded fewer events than
+    ``DEVICE_CALLS - 1`` (every call launches at least one kernel) is run
+    again, up to six sessions in all."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sessions = []
     for _ in range(6):
         with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(DEVICE_CALLS):
                 fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
+        if len(names) >= DEVICE_CALLS - 1:
             sessions.append(names)
         if len(sessions) == 2:
             return sessions
     raise RuntimeError("chip_smoke: six profiler sessions, fewer than two "
-                       "recorded a device event")
+                       f"recorded {DEVICE_CALLS - 1} device events or more")
 
 
 def clock_under_load(fn, seconds: float = 1.0) -> dict:
@@ -1203,7 +1510,7 @@ def clock_under_load(fn, seconds: float = 1.0) -> dict:
     return {"sm_mhz": float(np.median(mhz)), "power_w": float(np.median(watts))}
 
 
-def phase_flash_times(serving: dict, worst: dict) -> dict:
+def phase_flash_times(paths: dict, worst: dict) -> dict:
     b, h, s, d = SERVE["batch"], 16, SERVE["prompt"], 128   # olmo-1b prefill
     rng = np.random.default_rng(2)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1259,7 +1566,10 @@ def phase_flash_times(serving: dict, worst: dict) -> dict:
     return {"name": "flash_attention", "route": "cuda",
             "source": main["source"],
             "replaces": KERNELS["flash_attention"],
-            "launches": serving["launches"]["flash_attention"],
+            "launches": sum(n["launches"]["flash_attention"]
+                            for n in paths.values()),
+            "launches_by_path": {arch: n["launches"]["flash_attention"]
+                                 for arch, n in paths.items()},
             "max_abs_err": worst["flash_attention"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1378,13 +1688,19 @@ def main() -> int:
     phase_small_path()
     phase_apps()
     serving = phase_serving()
-    phase_serving_cpu("olmo-1b", "flash_attention", attn_impl_train="pallas")
+    phase_serving_cpu("olmo-1b", {"flash_attention"}, attn_impl_train="pallas")
     mamba = phase_mamba_serving()
-    phase_serving_cpu("mamba2-1.3b", "ssd_scan")
+    phase_serving_cpu("mamba2-1.3b", {"ssd_scan"})
+    moe = phase_moe_serving()
+    phase_serving_cpu("qwen2-moe-a2.7b", {"flash_attention"},
+                      attn_impl_train="pallas")
+    phase_serving_cpu("jamba-1.5-large-398b", {"flash_attention", "ssd_scan"},
+                      attn_impl_train="pallas")
     print(f"times on {kind} ({smi}); ms, plain_ms and library_ms are "
           "CUDA-event medians of 20 runs, each after evicting the L2:")
     kernels = phase_times(main_path, worst)
-    kernels.append(phase_flash_times(serving, worst))
+    kernels.append(phase_flash_times({SERVE["arch"]: serving,
+                                      MOE_SERVE["arch"]: moe}, worst))
     kernels.append(phase_ssd_times(mamba, worst))
     print(f"total wall: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"kernels": kernels}))

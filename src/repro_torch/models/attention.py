@@ -179,7 +179,7 @@ def attention_train(params, x, dims: AttnDims, *, positions=None,
         out = _chunked_causal(qg, k, v, swa_window, chunk_q, chunk_k)
     elif impl == "wedge":
         raise NotImplementedError(
-            "impl='wedge' is not ported yet (ROADMAP Queue 1 item 9)")
+            "impl='wedge' is not ported yet (ROADMAP Queue 1 item 11)")
     elif impl == "pallas":
         from repro_torch.kernels import ops
         # (B, S, H, D) -> (B, H, S, D) views: the kernel reads the strides,

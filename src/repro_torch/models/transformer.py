@@ -5,9 +5,10 @@ The port of ``src/repro/models/transformer.py``.  One super-block
 is the reference's (``blocks`` a tuple over the pattern, every leaf with a
 leading ``n_repeats`` dimension), and the reference's ``lax.scan`` over
 repeats is a Python loop over that leading index.  Attention and Mamba-2
-mixers with dense-MLP (or no) FFNs are ported; ``ffn="moe"`` raises
-``NotImplementedError`` until its slice (ROADMAP Queue 1 item 9), and
-``loss_fn`` comes with training.
+mixers with dense-MLP, MoE or no FFNs are ported; ``loss_fn`` comes with
+training.  An MoE layer runs ``apply_moe`` once over the whole (B·S, d)
+batch, as the reference does: the capacity, and so which slots are dropped,
+depends on the number of tokens dispatched together.
 
 API (pure functions over parameter trees of tensors; caches are updated in
 place):
@@ -25,7 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 from repro_torch.models.common import (apply_mlp, apply_norm, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        normal)
@@ -41,14 +42,11 @@ def _dims(cfg: ArchConfig) -> attn.AttnDims:
 
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise unless every layer of the pattern is attention or Mamba-2 +
-    dense/none."""
+    dense/MoE/none."""
     for spec in cfg.pattern:
-        if spec.ffn == "moe":
-            raise NotImplementedError(
-                "ffn='moe' is not ported yet (ROADMAP Queue 1 item 9)")
         if spec.mixer not in ("attn", "mamba"):
             raise ValueError(spec.mixer)
-        if spec.ffn not in ("dense", "none"):
+        if spec.ffn not in ("dense", "moe", "none"):
             raise ValueError(spec.ffn)
 
 
@@ -66,6 +64,9 @@ def _init_layer(cfg: ArchConfig, spec: LayerSpec, generator, dtype) -> dict:
         p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
         p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind,
                             dtype)
+    elif spec.ffn == "moe":
+        p["norm2"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+        p["moe"] = moe.init_moe(generator, cfg.d_model, cfg.moe, dtype)
     return p
 
 
@@ -161,10 +162,16 @@ def _mix(cfg: ArchConfig, spec: LayerSpec, p: dict, x, positions):
 
 
 def _ffn(cfg: ArchConfig, spec: LayerSpec, p: dict, x):
+    """norm2 -> the FFN, added to ``x``; returns (x, the MoE aux term, None
+    for a dense or no FFN).  An MoE FFN dispatches all B·S tokens at once."""
+    if spec.ffn == "none":
+        return x, None
+    h = apply_norm(cfg.norm, p["norm2"], x)
     if spec.ffn == "dense":
-        x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["norm2"], x),
-                          cfg.mlp_kind)
-    return x
+        return x + apply_mlp(p["mlp"], h, cfg.mlp_kind), None
+    b, s, d = h.shape
+    out, aux = moe.apply_moe(p["moe"], h.reshape(b * s, d), cfg.moe)
+    return x + out.reshape(b, s, d), aux
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch) -> tuple:
@@ -183,13 +190,16 @@ def forward(params, cfg: ArchConfig, batch):
     """Full-sequence forward -> (hidden (B,S,d) pre-final-norm, aux_loss)."""
     _check_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for rep in range(cfg.n_repeats):
         x = _pin_batch(cfg, x)
         for j, spec in enumerate(cfg.pattern):
             p = _index(params["blocks"][j], rep)
             out, _, _ = _mix(cfg, spec, p, x, positions)
-            x = _ffn(cfg, spec, p, x + out)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _ffn(cfg, spec, p, x + out)
+            if a is not None:
+                aux = aux + a
+    return x, aux
 
 
 def _logits(params, cfg: ArchConfig, h):
@@ -241,7 +251,7 @@ def decode_step(params, cfg: ArchConfig, tokens, cache):
                     swa_window=cfg.swa_window, rope_theta=cfg.rope_theta)
             else:
                 out, _ = mamba2.mamba_decode(p["mamba"], h, c, cfg.ssm)
-            x = _ffn(cfg, spec, p, x + out)
+            x, _ = _ffn(cfg, spec, p, x + out)
     h = apply_norm(cfg.norm, params["final_norm"], x[:, 0])
     cache["pos"] = pos + 1
     return _logits(params, cfg, h), cache
@@ -271,7 +281,7 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
                     p["mamba"], apply_norm(cfg.norm, p["norm1"], x), cfg.ssm)
                 for key, t in filled.items():   # conv caches take c's dtype
                     c[key].copy_(t)
-            x = _ffn(cfg, spec, p, x + out)
+            x, _ = _ffn(cfg, spec, p, x + out)
     h = apply_norm(cfg.norm, params["final_norm"], x[:, -1])
     cache["pos"] = s
     return _logits(params, cfg, h), cache
@@ -297,6 +307,8 @@ def model_flops(cfg: ArchConfig, tokens: int, kv_len: int | None = None,
         if spec.ffn == "dense":
             n_mats = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
             per_block += 2.0 * n_mats * d * cfg.d_ff * tokens
+        elif spec.ffn == "moe":
+            per_block += moe.moe_flops(d, cfg.moe, tokens)
     total = per_block * cfg.n_repeats
     heads = max(cfg.n_codebooks, 1)
     total += 2.0 * tokens * d * cfg.vocab * heads   # lm head

@@ -1,7 +1,9 @@
-"""Streaming dataset→plan pipeline (port of ``src/repro/pipeline``), single-node:
+"""Streaming dataset→plan pipeline (port of ``src/repro/pipeline``):
 
     token chunks ──> hash-sampled rows ──> block_stats_batched (CUDA kernel)
-                 ──> EstimateArrays (SoA) ──> plan_dvfs_arrays ──> PlanArrays
+                 ──> EstimateArrays (SoA)
+                 ──> plan_dvfs_arrays / plan_cluster_arrays
+                 ──> PlanArrays / ClusterPlanArrays
 
 ``arrivals`` and ``sources`` are not ported yet.
 """

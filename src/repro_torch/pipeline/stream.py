@@ -1,4 +1,4 @@
-"""The chunked SoA dataset→plan path, single-node.
+"""The chunked SoA dataset→plan path.
 
 Port of ``src/repro/pipeline/stream.py``.  ``stream_estimates`` drives the
 NumPy sampling stage chunk by chunk and accumulates ``EstimateArrays``;
@@ -11,10 +11,12 @@ kernel's ragged-row masking takes per-block sample sizes), and prices
 records with a linear model over the kernel's [nonpad, matches, mass]
 features; the per-row decomposition behind the CI runs on the same device.
 
-Multi-node planning (``nodes=``, ``power_cap_w=``), measured calibration
-(``PipelineConfig.calibration``) and ``stream_run`` need ``cluster``,
-``runtime`` and ``calibrate``, which the port does not hold yet: they raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``plan_estimates(nodes=...)`` plans over a cluster through the copied
+``plan_cluster_arrays`` (``power_cap_w`` adds its Σ-power screen), and
+``PipelineConfig.calibration`` takes the copied ``repro_torch.calibrate``
+fits, as in the reference.  ``stream_run`` executes a cluster plan on the
+event-driven runtime, which the port does not hold yet (ROADMAP Queue 1
+item 2): it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch.core.sampling import (_DOMAIN_SAMPLER, _hash_uniform,
                                        _z_for_confidence, sample_blocks_soa)
 from repro_torch.core.scheduler import plan_dvfs_arrays
 from repro_torch.core.soa import EstimateArrays
-from repro_torch.device import to_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import row_stats
 
@@ -42,10 +44,6 @@ __all__ = ["PipelineConfig", "stream_estimates", "stream_estimates_tokens",
 # seconds ≈ w·[nonpad, matches, mass].  Values are arbitrary but fixed —
 # benchmarks and tests care about the variety STRUCTURE, not the unit.
 DEFAULT_TOKEN_COST_WEIGHTS = (2e-6, 5e-5, 1e-9)
-
-_NO_CLUSTER = ("multi-node planning needs repro_torch.cluster, which the "
-               "port does not hold yet (ROADMAP Queue 1 item 1)")
-
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
@@ -65,8 +63,15 @@ class PipelineConfig:
     power: PowerModel = TPU_V5E_POWER
     error_margin: float = 0.05
     adaptive_margin: bool = False
-    # measured calibration (a CostFit and/or CounterTrace in the reference);
-    # must stay None until the port holds repro_torch.calibrate
+    # measured calibration (repro_torch.calibrate) — closes the estimate->
+    # plan->measure loop for STREAMED plans:
+    #   * a ``CostFit`` prices token blocks with the fitted per-record cost
+    #     instead of the linear token model, and stamps every planned block
+    #     with the fit's max-form roofline (calibrated memory-bound
+    #     fraction), exactly as ``CostFit.roofline()`` would per block;
+    #   * a ``CounterTrace`` upgrades the node specs at plan time
+    #     (``plan_cluster_arrays(calibration=trace)``);
+    #   * a ``(CostFit, CounterTrace)`` tuple applies both.
     calibration: object = None
 
 
@@ -79,11 +84,24 @@ def token_cost(stats: torch.Tensor, weights=DEFAULT_TOKEN_COST_WEIGHTS
     return s[..., 0] * w[0] + s[..., 1] * w[1] + s[..., 2] * w[2]
 
 
-def _require_no_calibration(config: PipelineConfig) -> None:
-    if config.calibration is not None:
-        raise NotImplementedError(
-            "PipelineConfig.calibration needs repro_torch.calibrate, which "
-            "the port does not hold yet (ROADMAP Queue 1 item 3)")
+def _split_calibration(config: PipelineConfig):
+    """-> (CostFit | None, CounterTrace | None) from the config hook."""
+    cal = config.calibration
+    if cal is None:
+        return None, None
+    from repro_torch.calibrate.fit import CostFit
+    from repro_torch.calibrate.trace import CounterTrace
+    if isinstance(cal, CostFit):
+        return cal, None
+    if isinstance(cal, CounterTrace):
+        return None, cal
+    if isinstance(cal, tuple) and len(cal) == 2 \
+            and isinstance(cal[0], CostFit) \
+            and isinstance(cal[1], CounterTrace):
+        return cal[0], cal[1]
+    raise TypeError("PipelineConfig.calibration must be a CostFit, a "
+                    f"CounterTrace, or a (CostFit, CounterTrace) tuple, "
+                    f"got {type(cal).__name__}")
 
 
 def _iter_chunks(source, chunk_size: int) -> Iterator[dict]:
@@ -138,12 +156,23 @@ def token_chunk_estimates(
     the per-block sample sizes); the per-row feature decomposition over
     just the sampled rows prices the CI, on the same device.
     """
-    _require_no_calibration(config)
-    tokens = to_device(tokens, device)
-    if tokens.dtype != torch.int32:
-        tokens = tokens.to(torch.int32)
+    dev = resolve_device(device)
     b, r, length = tokens.shape
     index = start_index + np.arange(b, dtype=np.int64)
+    fit, _ = _split_calibration(config)
+    if fit is not None:
+        # calibrated pricing: the fitted per-record cost replaces the
+        # linear token model outright — cost is a pure function of record
+        # count, so no rows are sampled and no kernel launch runs; the
+        # CI halfwidth is the fit's own residual scale
+        total = fit.est_time_fmax(np.full(b, float(r)))
+        hw = _z_for_confidence(config.confidence) * fit.rmse_s
+        return EstimateArrays(index, total, total - hw, total + hw,
+                              np.zeros(b, dtype=np.int64),
+                              np.full(b, r, dtype=np.int64))
+    tokens = to_device(tokens, dev)
+    if tokens.dtype != torch.int32:
+        tokens = tokens.to(torch.int32)
     k = np.minimum(r, np.maximum(max(int(config.min_samples), 1),
                                  int(np.ceil(config.fraction * r))))
     k = np.full(b, k, dtype=np.int64)
@@ -208,16 +237,32 @@ def plan_estimates(
     config: PipelineConfig = PipelineConfig(),
     *,
     nodes: Sequence | None = None,
+    assignment="auto",
     util: np.ndarray | None = None,
     power_cap_w: float | None = None,
 ):
-    """Planning stage: SoA estimates straight into the vectorized planner
-    (``PlanArrays``).  ``nodes`` and ``power_cap_w`` are the reference's
-    cluster-plan arguments and raise until the port holds ``cluster``."""
-    _require_no_calibration(config)
-    if nodes is not None or power_cap_w is not None:
-        raise NotImplementedError(_NO_CLUSTER)
-    ba = est.to_block_arrays(util=util)
+    """Planning stage: SoA estimates straight into the vectorized planner.
+
+    Single-node by default (``PlanArrays``); passing ``nodes`` routes the
+    same ``BlockArrays`` through ``plan_cluster_arrays``
+    (``ClusterPlanArrays``), where ``power_cap_w`` adds the cluster-wide
+    Σ-power screen.  ``config.calibration`` applies here: a ``CostFit``
+    stamps every block with the fit's calibrated roofline (identical to
+    ``CostFit.roofline()`` per block), a ``CounterTrace`` calibrates the
+    node specs before the cluster plan.
+    """
+    fit, trace = _split_calibration(config)
+    roofline = fit.roofline_arrays(est.n_records) if fit is not None else None
+    ba = est.to_block_arrays(util=util, roofline=roofline)
+    if nodes is not None:
+        from repro_torch.cluster.planner import plan_cluster_arrays
+        return plan_cluster_arrays(ba, nodes, deadline_s,
+                                   assignment=assignment,
+                                   error_margin=config.error_margin,
+                                   power_cap_w=power_cap_w,
+                                   calibration=trace)
+    if power_cap_w is not None:
+        raise ValueError("power_cap_w needs a cluster plan (pass nodes)")
     return plan_dvfs_arrays(ba, deadline_s, planner=config.planner,
                             ladder=config.ladder, power=config.power,
                             error_margin=config.error_margin,
@@ -230,18 +275,21 @@ def stream_plan(
     config: PipelineConfig = PipelineConfig(),
     *,
     nodes: Sequence | None = None,
+    assignment="auto",
 ):
     """End to end: chunked cost source (or ``EstimateArrays``) ->
-    ``PlanArrays``, with no per-block Python objects."""
+    ``PlanArrays``/``ClusterPlanArrays``, with no per-block Python
+    objects."""
     est = source if isinstance(source, EstimateArrays) \
         else stream_estimates(source, config)
-    return plan_estimates(est, deadline_s, config, nodes=nodes)
+    return plan_estimates(est, deadline_s, config, nodes=nodes,
+                          assignment=assignment)
 
 
 def stream_run(source, deadline_s: float,
                config: PipelineConfig = PipelineConfig(), **kwargs):
     """Dataset → plan → event-driven cluster execution in the reference;
-    needs ``cluster`` and ``runtime``, which the port does not hold yet."""
+    needs ``repro_torch.runtime``, which the port does not hold yet."""
     raise NotImplementedError(
-        "stream_run needs repro_torch.cluster and repro_torch.runtime, which "
-        "the port does not hold yet (ROADMAP Queue 1 items 1-2)")
+        "stream_run needs repro_torch.runtime, which the port does not hold "
+        "yet (ROADMAP Queue 1 item 2)")

@@ -11,7 +11,8 @@ as the exact int64 sum cast to float32).  Flash attention: within the
 reference's kernel tolerances (float32 2e-5, bfloat16 2e-2).  SSD scan: y
 and the final state within the reference's kernel tolerances (float32 5e-4,
 bfloat16 5e-2, absolute plus relative).  The serving paths' logits within
-1e-4 of the CPU's (float32, summed in another order).
+1e-4 of the CPU's (float32, summed in another order).  The MoE FFN on the
+card within 1e-5 of the CPU's, drops included, with no host synchronise.
 """
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.pipeline import PipelineConfig, stream_estimates_tokens, \
@@ -453,6 +455,93 @@ def test_cuda_mamba_serving_smoke_matches_cpu(cuda):
         outs[str(dev)] = eng.generate(prompts, n_tokens=20)
         if dev == cuda:
             assert ss.LAUNCHES["ssd_scan"] == cfg.n_layers
+        logits, _ = T.prefill(eng.params, cfg,
+                              {"tokens": torch.as_tensor(prompts["tokens"],
+                                                         device=dev)}, 96)
+        outs[str(dev)]["logits"] = logits.cpu()
+    cpu, card = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(card["logits"], cpu["logits"], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(card["tokens"].cpu().numpy(),
+                                  cpu["tokens"].numpy())
+    assert card["energy"]["steps"] == cpu["energy"]["steps"]
+
+
+MOE_CASES = {
+    # name: (MoEConfig fields, tokens, explicit capacity, forced routing)
+    "dropless-shared": (dict(n_experts=8, top_k=2, d_ff_expert=32, n_shared=2,
+                             d_ff_shared=64, capacity_factor=8.0), 64, None,
+                        False),
+    "drops-capacity-factor-1": (dict(n_experts=8, top_k=2, d_ff_expert=32,
+                                     capacity_factor=1.0), 256, None, False),
+    "two-groups": (dict(n_experts=8, top_k=2, d_ff_expert=32,
+                        capacity_factor=1.0, dispatch_groups=2), 256, None,
+                   False),
+    "one-expert-capacity-8": (dict(n_experts=2, top_k=1, d_ff_expert=8,
+                                   capacity_factor=1.0), 32, 8, True),
+    "qwen2-moe-shape": (dict(n_experts=60, top_k=4, d_ff_expert=1408,
+                             n_shared=4, d_ff_shared=5632), 512, None, False),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_cuda_apply_moe_matches_cpu(cuda, case):
+    """apply_moe on the card against the CPU on the same weights and
+    tokens, with the device in sync-debug mode "error": no step of it may
+    wait for the device."""
+    fields, t, capacity, forced = MOE_CASES[case]
+    cfg = M.MoEConfig(**fields)
+    d = 64 if fields["d_ff_expert"] < 1024 else 2048
+    params = M.init_moe(torch.Generator().manual_seed(3), d, cfg,
+                        torch.float32)
+    if forced:
+        params["router"] = torch.tensor([[10.0, -10.0]] * d)
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 1, (t, d))
+                         .astype(np.float32))
+    if forced:
+        x = torch.ones((t, d))
+    want, want_aux = M.apply_moe(params, x, cfg, capacity=capacity)
+    on_card = {k: (v.to(cuda) if torch.is_tensor(v)
+                   else {kk: vv.to(cuda) for kk, vv in v.items()})
+               for k, v in params.items()}
+    xc = x.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = M.apply_moe(on_card, xc, cfg, capacity=capacity)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+    kept = (got.cpu().abs().amax(-1) > 0)
+    np.testing.assert_array_equal(kept.numpy(),
+                                  (want.abs().amax(-1) > 0).numpy())
+    if forced:
+        assert int(kept.sum()) == 8
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
+def test_cuda_moe_serving_smoke_matches_cpu(cuda, arch):
+    """MoE archs at smoke size (jamba: Mamba, attention and MoE layers in
+    one model) through the flash and SSD kernels: the card's logits and
+    greedy tokens equal the CPU's, with one launch a layer of each kernel
+    in each prefill."""
+    cfg = smoke_config(arch, attn_impl_train="pallas")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    prompts = {"tokens": np.random.default_rng(0).integers(
+        1, cfg.vocab, (2, 48)).astype(np.int32)}
+    sc = ServeConfig(batch=2, max_len=96, window=8, slack=1.2)
+    outs = {}
+    for dev in ("cpu", cuda):
+        fa.reset_launches()
+        ss.reset_launches()
+        eng = ServingEngine(cfg, params, sc, device=dev)
+        outs[str(dev)] = eng.generate(prompts, n_tokens=20)
+        if dev == cuda:
+            mixers = [spec.mixer for spec in cfg.pattern] * cfg.n_repeats
+            assert fa.LAUNCHES["flash_attention"] == mixers.count("attn")
+            assert ss.LAUNCHES["ssd_scan"] == mixers.count("mamba")
         logits, _ = T.prefill(eng.params, cfg,
                               {"tokens": torch.as_tensor(prompts["tokens"],
                                                          device=dev)}, 96)

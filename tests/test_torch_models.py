@@ -8,8 +8,16 @@ agree at 1e-5 (float32, summed in another order) for every attention +
 dense-MLP arch: olmo-1b, minitron-8b, qwen1.5-32b (QKV bias, int8 KV),
 yi-6b (GQA), pixtral-12b (patch frontend) and musicgen-large (codebooks),
 with the chunked attention and with the kernel path (``"pallas"``, whose
-plain version runs here); and for mamba2-1.3b, whose SSD goes through the
-``ssd_scan`` wrapper (its plain version here) whatever the attention impl.
+plain version runs here); for mamba2-1.3b, whose SSD goes through the
+``ssd_scan`` wrapper (its plain version here) whatever the attention impl;
+and for the MoE archs qwen2-moe-a2.7b (shared experts), mixtral-8x7b (SWA)
+and jamba-1.5-large-398b (Mamba, attention, dense and MoE layers in one
+pattern), whose smoke configs are dropless.  ``forward`` also returns the
+MoE aux term, summed over layers, at 1e-5.  Jamba's pre-norm hidden states
+are held at 5e-5: its eight smoke layers grow them to |h| ≈ 14, and the
+reference's own float32 forward lies 1.6e-5 to 2.3e-5 from a float64 run of
+the same function on these inputs (seeds 1-3), so no float32 implementation
+can meet 1e-5 there; its logits are held at 1e-5 like every arch's.
 """
 import dataclasses
 
@@ -27,9 +35,10 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.convert import flatten, params_from_numpy
 
 ARCHS = ("olmo-1b", "minitron-8b", "qwen1.5-32b", "yi-6b", "pixtral-12b",
-         "musicgen-large", "mamba2-1.3b")
-NOT_PORTED = ("jamba-1.5-large-398b", "qwen2-moe-a2.7b", "mixtral-8x7b")
+         "musicgen-large", "mamba2-1.3b", "qwen2-moe-a2.7b", "mixtral-8x7b",
+         "jamba-1.5-large-398b")
 B, S = 2, 64
+FORWARD_TOL = {"jamba-1.5-large-398b": 5e-5}   # see the module docstring
 
 
 def _batch(cfg, rng, seq=S):
@@ -76,15 +85,19 @@ def test_prefill_and_decode_match_reference(arch, impl):
 
 
 @pytest.mark.parametrize("arch", ("olmo-1b", "pixtral-12b", "musicgen-large",
-                                  "mamba2-1.3b"))
+                                  "mamba2-1.3b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b"))
 def test_forward_matches_reference(arch):
     jc, tc, jp, tp = _both(arch, seed=2)
     batch = _batch(jc, np.random.default_rng(2), seq=32)
-    jh, _ = JT.forward(jp, jc, {k: jnp.asarray(v) for k, v in batch.items()})
+    jh, jaux = JT.forward(jp, jc, {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
     th, aux = TT.forward(tp, tc, {k: torch.from_numpy(v)
                                   for k, v in batch.items()})
-    assert float(aux) == 0.0
-    _close(th, jh)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert (float(aux) > 0) == (jc.moe is not None)
+    _close(aux, jaux)
+    _close(th, jh, FORWARD_TOL.get(arch, 1e-5))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -112,14 +125,6 @@ def test_model_flops_match_reference(arch):
                              (128, 32768, "decode")):
         assert TT.model_flops(tc, tokens, kv, mode=mode) == \
             JT.model_flops(jc, tokens, kv, mode=mode)
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_mamba_and_moe_layers_are_not_ported_yet(arch):
-    """MoE FFNs (and so jamba, whose Mamba layers are ported) still raise."""
-    cfg = tcfg.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
 def test_batch_axes_need_the_sharded_port():

@@ -4,8 +4,14 @@ Data is bitwise the reference's (NumPy generation).  Stats counts agree
 exactly.  Estimates keep ``index`` and ``n_sampled`` exact and ``total`` and
 the CI within rtol 1e-6: the reference sums mass in float32 inside its
 kernel, the port sums it exactly, and the per-row sums run in another order.
-Plans on those estimates pick the same frequency for every block.
+Plans on those estimates pick the same frequency for every block.  Cluster
+plans (``plan_estimates(nodes=...)``, with and without a power cap) and
+calibrated plans (``PipelineConfig(calibration=...)``: a ``CostFit``, a
+``CounterTrace`` or both) on the same estimates are the reference's, bit for
+bit, as are calibrated token estimates.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -13,8 +19,15 @@ from repro.data import BlockDataset as RefDataset
 from repro.pipeline import PipelineConfig as RefConfig
 from repro.pipeline import stream_estimates as ref_stream_estimates
 from repro.pipeline import stream_estimates_tokens as ref_tokens
+from repro.pipeline import plan_estimates as ref_plan_estimates
 from repro.pipeline import stream_plan as ref_plan
 from repro.pipeline import synthetic_cost_chunks
+import repro.calibrate as rcal
+import repro.cluster as rcl
+import repro.core as rcore
+import repro_torch.calibrate as tcal
+import repro_torch.cluster as tcl
+import repro_torch.core as tcore
 from repro_torch.core import CPU_PAPER_POWER, EstimateArrays
 from repro_torch.data import BlockDataset
 from repro_torch.pipeline import (PipelineConfig, plan_estimates,
@@ -132,12 +145,96 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_cluster_runtime_and_calibration_paths_not_ported():
+    """Only the runtime's ``stream_run`` still waits for its slice."""
     est = stream_estimates(np.ones((3, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan_estimates(est, 10.0, nodes=[object()])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan_estimates(est, 10.0, power_cap_w=100.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stream_plan(est, 10.0, PipelineConfig(calibration=object()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         stream_run(est, 10.0, nodes=[object()])
+
+
+def _same_plan(a, b):
+    """ClusterPlanArrays / PlanArrays equality, bit for bit."""
+    if hasattr(b, "node_plans"):
+        assert (a.planner, a.deadline_s, a.feasible, a.power_cap_ok) == \
+            (b.planner, b.deadline_s, b.feasible, b.power_cap_ok)
+        assert len(a.node_plans) == len(b.node_plans)
+        for x, y in zip(a.node_plans, b.node_plans):
+            assert type(x.node).__name__ == type(y.node).__name__
+            assert dataclasses.asdict(x.node) == dataclasses.asdict(y.node)
+            _same_plan(x.plan, y.plan)
+        return
+    for key in ("index", "rel_freq", "pred_time_s", "pred_energy_j"):
+        np.testing.assert_array_equal(getattr(a, key), getattr(b, key))
+    assert (a.planner, a.deadline_s, a.feasible) == \
+        (b.planner, b.deadline_s, b.feasible)
+
+
+def _cluster_inputs(core, cl, cal, seed):
+    """Four nodes (speeds 1.0, 0.7, 1.3, 0.9), a trace of three of them and
+    a cost fit, from the seed."""
+    nodes = [cl.NodeSpec(n, speed=s) for n, s in
+             zip("abcd", (1.0, 0.7, 1.3, 0.9))]
+    trace = cal.CounterTrace.concat([
+        cal.synthetic_trace(n, core.PowerModel(220.0 - 20 * k, 60.0, 2.2),
+                            speed=0.8 + 0.2 * k, n_samples=40, noise=0.02,
+                            seed=seed + k) for k, n in enumerate("abc")])
+    rng = np.random.default_rng(seed)
+    rec = rng.integers(16, 64, 80).astype(float)
+    f = rng.choice(np.arange(0.5, 1.001, 0.1), 80)
+    fit = cal.fit_cost_model(rec, f, rec * 1e-3 * np.maximum(0.7 / f, 1.0))
+    return nodes, trace, fit
+
+
+@pytest.mark.parametrize("calibration", [None, "fit", "trace", "both"])
+@pytest.mark.parametrize("cap", [None, 0.9, 0.6])
+def test_cluster_plans_match_reference(cap, calibration):
+    """``plan_estimates(nodes=...)`` on the same estimates: uncapped, and
+    capped at a share of the uncapped plan's nodes' summed full power."""
+    est = stream_estimates(synthetic_cost_chunks(24, 32, seed=5,
+                                                 chunk_size=10))
+    plans = []
+    for core, cl, cal, plan, cfg in (
+            (rcore, rcl, rcal, ref_plan_estimates, RefConfig),
+            (tcore, tcl, tcal, plan_estimates, PipelineConfig)):
+        nodes, trace, fit = _cluster_inputs(core, cl, cal, 3)
+        cal_arg = {None: None, "fit": fit, "trace": trace,
+                   "both": (fit, trace)}[calibration]
+        deadline = 1.4 * float(est.total.sum()) / len(nodes)
+        cap_w = None if cap is None else \
+            cap * sum(nd.power.p_full for nd in nodes)
+        plans.append(plan(est, deadline, cfg(calibration=cal_arg),
+                          nodes=nodes, power_cap_w=cap_w))
+    _same_plan(plans[1], plans[0])
+    if calibration in ("trace", "both"):
+        assert type(plans[1].node_plans[0].node).__name__ == \
+            "CalibratedNodeSpec"
+
+
+@pytest.mark.parametrize("planner", ["paper", "global"])
+def test_calibrated_single_node_plans_and_token_estimates_match_reference(
+        planner):
+    """A ``CostFit`` prices token blocks by record count alone (no rows
+    sampled, no kernel) and stamps the plan's blocks with its roofline."""
+    kw = DATASETS[0]
+    _, _, tfit = _cluster_inputs(tcore, tcl, tcal, 1)
+    _, _, rfit = _cluster_inputs(rcore, rcl, rcal, 1)
+    got = stream_estimates_tokens(
+        BlockDataset(**kw).iter_token_chunks(2, device="cpu"),
+        PipelineConfig(calibration=tfit), device="cpu")
+    want = ref_tokens(RefDataset(**kw).iter_token_chunks(2),
+                      RefConfig(calibration=rfit), interpret=True)
+    for key in ("index", "total", "ci_low", "ci_high", "n_sampled",
+                "n_records"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
+    deadline = 1.2 * float(want.total.sum())
+    _same_plan(plan_estimates(got, deadline, PipelineConfig(
+                   planner=planner, calibration=tfit)),
+               ref_plan_estimates(want, deadline, RefConfig(
+                   planner=planner, calibration=rfit)))
+
+
+def test_power_cap_needs_nodes_and_calibration_is_typed():
+    est = stream_estimates(np.ones((3, 8)))
+    with pytest.raises(ValueError, match="nodes"):
+        plan_estimates(est, 10.0, power_cap_w=100.0)
+    with pytest.raises(TypeError, match="CostFit"):
+        stream_plan(est, 10.0, PipelineConfig(calibration=object()))

@@ -1,11 +1,16 @@
 """The port's serving engine and DVFS controller against the JAX package's.
 
 ``ServingEngine.generate`` on ``smoke_config("olmo-1b",
-attn_impl_train="pallas")`` and on ``smoke_config("mamba2-1.3b")`` (its
-prefill through the ``ssd_scan`` wrapper) with the reference's weights
-(carried across by ``params_from_numpy``) and the same seeded prompts gives
-the reference's greedy tokens, with the same ledger step counts; the window
-walls, and so the plans' frequencies, are measured and differ run to run.  The copied
+attn_impl_train="pallas")``, on ``smoke_config("mamba2-1.3b")`` (its
+prefill through the ``ssd_scan`` wrapper) and on
+``smoke_config("qwen2-moe-a2.7b")`` (MoE FFNs with a shared expert) with the
+reference's weights (carried across by ``params_from_numpy``) and the same
+seeded prompts gives the reference's greedy tokens, with the same ledger
+step counts; the window walls, and so the plans' frequencies, are measured
+and differ run to run.  With ``replicas=3`` (the reference's case,
+``tests/test_serve.py:62-91``) the tokens equal a single replica's and the
+reference's, the ledgers count the same steps, and the cluster plan of a
+given window time is the reference's, frequency for frequency.  The copied
 ``train/dvfs_controller.py`` is held bit-identical to the reference.
 """
 import dataclasses
@@ -22,6 +27,7 @@ from repro.models import transformer as JT
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JServingEngine
 import repro_torch.core as tc
+from repro_torch.cluster import NodeSpec
 import repro_torch.train.dvfs_controller as tdc
 from repro_torch.configs import smoke_config as tsmoke
 from repro_torch.launch import serve as launch_serve
@@ -58,10 +64,12 @@ def test_generate_matches_reference(impl, n_tokens, window):
     _check_generate(*_engines(impl, window=window), n_tokens)
 
 
-def test_mamba_generate_matches_reference():
-    """mamba2-1.3b at smoke size: prefill through the ssd_scan wrapper,
-    decode through the recurrence, three DV-DVFS windows."""
-    _check_generate(*_engines(window=8, arch="mamba2-1.3b"), 24)
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b"])
+def test_mamba_generate_matches_reference(arch):
+    """mamba2-1.3b at smoke size (prefill through the ssd_scan wrapper,
+    decode through the recurrence) and qwen2-moe-a2.7b (prefill and decode
+    through apply_moe): three DV-DVFS windows."""
+    _check_generate(*_engines(window=8, arch=arch), 24)
 
 
 def _check_generate(jeng, teng, prompts, n_tokens):
@@ -77,6 +85,7 @@ def _check_generate(jeng, teng, prompts, n_tokens):
     assert (teng.plan is None) == (jeng.plan is None)
     if teng.plan is not None:
         assert len(teng.plan.blocks) == len(jeng.plan.blocks)
+    return tout
 
 
 def test_generate_is_deterministic_and_downclocks_memory_bound_decode():
@@ -96,12 +105,68 @@ def test_short_generation_has_no_windows():
     assert teng.plan is None
 
 
-def test_replicas_are_not_ported_yet():
-    cfg = tsmoke("olmo-1b")
-    params = TT.init_params(cfg, torch.Generator().manual_seed(0),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, params, ServeConfig(replicas=3), device="cpu")
+REPLICAS = dict(replicas=3, replica_speeds=(1.0, 0.8, 1.25), slack=1.4)
+
+
+def test_multi_replica_generate_matches_reference():
+    """3 heterogeneous replicas under a shared SLO (tests/test_serve.py:
+    62-91): tokens equal the reference's and a single replica's, every
+    window is pinned to its replica, the slow host clocks at least as high
+    as the fast one, and the ledgers count the reference's steps."""
+    jeng, teng, prompts = _engines(**REPLICAS)
+    tout = _check_generate(jeng, teng, prompts, 32)
+    _, single, _ = _engines(slack=1.4)
+    out1 = single.generate({"tokens": prompts}, 32)
+    assert torch.equal(tout["tokens"], out1["tokens"])
+    cp, jcp = teng.cluster_plan, jeng.cluster_plan
+    assert cp is not None and cp.feasible == jcp.feasible
+    n_windows = len(cp.node_plans[0].blocks)
+    for r, (np_, jnp_) in enumerate(zip(cp.node_plans, jcp.node_plans)):
+        assert np_.node.name == jnp_.node.name == f"replica{r}"
+        assert np_.node.speed == jnp_.node.speed
+        assert [bp.index for bp in np_.blocks] == \
+            [bp.index for bp in jnp_.blocks] == \
+            list(range(r * n_windows, (r + 1) * n_windows))
+    mean_freq = [np.mean([bp.rel_freq for bp in p.blocks])
+                 for p in cp.node_plans]
+    assert mean_freq[1] >= mean_freq[2]
+    assert tout["energy"]["busy_j"] <= tout["energy_dvo"]["busy_j"] * 1.01
+    assert tout["energy"]["steps"] > out1["energy"]["steps"]
+
+
+@pytest.mark.parametrize("window_s,deadline", [(0.5, 5.0), (0.02, 0.3),
+                                               (1.0, 6.5)])
+@pytest.mark.parametrize("mem_bound", [True, False])
+def test_replica_plan_bit_identical_to_reference(window_s, deadline,
+                                                 mem_bound):
+    """``_plan_replicas`` on a given window time and deadline: the same
+    cluster plan as the reference's, bit for bit."""
+    jeng, teng, _ = _engines(**REPLICAS)
+    jeng.actuator = jdc.SimulatedActuator(_roofline(rc, mem_bound))
+    teng.actuator = tdc.SimulatedActuator(_roofline(tc, mem_bound))
+    jplan = jeng._plan_replicas(4, window_s, deadline)
+    tplan = teng._plan_replicas(4, window_s, deadline)
+    _same(tplan.blocks, jplan.blocks)
+    assert (tplan.planner, tplan.deadline_s, tplan.feasible) == \
+        (jplan.planner, jplan.deadline_s, jplan.feasible)
+    for np_, jnp_ in zip(teng.cluster_plan.node_plans,
+                         jeng.cluster_plan.node_plans):
+        _same(np_.blocks, jnp_.blocks)
+    assert teng._replica_speeds() == jeng._replica_speeds() == \
+        (1.0, 0.8, 1.25)
+
+
+def test_replica_nodes_normalized_to_replica_zero():
+    """``replica_nodes`` take precedence over ``replica_speeds``, speeds
+    normalized to replica 0; a count that disagrees raises."""
+    nodes = (NodeSpec("r0", speed=2.0), NodeSpec("r1", speed=1.0),
+             NodeSpec("r2", speed=3.0))
+    _, teng, _ = _engines(replicas=3, replica_speeds=(1.0, 1.0, 1.0),
+                          replica_nodes=nodes)
+    assert teng._replica_speeds() == (1.0, 0.5, 1.5)
+    _, bad, _ = _engines(replicas=2, replica_nodes=nodes[:1])
+    with pytest.raises(ValueError, match="replica_nodes"):
+        bad._replica_speeds()
 
 
 def test_engine_default_device_raises_without_a_card(monkeypatch):
@@ -120,11 +185,13 @@ def test_launch_serve_runs_on_cpu(capsys):
     assert "arch=yi-6b" in out and "generated=13" in out
 
 
-def test_launch_serve_runs_mamba_on_cpu(capsys):
-    launch_serve.main(["--arch", "mamba2-1.3b", "--device", "cpu",
-                       "--tokens", "12"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_launch_serve_runs_mamba_on_cpu(arch, capsys):
+    """Mamba, MoE and hybrid archs at smoke size through the CLI."""
+    launch_serve.main(["--arch", arch, "--device", "cpu", "--tokens", "12"])
     out = capsys.readouterr().out
-    assert "arch=mamba2-1.3b" in out and "generated=13" in out
+    assert f"arch={arch}" in out and "generated=13" in out
 
 
 # -------------------------------------------- dvfs_controller, bit for bit ---
