@@ -27,16 +27,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      run against the full-block truth, then the same estimates planned over
      the four nodes of examples/cluster_sim.py, uncapped and under a power
      cap, with its kernels' launch counts read after it;
-  5. the same path on a small dataset, card against CPU;
-  6. the five apps on the card at the paper-figure block sizes, with the
+  5. the runtime on those estimates, all host work: the four-node plan
+     executed by ``stream_run`` with zero actuation and no cap (bit for bit
+     the block-boundary loop), then with online re-planning, migration,
+     actuation, a cap, a slowdown and a transient crash (the vector engine
+     against the scalar oracle, report and event log, and the ledger
+     audit), the serving fabric on that plan under three tenants (both
+     engines, and its conservation audit), and the reference benchmark's
+     fleet scenario at 10,000 x 16 (both engines) and 1,000,000 x 100
+     (vector), with host walls;
+  6. the same path on a small dataset, card against CPU;
+  7. the five apps on the card at the paper-figure block sizes, with the
      paper's estimate -> plan -> simulate comparison against DVO;
-  7. the serving path at full width: olmo-1b (16 layers, d_model 2048,
+  8. the serving path at full width: olmo-1b (16 layers, d_model 2048,
      float32, random weights from a seed) serves 8 prompts of 1024 tokens
      through ServingEngine.generate (prefill through the flash kernel, then
      DV-DVFS decode windows), with the flash launch count read after it and
      the prefill's logits held against the plain chunked attention;
-  8. the serving path at smoke size, card against CPU;
-  9. the Mamba serving path at full width: mamba2-1.3b (48 layers, d_model
+  9. the serving path at smoke size, card against CPU;
+ 10. the Mamba serving path at full width: mamba2-1.3b (48 layers, d_model
      2048, float32, random weights from a seed) serves the same traffic
      through ServingEngine.generate (each layer's SSD through the ssd_scan
      kernel in the prefill, the plain recurrence in decode), with the launch
@@ -44,8 +53,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      against the plain chunked version on the first and last layers' real
      inputs, and the final state checked end to end (prefill S-1 tokens and
      decode the last against the S-token prefill's logits);
- 10. the Mamba serving path at smoke size, card against CPU;
- 11. the MoE serving path at full width: qwen2-moe-a2.7b (24 layers, d_model
+ 11. the Mamba serving path at smoke size, card against CPU;
+ 12. the MoE serving path at full width: qwen2-moe-a2.7b (24 layers, d_model
      2048, 60 routed experts top-4 and 4 shared, float32, random weights
      from a seed) serves the same traffic (prefill through the flash kernel
      and the MoE FFN over all 8192 tokens at once, decode through the plain
@@ -54,10 +63,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      second prefill bit-identical to the first, and the routes and logits
      of a plain chunked-attention prefill compared; then the same traffic
      over three replicas planned by the cluster planner;
- 12. the MoE serving paths at smoke size, card against CPU: qwen2-moe-a2.7b,
+ 13. the MoE serving paths at smoke size, card against CPU: qwen2-moe-a2.7b,
      and jamba-1.5-large-398b (Mamba, attention and MoE layers in one
      model, through both the flash and the SSD kernels);
- 13. kernel, plain and library times at the main paths' shapes, beside the
+ 14. kernel, plain and library times at the main paths' shapes, beside the
      least time the card could take; for flash attention and the SSD scan
      also registers, spills, occupancy, the SM clock and power under load,
      and (SSD) the device kernels one call launches and the FLOP the design
@@ -77,6 +86,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,11 +98,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.apps import ALL_APPS, measure_block_seconds  # noqa: E402
-from repro_torch.cluster import (NodeSpec, assign_blocks,  # noqa: E402
-                                 simulate_cluster_reference)
+from repro_torch.cluster import (ClusterReport, NodeReport,  # noqa: E402
+                                 NodeSpec, assign_blocks, plan_cluster_arrays,
+                                 simulate_cluster, simulate_cluster_reference)
 from repro_torch.configs import get_arch, smoke_config  # noqa: E402
-from repro_torch.core import (CPU_PAPER_POWER, BlockInfo,  # noqa: E402
-                              ChipSpec, EstimateArrays, RooflineTimeModel,
+from repro_torch.core import (CPU_PAPER_POWER, BlockArrays,  # noqa: E402
+                              BlockInfo, ChipSpec, EstimateArrays,
+                              FrequencyLadder, PowerModel, RooflineTimeModel,
                               plan_dvfs, plan_dvo, plan_dvo_arrays, simulate,
                               variety_stats)
 from repro_torch.data import BlockDataset  # noqa: E402
@@ -105,10 +117,18 @@ from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import SEP, flatten  # noqa: E402
-from repro_torch.pipeline import (PipelineConfig,  # noqa: E402
-                                  plan_estimates, stream_estimates_tokens,
+from repro_torch.pipeline import (ArrivalSpec,  # noqa: E402
+                                  PipelineConfig, TenantSpec, plan_estimates,
+                                  stream_estimates_tokens, stream_run,
                                   token_chunk_estimates, token_cost)
+from repro_torch.runtime import (ActuationModel,  # noqa: E402
+                                 CheckpointModel, FaultEvent, MigrationModel,
+                                 NodeFailureEvent, RecoveryPolicy,
+                                 RuntimeConfig, check_conservation,
+                                 run_cluster)
 from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
+from repro_torch.serving import (check_serving_conservation,  # noqa: E402
+                                 run_serving)
 
 # H100 SXM, NVIDIA's data sheet, at its 700 W power limit (the run prints the
 # card's own limit): device memory, dense float32 without tensor cores, dense
@@ -167,6 +187,23 @@ REPLICAS = dict(replicas=3, replica_speeds=(1.0, 0.8, 1.25), slack=1.4)
 NODE_SPEEDS = (1.0, 0.7, 1.3, 0.9)
 NODE_SLACK = 1.2
 CAP_SHARE = 0.85
+# the runtime phase on the same nodes, in units of the deadline D and of the
+# mean true block time m: a 1.5x slowdown of node b at 0.3 D, node c down
+# at 0.5 D for 0.05 D, actuation latency 0.05 m and 1 J a switch, moves that
+# take 0.1 m a block and 1 mJ a record, checkpoints every 0.25 m
+RUNTIME = dict(fault_at=0.3, fault_factor=1.5, crash_at=0.5, repair=0.05,
+               latency=0.05, switch_j=1.0, move_latency=0.1, move_j=1e-3,
+               checkpoint=0.25)
+# the serving mix over the plan's deadline: (name, process, jobs expected
+# in D, SLO as a share of D or a multiple of m, priority)
+TENANTS = (("steady", "poisson", 20, ("D", 1.0), 1.0),
+           ("bursty", "burst", 10, ("D", 0.5), 2.0),
+           ("tight", "poisson", 20, ("m", 4.0), 3.0))
+BURST = dict(factor=5.0, start=0.4, end=0.6)
+# fleet scale on the host: benchmarks/run.py:bench_engine's two sizes,
+# (blocks, nodes, speed step)
+FLEET_EQUIV = (10_000, 16, 0.02)
+FLEET = (1_000_000, 100, 0.002)
 MIXER_KERNEL = {"attn": "flash_attention", "mamba": "ssd_scan"}
 SERVE_LOGIT_TOL = 1e-3     # kernel vs chunked prefill, 16 float32 layers
 # prefill of S tokens vs prefill of S-1 and one decode step, 48 float32
@@ -622,7 +659,7 @@ def phase_main_path() -> dict:
                   f"deadline_met={rep.deadline_met}")
     walls["plan"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    plan_over_nodes(est, truth_blocks)
+    node_plans = plan_over_nodes(est, truth_blocks)
     walls["node_plan"] = time.perf_counter() - t0
     counts = launches()
     print(f"  launches in the main path: {json.dumps(counts)}")
@@ -635,7 +672,8 @@ def phase_main_path() -> dict:
         check(counts[name] > 0, f"main path never launched {name}")
     walls["total"] = time.perf_counter() - t_all
     print("  wall: " + ", ".join(f"{k} {v:.6f} s" for k, v in walls.items()))
-    return {"launches": counts, "k": k, "first_chunk": first_chunk}
+    return {"launches": counts, "k": k, "first_chunk": first_chunk,
+            "est": est, "truth_blocks": truth_blocks, "node_plans": node_plans}
 
 
 def peak_power_w(cpa, util: np.ndarray) -> float:
@@ -663,15 +701,21 @@ def at_fmax(plan):
         for np_ in plan.node_plans))
 
 
+def main_nodes(truth_blocks: list) -> tuple:
+    """The four nodes and the deadline of the main path's cluster."""
+    nodes = [NodeSpec(name, speed=s) for name, s in zip("abcd", NODE_SPEEDS)]
+    groups = assign_blocks(truth_blocks, nodes, strategy="round_robin")
+    deadline = NODE_SLACK * max(sum(b.est_time_fmax for b in g) / nd.speed
+                                for g, nd in zip(groups, nodes))
+    return nodes, deadline
+
+
 def plan_over_nodes(est: EstimateArrays, truth_blocks: list) -> dict:
     """The main path's estimates planned over four nodes
     (``plan_estimates(nodes=...)``), uncapped and then capped at CAP_SHARE
     of the uncapped plan's peak draw; each plan run against the truth
     beside DVO on the same assignment (simulate_cluster_reference)."""
-    nodes = [NodeSpec(name, speed=s) for name, s in zip("abcd", NODE_SPEEDS)]
-    groups = assign_blocks(truth_blocks, nodes, strategy="round_robin")
-    deadline = NODE_SLACK * max(sum(b.est_time_fmax for b in g) / nd.speed
-                                for g, nd in zip(groups, nodes))
+    nodes, deadline = main_nodes(truth_blocks)
     util = est.to_block_arrays().util
     cap, out = None, {}
     for label in ("uncapped", "capped"):
@@ -706,6 +750,248 @@ def plan_over_nodes(est: EstimateArrays, truth_blocks: list) -> dict:
                       "saving_vs_dvo": saving}
         cap = CAP_SHARE * peak
     return out
+
+
+def as_cluster_report(rt) -> ClusterReport:
+    """A ``RuntimeReport`` in the block-boundary loop's ``ClusterReport``
+    form, as ``simulate_cluster`` returns it."""
+    return ClusterReport(
+        planner=rt.planner, deadline_s=rt.deadline_s,
+        makespan_s=rt.makespan_s, total_energy_j=rt.total_energy_j,
+        idle_energy_j=rt.idle_energy_j, deadline_met=rt.deadline_met,
+        node_reports=tuple(NodeReport(nr.name, nr.busy_s, nr.energy_j,
+                                      nr.n_blocks, nr.freqs)
+                           for nr in rt.node_reports),
+        n_replans=rt.n_replans)
+
+
+def host_cpu() -> str:
+    """The host's CPU as its first ``/proc/cpuinfo`` entry names it (a
+    sandboxed kernel may report the model name as "unknown", so the vendor,
+    family, model and clock come too) and the cores this process may use."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} "
+            f"family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')}, {info.get('cpu MHz', '?')} MHz), "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def fleet_scenario(n_blocks, n_nodes, speed_step):
+    """The everything-on fleet scenario of the reference's engine benchmark
+    (benchmarks/run.py:626-658, copied): faults, migration with wire
+    energy, a power cap and online re-planning, from rng seed 0."""
+    rng = np.random.default_rng(0)
+    est = rng.uniform(0.2, 2.0, n_blocks)
+    blocks = BlockArrays.build(
+        est, util=rng.uniform(0.5, 1.0, n_blocks),
+        records=rng.integers(100, 2000, n_blocks).astype(float))
+    ladder = FrequencyLadder((0.6, 0.8, 1.0))
+    nodes = [NodeSpec(f"n{k}", ladder=ladder,
+                      power=PowerModel(p_idle=40.0, p_full=160.0,
+                                       alpha=2.0),
+                      speed=1.0 + speed_step * k)
+             for k in range(n_nodes)]
+    deadline = float(est.sum()) / n_nodes * 1.15
+    events = [FaultEvent(time=deadline * 0.2, node="n3", factor=1.4),
+              FaultEvent(time=deadline * 0.5, node="n7", factor=1.3)]
+    cfg = RuntimeConfig(
+        online=True, migrate=True, actuation=ActuationModel(),
+        migration=MigrationModel(latency_s_per_block=1.0,
+                                 energy_j_per_record=0.001),
+        power_cap_w=n_nodes * 40.0 + 0.9 * n_nodes * 120.0,
+        log_events=False)
+    return blocks, nodes, deadline, events, cfg
+
+
+def phase_runtime(main_path: dict) -> dict:
+    """The main path's estimates (from the block_stats_batched kernel on
+    the card) planned over its four nodes and executed by the event-driven
+    runtime: (a) with zero actuation and no cap, bit for bit the
+    block-boundary loop; (b) with online re-planning, migration, actuation,
+    a cap, a slowdown and a transient crash, the vector engine against the
+    scalar oracle; (c) the serving fabric on (b)'s plan under three
+    tenants; (d) the reference benchmark's fleet scenario.  All of it is
+    host work: it launches no kernel."""
+    est, truth_blocks = main_path["est"], main_path["truth_blocks"]
+    produced = main_path["launches"]["block_stats_batched"]
+    print(f"runtime: on the main path's {len(est)} estimates, made by "
+          f"{produced} block_stats_batched launches on the card; host times "
+          f"on {host_cpu()}")
+    check(produced > 0, "the runtime's estimates came from no kernel launch")
+    reset_launches()
+    nodes, deadline = main_nodes(truth_blocks)
+    cfg = PipelineConfig(power=POWER)
+    truth = BlockArrays.from_blocks(truth_blocks)
+    walls = {}
+
+    # (a) zero actuation, no cap, offline: the block-boundary loop
+    rep_a, walls["a_stream_run"] = sync_seconds(lambda: stream_run(
+        est, deadline, cfg, nodes=nodes, truth=truth,
+        runtime=RuntimeConfig(actuation=ActuationModel(latency_s=0.0,
+                                                       switch_energy_j=0.0),
+                              log_events=False)))
+    plan_a = plan_estimates(est, deadline, cfg, nodes=nodes).to_cluster_plan()
+    want, walls["a_reference_loop"] = sync_seconds(
+        lambda: simulate_cluster_reference(plan_a, truth_blocks))
+    check(as_cluster_report(rep_a) == want,
+          "run (a) differs from simulate_cluster_reference")
+    check(simulate_cluster(plan_a, truth_blocks) == want,
+          "simulate_cluster differs from simulate_cluster_reference")
+    print(f"  (a) stream_run, zero actuation, no cap: makespan "
+          f"{rep_a.makespan_s:.6f} s of {deadline:.6f} s, deadline_met="
+          f"{rep_a.deadline_met}, {rep_a.total_energy_j:.6f} J; equal to "
+          "simulate_cluster_reference and to simulate_cluster, bit for bit")
+
+    # (b) everything on, scalar oracle against the vector engine
+    cap = CAP_SHARE * main_path["node_plans"]["uncapped"]["peak_w"]
+    m = float(truth.est_time_fmax.mean())
+    R = RUNTIME
+    truth_b = dataclasses.replace(truth,
+                                  records=est.n_records.astype(np.float64))
+    events = (FaultEvent(time=R["fault_at"] * deadline, node="b",
+                         factor=R["fault_factor"]),
+              NodeFailureEvent(time=R["crash_at"] * deadline, node="c",
+                               repair_s=R["repair"] * deadline))
+    actuation = ActuationModel(latency_s=R["latency"] * m,
+                               switch_energy_j=R["switch_j"])
+
+    def runtime_b(power_cap_w=None):
+        return RuntimeConfig(
+            online=True, migrate=True, actuation=actuation,
+            migration=MigrationModel(latency_s_per_block=R["move_latency"] * m,
+                                     energy_j_per_record=R["move_j"]),
+            recovery=RecoveryPolicy(
+                checkpoint=CheckpointModel(interval_s=R["checkpoint"] * m)),
+            power_cap_w=power_cap_w)
+    rep_b, walls["b_stream_run"] = sync_seconds(lambda: stream_run(
+        est, deadline, cfg, nodes=nodes, truth=truth_b, runtime=runtime_b(),
+        events=events, power_cap_w=cap))
+    cpa_b = plan_estimates(est, deadline, cfg, nodes=nodes, power_cap_w=cap)
+    reps = {}
+    for engine in ("scalar", "vector"):
+        reps[engine], walls[f"b_{engine}"] = sync_seconds(
+            lambda: run_cluster(cpa_b, truth_b, config=runtime_b(cap),
+                                events=events, engine=engine))
+    check(reps["scalar"] == reps["vector"]
+          and reps["scalar"].event_log == reps["vector"].event_log,
+          "run (b): the vector engine differs from the scalar oracle")
+    check(rep_b == reps["vector"] and rep_b.event_log
+          == reps["vector"].event_log, "run (b): stream_run differs from "
+          "run_cluster on its plan")
+    errs = check_conservation(reps["scalar"], cpa_b)
+    check(not errs, f"run (b) breaks conservation: {errs}")
+    check(rep_b.peak_power_w <= cap + 1e-9,
+          f"run (b) draws {rep_b.peak_power_w} W over its {cap} W cap")
+    check(rep_b.n_crashes == 1 and rep_b.n_repairs == 1,
+          "run (b): the transient crash did not happen once")
+    dvo = run_cluster(at_fmax(cpa_b.to_cluster_plan()), truth_b,
+                      config=runtime_b(cap), events=events)
+    saving = rep_b.improvement_vs(dvo)
+    check(all(np.isfinite(x) for x in (rep_b.makespan_s,
+                                       rep_b.total_energy_j,
+                                       dvo.total_energy_j)),
+          "run (b) is not finite")
+    print(f"  (b) stream_run, online + migration + actuation "
+          f"({actuation.latency_s:.6f} s, {actuation.switch_energy_j} J) + "
+          f"cap {cap:.3f} W ({CAP_SHARE} of the uncapped peak), node b "
+          f"x{R['fault_factor']} at {R['fault_at']} D, node c down at "
+          f"{R['crash_at']} D for {R['repair']} D: makespan "
+          f"{rep_b.makespan_s:.6f} s of {deadline:.6f} s, deadline_met="
+          f"{rep_b.deadline_met}, {rep_b.total_energy_j:.6f} J "
+          f"({100 * saving:+.4f}% vs DVO on the same assignment through the "
+          f"runtime, {dvo.total_energy_j:.6f} J), peak "
+          f"{rep_b.peak_power_w:.3f} W of {cap:.3f} W, "
+          f"{rep_b.n_migrations} migrations, {rep_b.n_replans} replans, "
+          f"{rep_b.n_switches} switches, "
+          f"{len(rep_b.missed_blocks)} blocks missed, recoveries "
+          f"{[d.action for d in rep_b.recoveries]}; scalar == vector, report"
+          f" and {len(rep_b.event_log)} logged events; conservation holds")
+
+    # (c) the serving fabric on (b)'s plan under three tenants
+    tenants = []
+    for name, process, jobs, (unit, slo), prio in TENANTS:
+        kw = {}
+        if process == "burst":
+            kw = dict(burst_factor=BURST["factor"],
+                      burst_start_s=BURST["start"] * deadline,
+                      burst_end_s=BURST["end"] * deadline)
+        tenants.append(TenantSpec(
+            name, rate_hz=jobs / deadline, priority=prio, process=process,
+            slo_s=slo * (deadline if unit == "D" else m),
+            blocks_per_job=(1, 3), block_time_s=(0.5 * m, 1.5 * m),
+            records_per_block=float(MAIN["records_per_block"]), **kw))
+    spec = ArrivalSpec(tenants=tuple(tenants), horizon_s=deadline,
+                       seed=MAIN["seed"])
+    served = {}
+    for engine in ("scalar", "vector"):
+        served[engine], walls[f"c_{engine}"] = sync_seconds(
+            lambda: run_serving(cpa_b, truth_b, spec, engine=engine,
+                                events=events[:1],
+                                config=RuntimeConfig(online=True,
+                                                     actuation=actuation,
+                                                     power_cap_w=cap)))
+    sv = served["scalar"]
+    check(sv == served["vector"]
+          and sv.event_log == served["vector"].event_log,
+          "run (c): the vector engine differs from the scalar oracle")
+    errs = check_serving_conservation(sv, cpa_b)
+    check(not errs, f"run (c) breaks serving conservation: {errs}")
+    check(len(sv.jobs) > 0, "run (c): no job arrived")
+    print(f"  (c) run_serving on (b)'s plan (no crash), {len(sv.jobs)} jobs "
+          f"over {deadline:.6f} s: " + "; ".join(
+              f"{t.tenant} arrived {t.arrived}, accepted {t.accepted}, "
+              f"rejected {t.rejected}, shed {t.shed}, finished {t.finished},"
+              f" SLO misses {t.slo_miss}" for t in sv.tenants)
+          + f"; makespan {sv.runtime.makespan_s:.6f} s, "
+          f"{sv.runtime.total_energy_j:.6f} J; scalar == vector, report and "
+          f"{len(sv.event_log)} logged events; conservation holds")
+
+    # (d) fleet scale on the host
+    n, k, step = FLEET_EQUIV
+    blocks, fnodes, fdeadline, fevents, fcfg = fleet_scenario(n, k, step)
+    fplan, walls[f"d_plan_{n}"] = sync_seconds(lambda: plan_cluster_arrays(
+        blocks, fnodes, deadline_s=fdeadline))
+    freps = {}
+    for engine in ("scalar", "vector"):
+        freps[engine], walls[f"d_{engine}_{n}"] = sync_seconds(
+            lambda: run_cluster(fplan, blocks, config=fcfg, events=fevents,
+                                engine=engine))
+    check(freps["scalar"] == freps["vector"],
+          f"fleet {n} x {k}: the vector engine differs from the scalar one")
+    print(f"  (d) fleet {n} blocks x {k} nodes: plan "
+          f"{walls[f'd_plan_{n}']:.6f} s, scalar run "
+          f"{walls[f'd_scalar_{n}']:.6f} s, vector run "
+          f"{walls[f'd_vector_{n}']:.6f} s (host); equal reports, "
+          f"{freps['vector'].n_migrations} migrations, deadline_met="
+          f"{freps['vector'].deadline_met}")
+    n, k, step = FLEET
+    blocks, fnodes, fdeadline, fevents, fcfg = fleet_scenario(n, k, step)
+    fplan, walls[f"d_plan_{n}"] = sync_seconds(lambda: plan_cluster_arrays(
+        blocks, fnodes, deadline_s=fdeadline))
+    frep, walls[f"d_vector_{n}"] = sync_seconds(lambda: run_cluster(
+        fplan, blocks, config=fcfg, events=fevents, engine="vector"))
+    check(np.isfinite(frep.makespan_s) and np.isfinite(frep.total_energy_j)
+          and sum(nr.n_blocks for nr in frep.node_reports) == n,
+          f"fleet {n} x {k} did not finish every block")
+    check(frep.peak_power_w <= fcfg.power_cap_w + 1e-9,
+          f"fleet {n} x {k} draws over its cap")
+    print(f"  (d) fleet {n} blocks x {k} nodes: plan "
+          f"{walls[f'd_plan_{n}']:.6f} s, vector run "
+          f"{walls[f'd_vector_{n}']:.6f} s (host); makespan "
+          f"{frep.makespan_s:.6f} s of {fdeadline:.6f} s, deadline_met="
+          f"{frep.deadline_met}, {frep.n_migrations} migrations, peak "
+          f"{frep.peak_power_w:.3f} W of {fcfg.power_cap_w:.3f} W")
+    counts = launches()
+    check(not any(counts.values()), f"the runtime launched kernels: {counts}")
+    print("  host wall: " + ", ".join(f"{key} {v:.6f} s"
+                                      for key, v in walls.items()))
+    return {"walls": walls, "saving_vs_dvo": saving}
 
 
 def phase_small_path() -> None:
@@ -1685,6 +1971,7 @@ def main() -> int:
     phase_flash_parity(worst)
     phase_ssd_parity(worst)
     main_path = phase_main_path()
+    phase_runtime(main_path)
     phase_small_path()
     phase_apps()
     serving = phase_serving()

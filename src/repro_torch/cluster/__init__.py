@@ -56,7 +56,7 @@ Planner contract (see ``tests/test_planner_invariants.py``)
   same blocks and assignment;
 * assignment and down-clocking are deterministic for a fixed input.
 
-Beyond the block boundary: ``repro.runtime`` subsumes ``simulate_cluster``'s
+Beyond the block boundary: ``repro_torch.runtime`` subsumes ``simulate_cluster``'s
 loop with a discrete-event engine — asynchronous actuation (mid-block
 frequency switches with latency + switch energy), cross-node migration of
 queued blocks when clocking up to f_max cannot recover a straggler, and a

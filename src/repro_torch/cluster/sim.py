@@ -2,12 +2,12 @@
 
 ``simulate_cluster`` keeps its original signature and ``ClusterReport``
 shape but is now a thin wrapper over the event-driven engine in
-``repro.runtime``: with the defaults (no power cap, zero actuation latency,
+``repro_torch.runtime``: with the defaults (no power cap, zero actuation latency,
 no migration) the engine reproduces the original block-boundary loop
 bit-for-bit, and the extra engine capabilities are exposed as optional
 keywords (``migrate``, ``actuation``, ``power_cap_w``; time-based
 ``FaultEvent``s may be mixed into ``events``).  Use
-``repro.runtime.run_cluster`` directly for the full ``RuntimeReport``
+``repro_torch.runtime.run_cluster`` directly for the full ``RuntimeReport``
 (event log, migrations, peak power).
 
 ``SlowdownEvent`` injects the classic mid-run fault: from the moment a node
@@ -23,9 +23,7 @@ against — do not use it in hot paths.
 
 Copied from ``src/repro/cluster/sim.py`` with its imports pointed at ``repro_torch``.
 It is NumPy, as the original is, so its results are bit-identical to the
-reference's, except ``simulate_cluster``: it wraps the runtime, which the
-port does not hold yet (ROADMAP Queue 1 item 2), so it raises
-``NotImplementedError``.
+reference's.
 """
 from __future__ import annotations
 
@@ -98,12 +96,32 @@ def simulate_cluster(
     predictions; pass the planner's estimates when they differ from the
     truth.  ``migrate``/``actuation``/``power_cap_w`` switch on the engine's
     migration policy, actuation model, and cluster power cap (see
-    ``repro.runtime``); ``migrate=True`` implies ``online``.
+    ``repro_torch.runtime``); ``migrate=True`` implies ``online``.
     """
-    raise NotImplementedError(
-        "simulate_cluster runs on repro_torch.runtime, which the port does "
-        "not hold yet (ROADMAP Queue 1 item 2); simulate_cluster_reference "
-        "runs the same block-boundary loop without it")
+    from repro_torch.runtime.actuator import ActuationModel
+    from repro_torch.runtime.engine import RuntimeConfig, run_cluster
+    online = online or migrate
+    cfg = RuntimeConfig(
+        online=online, migrate=migrate,
+        actuation=actuation if actuation is not None else ActuationModel(),
+        power_cap_w=power_cap_w, replan_threshold=replan_threshold,
+        ewma_alpha=ewma_alpha, error_margin=error_margin, log_events=False)
+    rt = run_cluster(
+        plan, true_blocks, config=cfg, events=events,
+        est_blocks=(est_blocks if est_blocks is not None else true_blocks)
+        if online else None)
+    return ClusterReport(
+        planner=rt.planner,
+        deadline_s=rt.deadline_s,
+        makespan_s=rt.makespan_s,
+        total_energy_j=rt.total_energy_j,
+        idle_energy_j=rt.idle_energy_j,
+        deadline_met=rt.deadline_met,
+        node_reports=tuple(NodeReport(nr.name, nr.busy_s, nr.energy_j,
+                                      nr.n_blocks, nr.freqs)
+                           for nr in rt.node_reports),
+        n_replans=rt.n_replans,
+    )
 
 
 def simulate_cluster_reference(

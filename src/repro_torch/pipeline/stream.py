@@ -14,9 +14,10 @@ features; the per-row decomposition behind the CI runs on the same device.
 ``plan_estimates(nodes=...)`` plans over a cluster through the copied
 ``plan_cluster_arrays`` (``power_cap_w`` adds its Σ-power screen), and
 ``PipelineConfig.calibration`` takes the copied ``repro_torch.calibrate``
-fits, as in the reference.  ``stream_run`` executes a cluster plan on the
-event-driven runtime, which the port does not hold yet (ROADMAP Queue 1
-item 2): it raises ``NotImplementedError``.
+fits, as in the reference.  ``stream_run`` hands the cluster plan to the
+copied event-driven runtime (``repro_torch.runtime.run_cluster``); the
+sampling kernel runs before it, in ``stream_estimates_tokens(...,
+device=...)``, so ``stream_run`` itself takes no device.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.core.energy import (DEFAULT_LADDER, TPU_V5E_POWER,
 from repro_torch.core.sampling import (_DOMAIN_SAMPLER, _hash_uniform,
                                        _z_for_confidence, sample_blocks_soa)
 from repro_torch.core.scheduler import plan_dvfs_arrays
-from repro_torch.core.soa import EstimateArrays
+from repro_torch.core.soa import BlockArrays, EstimateArrays
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import row_stats
@@ -286,10 +287,44 @@ def stream_plan(
                           assignment=assignment)
 
 
-def stream_run(source, deadline_s: float,
-               config: PipelineConfig = PipelineConfig(), **kwargs):
-    """Dataset → plan → event-driven cluster execution in the reference;
-    needs ``repro_torch.runtime``, which the port does not hold yet."""
-    raise NotImplementedError(
-        "stream_run needs repro_torch.runtime, which the port does not hold "
-        "yet (ROADMAP Queue 1 item 2)")
+def stream_run(
+    source,
+    deadline_s: float,
+    config: PipelineConfig = PipelineConfig(),
+    *,
+    nodes: Sequence,
+    assignment="auto",
+    truth: BlockArrays | None = None,
+    runtime=None,
+    events=(),
+    power_cap_w: float | None = None,
+):
+    """Dataset → plan → event-driven execution, SoA end to end.
+
+    The plan→runtime handoff: the accumulated ``EstimateArrays`` become a
+    ``ClusterPlanArrays`` (``power_cap_w`` screens the plan) which feeds
+    ``repro_torch.runtime.run_cluster`` directly — a million streamed blocks go
+    from records to a simulated cluster run without one per-block Python
+    object on the planning side.  ``truth`` defaults to the estimates
+    themselves (drift-free execution); pass the real costs to study
+    estimate error, and ``events``/``runtime`` (a ``RuntimeConfig``) to
+    inject faults, migration, actuation latency, or the runtime-side cap.
+    """
+    from repro_torch.runtime.engine import RuntimeConfig, run_cluster
+    est = source if isinstance(source, EstimateArrays) \
+        else stream_estimates(source, config)
+    cpa = plan_estimates(est, deadline_s, config, nodes=nodes,
+                         assignment=assignment, power_cap_w=power_cap_w)
+    ba = truth if truth is not None else est.to_block_arrays()
+    # default config keeps the event log off: at the million-block scale a
+    # per-event tuple log would defeat the pipeline's bounded memory
+    if runtime is None:
+        cfg = RuntimeConfig(power_cap_w=power_cap_w, log_events=False)
+    elif power_cap_w is not None and runtime.power_cap_w is None:
+        # the cap must bind at run time too, not just screen the plan
+        cfg = dataclasses.replace(runtime, power_cap_w=power_cap_w)
+    elif power_cap_w is not None and runtime.power_cap_w != power_cap_w:
+        raise ValueError("power_cap_w disagrees with runtime.power_cap_w")
+    else:
+        cfg = runtime
+    return run_cluster(cpa, ba, config=cfg, events=events)

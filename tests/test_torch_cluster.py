@@ -6,9 +6,9 @@ reference modules; the same seeded inputs must give the same bits:
 assignments, cluster plans (object and SoA paths, with a power cap, with a
 calibration trace, the loop-based reference planner), the independent
 baseline, and the online re-planner driven through
-``simulate_cluster_reference`` under a mid-run ``SlowdownEvent``.
-``simulate_cluster`` wraps the runtime, which the port does not hold yet:
-it raises.
+``simulate_cluster_reference`` under a mid-run ``SlowdownEvent``, and
+``simulate_cluster`` (the copied runtime under the old signature) with
+migration, actuation and a power cap.
 """
 import dataclasses
 
@@ -20,12 +20,14 @@ import repro.cluster as rcl
 import repro.cluster.planner as rplanner
 import repro.core as rc
 import repro.core._reference as rref
+import repro.runtime as rrt
 import repro.train.straggler as rstr
 import repro_torch.calibrate as tcal
 import repro_torch.cluster as tcl
 import repro_torch.cluster.planner as tplanner
 import repro_torch.core as tc
 import repro_torch.core._reference as tref
+import repro_torch.runtime as trt
 import repro_torch.train.straggler as tstr
 
 SEEDS = [0, 1, 2]
@@ -209,11 +211,48 @@ def test_online_replanner_through_simulate_reference(seed, online):
         assert port[0].n_replans > 0
 
 
-def test_simulate_cluster_raises_citing_the_runtime_item():
-    blocks, nodes, deadline = _inputs("port", 0, roofline=False)
-    plan = tcl.plan_cluster(blocks, nodes, deadline)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tcl.simulate_cluster(plan, blocks)
+SIM_OPTIONS = {
+    "plain": {},
+    "online": dict(online=True),
+    "migrate": dict(migrate=True),
+    "actuation": dict(actuation=(0.4, 1.5)),
+    "cap": dict(power_cap=0.35),
+    "everything": dict(online=True, migrate=True, actuation=(0.4, 1.5),
+                       power_cap=0.35),
+}
+
+
+@pytest.mark.parametrize("options", list(SIM_OPTIONS))
+@pytest.mark.parametrize("seed", SEEDS)
+def test_simulate_cluster_bit_identical(seed, options):
+    """``simulate_cluster`` (the runtime under the old signature), with
+    drifted truths, separate estimates, a block-count slowdown and a
+    time-based fault: the reference's ``ClusterReport``, bit for bit."""
+    def run(pkg, blocks, nodes, deadline):
+        cl = PKG[pkg][1]
+        rt = trt if pkg == "port" else rrt
+        plan = cl.plan_cluster(blocks, nodes, deadline)
+        rng = np.random.default_rng(seed + 10)
+        truth = [dataclasses.replace(b, est_time_fmax=b.est_time_fmax
+                                     * float(rng.uniform(0.8, 1.6)))
+                 for b in blocks]
+        kw = dict(SIM_OPTIONS[options])
+        if "actuation" in kw:
+            lat, joules = kw.pop("actuation")
+            kw["actuation"] = rt.ActuationModel(lat, joules)
+        if "power_cap" in kw:
+            share = kw.pop("power_cap")
+            kw["power_cap_w"] = sum(
+                nd.power.p_idle + share * (nd.power.p_full - nd.power.p_idle)
+                for nd in nodes)
+        events = [cl.SlowdownEvent(nodes[0].name, after_block=2, factor=1.6),
+                  rt.FaultEvent(time=0.4 * deadline, node=nodes[1].name,
+                                factor=1.4)]
+        return cl.simulate_cluster(plan, truth, est_blocks=blocks,
+                                   events=events, **kw)
+    ref, port = _both(seed, run)
+    _same(port, ref)
+    assert port.n_replans > 0 or options in ("plain", "actuation", "cap")
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -13,7 +13,10 @@ and the final state within the reference's kernel tolerances (float32 5e-4,
 bfloat16 5e-2, absolute plus relative).  The serving paths' logits within
 1e-4 of the CPU's (float32, summed in another order).  The MoE FFN on the
 card within 1e-5 of the CPU's, drops included, with no host synchronise.
+``stream_run`` on the card's estimates: both engines give one report.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -29,8 +32,14 @@ from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serve import ServeConfig, ServingEngine
-from repro_torch.pipeline import PipelineConfig, stream_estimates_tokens, \
-    stream_plan
+from repro_torch.cluster import NodeSpec
+from repro_torch.pipeline import (PipelineConfig, plan_estimates,
+                                  stream_estimates_tokens, stream_plan,
+                                  stream_run)
+from repro_torch.runtime import (ActuationModel, FaultEvent,
+                                 NodeFailureEvent, RecoveryPolicy,
+                                 RuntimeConfig, check_conservation,
+                                 run_cluster)
 
 pytestmark = pytest.mark.cuda
 PAT = (17, 23, 5)
@@ -220,6 +229,40 @@ def test_cuda_main_path_matches_cpu(cuda):
                                                                    device="cpu")
     for key in soa_cpu:
         np.testing.assert_array_equal(soa_card[key], soa_cpu[key])
+
+
+def test_cuda_stream_run_engines_agree(cuda):
+    """Estimates from the kernel on the card, planned over four nodes and
+    executed by ``stream_run`` with a fault, a transient crash, migration,
+    actuation and a cap: the vector engine is the scalar oracle, report and
+    event log, and the ledger audit holds."""
+    ds = BlockDataset(n_blocks=24, records_per_block=256, max_len=64, seed=3)
+    bs.reset_launches()
+    est = stream_estimates_tokens(ds.iter_token_chunks(8, device=cuda),
+                                  PipelineConfig(fraction=0.1), device=cuda)
+    assert bs.LAUNCHES["block_stats_batched"] == 3
+    nodes = [NodeSpec(n, speed=s) for n, s in zip("abcd", (1.0, 0.7, 1.3,
+                                                            0.9))]
+    deadline = 1.4 * float(est.total.sum()) / len(nodes)
+    truth = est.to_block_arrays()
+    truth = dataclasses.replace(truth, est_time_fmax=1.1 * truth.est_time_fmax)
+    cfg = RuntimeConfig(online=True, migrate=True,
+                        recovery=RecoveryPolicy(),
+                        actuation=ActuationModel(latency_s=0.01 * deadline,
+                                                 switch_energy_j=1.0))
+    events = (FaultEvent(time=0.3 * deadline, node="b", factor=1.6),
+              NodeFailureEvent(time=0.5 * deadline, node="c",
+                               repair_s=0.1 * deadline))
+    pw = nodes[0].power
+    cap = len(nodes) * (pw.p_idle + 0.6 * (pw.p_full - pw.p_idle))
+    got = stream_run(est, deadline, nodes=nodes, truth=truth, runtime=cfg,
+                     events=events, power_cap_w=cap)
+    plan = plan_estimates(est, deadline, nodes=nodes, power_cap_w=cap)
+    want = run_cluster(plan, truth, engine="scalar", events=events,
+                       config=dataclasses.replace(cfg, power_cap_w=cap))
+    assert got == want and got.event_log == want.event_log
+    assert got.n_crashes == 1 and got.peak_power_w <= cap + 1e-9
+    assert check_conservation(want, plan) == []
 
 
 @pytest.mark.parametrize("name", list(ALL_APPS))

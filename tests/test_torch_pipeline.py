@@ -21,19 +21,25 @@ from repro.pipeline import stream_estimates as ref_stream_estimates
 from repro.pipeline import stream_estimates_tokens as ref_tokens
 from repro.pipeline import plan_estimates as ref_plan_estimates
 from repro.pipeline import stream_plan as ref_plan
+from repro.pipeline import stream_run as ref_stream_run
 from repro.pipeline import synthetic_cost_chunks
 import repro.calibrate as rcal
 import repro.cluster as rcl
 import repro.core as rcore
+import repro.runtime as rrt
 import repro_torch.calibrate as tcal
 import repro_torch.cluster as tcl
 import repro_torch.core as tcore
+import repro_torch.runtime as trt
 from repro_torch.core import CPU_PAPER_POWER, EstimateArrays
 from repro_torch.data import BlockDataset
 from repro_torch.pipeline import (PipelineConfig, plan_estimates,
                                   stream_estimates, stream_estimates_tokens,
                                   stream_plan, stream_run,
                                   token_chunk_estimates)
+from repro_torch.pipeline import synthetic_cost_chunks as \
+    tsynthetic_cost_chunks
+from test_torch_cluster import _same
 
 DATASETS = [dict(n_blocks=5, records_per_block=48, max_len=32, seed=9),
             dict(n_blocks=4, records_per_block=64, max_len=24, seed=4,
@@ -144,11 +150,116 @@ def test_default_device_raises_without_cuda(monkeypatch):
         token_chunk_estimates(np.zeros((1, 4, 8), np.int32), start_index=0)
 
 
-def test_cluster_runtime_and_calibration_paths_not_ported():
-    """Only the runtime's ``stream_run`` still waits for its slice."""
-    est = stream_estimates(np.ones((3, 8)))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        stream_run(est, 10.0, nodes=[object()])
+def test_synthetic_cost_chunks_bit_identical():
+    got = list(tsynthetic_cost_chunks(23, 16, z=1.5, seed=4, chunk_size=7))
+    want = list(synthetic_cost_chunks(23, 16, z=1.5, seed=4, chunk_size=7))
+    assert [c.keys() for c in got] == [c.keys() for c in want]
+    for a, b in zip(got, want):
+        for key in a:
+            assert a[key].dtype == b[key].dtype
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+def _runtime_kwargs(core, rt, variant, deadline):
+    """``stream_run`` keywords of one variant, built from ``rt``'s classes."""
+    if variant == "default":
+        return {}
+    pw = core.TPU_V5E_POWER      # every node's default power model
+    cap = 4 * (pw.p_idle + 0.55 * (pw.p_full - pw.p_idle))
+    if variant == "cap_only":
+        return dict(power_cap_w=cap)
+    cfg = rt.RuntimeConfig(
+        online=True, migrate=True, recovery=rt.RecoveryPolicy(),
+        actuation=rt.ActuationModel(latency_s=0.05, switch_energy_j=1.0),
+        migration=rt.MigrationModel(latency_s_per_block=0.1,
+                                    energy_j_per_record=1e-4))
+    events = (rt.FaultEvent(time=0.3 * deadline, node="b", factor=2.0),
+              rt.NodeFailureEvent(time=0.5 * deadline, node="c",
+                                  repair_s=0.1 * deadline))
+    return dict(runtime=cfg, events=events,
+                power_cap_w=cap if variant == "everything_capped" else None)
+
+
+def _run_both(ests, truths, variant, deadline):
+    """``stream_run`` of the reference and of the port, each on its own
+    estimates (or chunk source) and truth."""
+    outs = []
+    pkgs = ((rcore, rcl, rrt, ref_stream_run, RefConfig),
+            (tcore, tcl, trt, stream_run, PipelineConfig))
+    for (core, cl, rt, run, cfg), est, truth in zip(pkgs, ests, truths):
+        nodes = [cl.NodeSpec(n, speed=s) for n, s in
+                 zip("abcd", (1.0, 0.7, 1.3, 0.9))]
+        outs.append(run(est, deadline, cfg(power=CPU_PAPER_POWER),
+                        nodes=nodes, truth=truth,
+                        **_runtime_kwargs(core, rt, variant, deadline)))
+    return outs
+
+
+VARIANTS = ["default", "cap_only", "everything", "everything_capped"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_stream_run_on_cost_chunks_matches_reference(variant):
+    """Dataset → plan → event-driven run from each package's own chunk
+    source: the same ``RuntimeReport`` and event log."""
+    kw = dict(n_blocks=40, records_per_block=24, seed=6, chunk_size=9)
+    ests = (synthetic_cost_chunks(**kw), tsynthetic_cost_chunks(**kw))
+    want_est = ref_stream_estimates(synthetic_cost_chunks(**kw))
+    deadline = 1.4 * float(want_est.total.sum()) / 4
+    ref, port = _run_both(ests, (None, None), variant, deadline)
+    _same(port, ref)
+    assert port.event_log == ref.event_log
+    assert sum(nr.n_blocks for nr in port.node_reports) >= 40
+    assert (port.power_cap_w is None) == (variant in ("default",
+                                                        "everything"))
+    if variant.startswith("everything"):
+        assert port.n_crashes == 1 and len(port.event_log) > 0
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_stream_run_on_port_token_estimates_matches_reference(variant):
+    """The port's token estimates (its CPU path of the block-stats kernel),
+    handed to both packages as ``EstimateArrays`` of the same arrays; the
+    truth runs 10% over the estimates and carries the blocks' record
+    counts (migration prices its transfers by them)."""
+    kw = DATASETS[0]
+    ds = BlockDataset(**dict(kw, n_blocks=12))
+    got = stream_estimates_tokens(ds.iter_token_chunks(4, device="cpu"),
+                                  PipelineConfig(power=CPU_PAPER_POWER),
+                                  device="cpu")
+    stats = ds.stats_soa(chunk_size=4, device="cpu")
+    true_cost = 1.1 * got.total
+    arrays = [getattr(got, f) for f in ("index", "total", "ci_low", "ci_high",
+                                        "n_sampled", "n_records")]
+    ests = (rcore.EstimateArrays(*arrays), tcore.EstimateArrays(*arrays))
+    truths = tuple(core.BlockArrays.build(true_cost, index=got.index,
+                                          records=stats["records"].astype(
+                                              float))
+                   for core in (rcore, tcore))
+    deadline = 1.5 * float(true_cost.sum()) / 4
+    ref, port = _run_both(ests, truths, variant, deadline)
+    _same(port, ref)
+    assert port.event_log == ref.event_log
+
+
+def test_stream_run_power_cap_must_agree_with_runtime():
+    """Like the reference: a ``power_cap_w`` that contradicts
+    ``runtime.power_cap_w`` raises, an equal one runs, and a runtime
+    without a cap takes ``power_cap_w``."""
+    nodes = [tcl.NodeSpec(n) for n in "ab"]
+    est = np.ones((6, 8))     # a dense cost source, as both packages take
+    for run, rt, cl_nodes in (
+            (stream_run, trt, nodes),
+            (ref_stream_run, rrt, [rcl.NodeSpec(n) for n in "ab"])):
+        cfg = rt.RuntimeConfig(power_cap_w=400.0, log_events=False)
+        with pytest.raises(ValueError, match="disagrees"):
+            run(est, 40.0, nodes=cl_nodes, runtime=cfg, power_cap_w=300.0)
+    same = stream_run(est, 40.0, nodes=nodes, power_cap_w=400.0,
+                      runtime=trt.RuntimeConfig(power_cap_w=400.0))
+    taken = stream_run(est, 40.0, nodes=nodes, power_cap_w=400.0,
+                       runtime=trt.RuntimeConfig())
+    assert same.power_cap_w == taken.power_cap_w == 400.0
+    assert same == taken and same.deadline_met
 
 
 def _same_plan(a, b):
