@@ -34,7 +34,10 @@ copied once into a contiguous tensor (``tma_ready``, ``prepare``).  The
 output has q's memory layout (``torch.empty_like``), so the model's transpose
 back is free.  The kernels tile by themselves; they take no block sizes.
 A negative ``swa_window`` is refused: the reference masks every key for one,
-which gives a result that depends on its tile sizes.
+which gives a result that depends on its tile sizes.  The kernels have no
+backward, so a call that would need one (grad mode on and an input that
+requires grad) is refused on both devices (``refuse_grad``) rather than
+returning an output without a gradient.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 __all__ = ["LAUNCHES", "HEAD_DIMS", "SOURCES", "reset_launches", "route",
-           "tma_ready", "prepare", "occupancy", "flash_attention_cuda"]
+           "tma_ready", "prepare", "refuse_grad", "occupancy",
+           "flash_attention_cuda"]
 
 # one CUDA source (and library) per input type
 SOURCES = {torch.float32: "flash_attention_f32.cu",
@@ -134,6 +138,18 @@ def _check(q, k, v, swa_window=None) -> None:
                          "0 for no window, or a positive window")
 
 
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a backward of ``kernel``: its CUDA
+    output is written through ctypes and carries no ``grad_fn``.  Raised on
+    both devices, so the CPU's plain version cannot train what the card
+    cannot."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel, so its output would carry no "
+            "gradient; call it under torch.no_grad() or on inputs that do not "
+            "require grad (training through it is ROADMAP Queue 1 item 15)")
+
+
 def tma_ready(t: torch.Tensor) -> bool:
     """Whether the kernels can copy ``t`` (B, H, S, D) in 16-byte pieces as
     it lies: base 16-byte aligned, D contiguous, the B, H and S strides
@@ -170,8 +186,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> torch.Tensor:
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
     ``swa_window`` None or 0 means no sliding window; a negative one is
-    refused."""
+    refused, and so is a call under grad on an input that requires grad
+    (``refuse_grad``)."""
     _check(q, k, v, swa_window)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    swa_window=swa_window)

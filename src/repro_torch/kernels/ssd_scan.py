@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.kernels import _build
 # the 16-byte copy rule the flash kernels follow holds for cp.async here too
-from repro_torch.kernels.flash_attention import prepare, tma_ready
+from repro_torch.kernels.flash_attention import (prepare, refuse_grad,
+                                                 tma_ready)
 from repro_torch.kernels.ref import SSD_CHUNK, SSD_P_SLICE, ssd_chunked_ref
 
 __all__ = ["LAUNCHES", "SIZES", "DEVICE_KERNELS", "reset_launches",
@@ -191,8 +192,11 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                   b_mat: torch.Tensor, c_mat: torch.Tensor, *,
                   chunk: int = 256, final_state: bool = False):
     """x (B,S,H,P), dt (B,S,H), a_log (H,), b/c (B,S,G,N) -> y (B,S,H,P) in
-    x's dtype, or (y, state (B,H,P,N) float32) when ``final_state``."""
+    x's dtype, or (y, state (B,H,P,N) float32) when ``final_state``.  A
+    call under grad on an input that requires grad is refused
+    (``refuse_grad``): the kernels have no backward."""
     _check(x, dt, a_log, b_mat, c_mat)
+    refuse_grad("ssd_scan", x, dt, a_log, b_mat, c_mat)
     if x.device.type == "cpu":
         y, state = ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, chunk=chunk)
         return (y, state) if final_state else y

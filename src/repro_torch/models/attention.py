@@ -1,6 +1,6 @@
 """GQA attention: TP-aware head layout, RoPE, SWA, chunked (flash-style)
-softmax, the CUDA flash-attention kernel, and decode with (optionally int8)
-KV caches.
+and wedge softmax, the CUDA flash-attention kernel, and decode with
+(optionally int8) KV caches.
 
 The port of ``src/repro/models/attention.py``; layouts and names follow it.
 TP head layout:
@@ -160,6 +160,7 @@ def attention_train(params, x, dims: AttnDims, *, positions=None,
 
     impl='dense'   — materializes (Sq, Sk) scores per head group (small seqs).
     impl='chunked' — flash-style online softmax over q chunks x kv chunks.
+    impl='wedge'   — the same over the causal triangle of chunk pairs only.
     impl='pallas'  — the CUDA flash-attention kernel (the name is the
                      reference's, whose configs select its Pallas kernel so);
                      on CPU tensors its plain version.
@@ -178,8 +179,7 @@ def attention_train(params, x, dims: AttnDims, *, positions=None,
     elif impl == "chunked":
         out = _chunked_causal(qg, k, v, swa_window, chunk_q, chunk_k)
     elif impl == "wedge":
-        raise NotImplementedError(
-            "impl='wedge' is not ported yet (ROADMAP Queue 1 item 11)")
+        out = _wedge_causal(qg, k, v, swa_window, chunk_q)
     elif impl == "pallas":
         from repro_torch.kernels import ops
         # (B, S, H, D) -> (B, H, S, D) views: the kernel reads the strides,
@@ -203,43 +203,70 @@ def _largest_divisor(chunk: int, s: int) -> int:
     return c
 
 
+def _attend(qc, q_pos, k, v, ck: int, kv_chunks, swa_window):
+    """Online softmax of one q chunk (b, cq, g, r, dh) over the kv chunks
+    ``kv_chunks`` of length ``ck``, in that order -> (b, g, r, cq, dh)."""
+    b, cq, g, r, dh = qc.shape
+    scale = 1.0 / math.sqrt(dh)
+    dev = qc.device
+    m = torch.full((b, g, r, cq), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, g, r, cq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, g, r, cq, dh), dtype=torch.float32, device=dev)
+    for ki in kv_chunks:
+        kc = k[:, ki * ck:(ki + 1) * ck]
+        vc = v[:, ki * ck:(ki + 1) * ck]
+        k_pos = ki * ck + torch.arange(ck, device=dev)
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", qc, kc).float() * scale
+        ok = k_pos[None, :] <= q_pos[:, None]
+        if swa_window:
+            ok &= k_pos[None, :] > q_pos[:, None] - swa_window
+        sc = torch.where(ok, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(sc - m_new[..., None])
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", pexp.to(qc.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(qc.dtype)
+
+
 def _chunked_causal(qg, k, v, swa_window, chunk_q, chunk_k):
     """Flash-style attention in plain torch: O(chunk_q x chunk_k) live scores.
 
     Visits every (q-chunk, kv-chunk) pair and masks, as the reference's
     baseline schedule does.
     """
-    b, s, g, r, dh = qg.shape
+    s = qg.shape[1]
     cq = _largest_divisor(chunk_q, s)
     ck = _largest_divisor(chunk_k, s)
-    scale = 1.0 / math.sqrt(dh)
-    dev = qg.device
-    outs = []
-    for qi in range(s // cq):
-        qc = qg[:, qi * cq:(qi + 1) * cq]
-        q_pos = qi * cq + torch.arange(cq, device=dev)
-        m = torch.full((b, g, r, cq), -math.inf, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, g, r, cq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, g, r, cq, dh), dtype=torch.float32, device=dev)
-        for ki in range(s // ck):
-            kc = k[:, ki * ck:(ki + 1) * ck]
-            vc = v[:, ki * ck:(ki + 1) * ck]
-            k_pos = ki * ck + torch.arange(ck, device=dev)
-            sc = torch.einsum("bqgrd,bkgd->bgrqk", qc, kc).float() * scale
-            ok = k_pos[None, :] <= q_pos[:, None]
-            if swa_window:
-                ok &= k_pos[None, :] > q_pos[:, None] - swa_window
-            sc = torch.where(ok, sc, NEG_INF)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            pexp = torch.exp(sc - m_new[..., None])
-            l = l * alpha + pexp.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bgrqk,bkgd->bgrqd", pexp.to(qc.dtype), vc).float()
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.to(qg.dtype))                    # (b, g, r, cq, dh)
+    outs = [_attend(qg[:, qi * cq:(qi + 1) * cq],
+                    qi * cq + torch.arange(cq, device=qg.device), k, v, ck,
+                    range(s // ck), swa_window)
+            for qi in range(s // cq)]
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)  # (b, s, g, r, dh)
+
+
+def _wedge_causal(qg, k, v, swa_window, chunk):
+    """Causal-FLOP-optimal chunked attention (the reference's "wedge").
+
+    q chunk i visits kv chunks 0..i only, in order: the visits, and so the
+    arithmetic, of the reference's schedule, which pairs chunk p with chunk
+    nq-1-p only to give its ``lax.scan`` a constant trip count (nq+1).
+    Executed score FLOPs are (nq+1)/(2·nq) of the all-pairs baseline.  An
+    odd chunk count falls back to the all-pairs schedule, as the reference
+    does.
+    """
+    s = qg.shape[1]
+    cq = _largest_divisor(chunk, s)
+    nq = s // cq
+    if nq % 2:  # odd chunk counts: fall back to the all-pairs schedule
+        return _chunked_causal(qg, k, v, swa_window, cq, cq)
+    outs = [_attend(qg[:, qi * cq:(qi + 1) * cq],
+                    qi * cq + torch.arange(cq, device=qg.device), k, v, cq,
+                    range(qi + 1), swa_window)
+            for qi in range(nq)]
     return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)  # (b, s, g, r, dh)
 
 

@@ -4,8 +4,7 @@ The port of ``src/repro/models/common.py``: pure functions over explicit
 parameter dicts of tensors, computing on the device their inputs lie on.
 Initialisers draw from a ``torch.Generator`` on that device; the JAX package's
 ``jax.random`` keys give other numbers, so tests carry weights across with
-``repro_torch.models.convert.params_from_numpy``.  ``chunked_cross_entropy``
-comes with the training slice.
+``repro_torch.models.convert.params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -13,11 +12,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["rms_norm", "layer_norm_nonparam", "make_norm", "init_norm",
            "apply_norm", "rope_frequencies", "apply_rope", "init_mlp",
-           "apply_mlp", "mlp_flops", "init_embedding", "embed_tokens",
-           "normal"]
+           "apply_mlp", "mlp_flops", "chunked_cross_entropy",
+           "init_embedding", "embed_tokens", "normal"]
 
 
 def normal(generator: torch.Generator, shape, dtype, scale: float
@@ -123,6 +123,40 @@ def apply_mlp(params: dict, x, kind: str):
 def mlp_flops(d: int, ff: int, kind: str, tokens: int) -> float:
     n_mats = 3 if kind in ("swiglu", "geglu") else 2
     return 2.0 * n_mats * d * ff * tokens
+
+
+# ------------------------------------------------- chunked cross-entropy ----
+
+def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
+                          norm_kind: str = "rms",
+                          norm_params: dict | None = None):
+    """Mean NLL over labels >= 0; logits never materialized beyond one chunk.
+
+    hidden: (B, S, d) pre-final-norm activations; lm_head: (d, V).  Each
+    chunk's norm, logits, logsumexp and target are computed again in the
+    backward pass (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``), so only one chunk's logits are ever alive.
+    """
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1  # largest divisor <= requested
+
+    def chunk_loss(h_c, l_c):
+        if norm_params is not None:
+            h_c = apply_norm(norm_kind, norm_params, h_c)
+        logits = (h_c @ lm_head).float()                           # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.take_along_dim(
+            logits, torch.clamp(l_c, min=0).long()[..., None], dim=-1)[..., 0]
+        return torch.where(l_c >= 0, lse - tgt, 0.0).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        tot = tot + checkpoint(chunk_loss, hidden[:, i:i + chunk],
+                               labels[:, i:i + chunk], use_reentrant=False)
+    cnt = (labels >= 0).sum()
+    return tot / torch.clamp(cnt, min=1)
 
 
 # ------------------------------------------------------------- embedding ----

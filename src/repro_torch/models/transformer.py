@@ -5,15 +5,19 @@ The port of ``src/repro/models/transformer.py``.  One super-block
 is the reference's (``blocks`` a tuple over the pattern, every leaf with a
 leading ``n_repeats`` dimension), and the reference's ``lax.scan`` over
 repeats is a Python loop over that leading index.  Attention and Mamba-2
-mixers with dense-MLP, MoE or no FFNs are ported; ``loss_fn`` comes with
-training.  An MoE layer runs ``apply_moe`` once over the whole (B·S, d)
-batch, as the reference does: the capacity, and so which slots are dropped,
-depends on the number of tokens dispatched together.
+mixers with dense-MLP, MoE or no FFNs are ported.  An MoE layer runs
+``apply_moe`` once over the whole (B·S, d) batch, as the reference does:
+the capacity, and so which slots are dropped, depends on the number of
+tokens dispatched together.  ``forward`` and ``loss_fn`` are differentiable
+by autograd, except through the CUDA kernels, which have no backward and
+refuse a call that needs one: training goes through ``attn_impl_train``
+"dense", "chunked" or "wedge", and not through a Mamba layer.
 
 API (pure functions over parameter trees of tensors; caches are updated in
 place):
     init_params(cfg, generator, dtype, device)   -> params
     forward(params, cfg, batch)                  -> (hidden (B, S, d), aux)
+    loss_fn(params, cfg, batch)                  -> (loss, metrics)
     init_cache(cfg, batch, max_len, dtype, device) -> cache
     prefill(params, cfg, batch, max_len, dtype)  -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache)      -> (logits, cache)
@@ -22,17 +26,20 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
-from repro_torch.models.common import (apply_mlp, apply_norm, embed_tokens,
+from repro_torch.models.common import (apply_mlp, apply_norm,
+                                       chunked_cross_entropy, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        normal)
+from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step",
-           "model_flops"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
+           "decode_step", "model_flops"]
 
 
 def _dims(cfg: ArchConfig) -> attn.AttnDims:
@@ -186,20 +193,66 @@ def _embed_inputs(params, cfg: ArchConfig, batch) -> tuple:
     return x, positions
 
 
+def _unstack(tree, n: int) -> list:
+    """``n`` trees, the ``i``-th holding slice ``i`` of every leaf: one
+    ``unbind`` a leaf, whose backward stacks the slices' gradients once
+    (a slice taken per repeat would add a zero-filled full-size gradient per
+    repeat)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)   # a tuple at each leaf
+    return [tree_map(lambda _, p: p[i], tree, parts) for i in range(n)]
+
+
 def forward(params, cfg: ArchConfig, batch):
-    """Full-sequence forward -> (hidden (B,S,d) pre-final-norm, aux_loss)."""
+    """Full-sequence forward -> (hidden (B,S,d) pre-final-norm, aux_loss).
+
+    With ``cfg.remat`` each repeat of the pattern runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scan body): only its input is kept, and its activations are computed
+    again in the backward pass."""
     _check_ported(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for rep in range(cfg.n_repeats):
-        x = _pin_batch(cfg, x)
-        for j, spec in enumerate(cfg.pattern):
-            p = _index(params["blocks"][j], rep)
-            out, _, _ = _mix(cfg, spec, p, x, positions)
-            x, a = _ffn(cfg, spec, p, x + out)
+    blocks = [_unstack(b, cfg.n_repeats) for b in params["blocks"]]
+
+    def body(h, *layer_params):
+        h = _pin_batch(cfg, h)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for spec, p in zip(cfg.pattern, layer_params):
+            out, _, _ = _mix(cfg, spec, p, h, positions)
+            h, a = _ffn(cfg, spec, p, h + out)
             if a is not None:
                 aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for rep in range(cfg.n_repeats):
+        layer_params = [b[rep] for b in blocks]
+        if cfg.remat:
+            x, a = checkpoint(body, x, *layer_params, use_reentrant=False)
+        else:
+            x, a = body(x, *layer_params)
+        aux = aux + a
     return x, aux
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """Mean next-token NLL (+ MoE aux) -> (loss, {"nll", "aux"}).
+
+    batch: tokens, labels (+ frontend extras).  Patches carry no labels;
+    codebook archs average the NLL over the codebooks."""
+    hidden, aux = forward(params, cfg, batch)
+    labels = batch["labels"]
+    if cfg.frontend == "patch":  # patches carry no labels
+        pad = labels.new_full((labels.shape[0], cfg.n_patches), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    ce = dict(chunk=cfg.loss_chunk, norm_kind=cfg.norm,
+              norm_params=params["final_norm"])
+    if cfg.n_codebooks:
+        loss = sum(chunked_cross_entropy(hidden, labels[..., k],
+                                         params["lm_head"][k], **ce)
+                   for k in range(cfg.n_codebooks)) / cfg.n_codebooks
+    else:
+        loss = chunked_cross_entropy(hidden, labels, params["lm_head"], **ce)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 def _logits(params, cfg: ArchConfig, h):

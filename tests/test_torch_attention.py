@@ -6,11 +6,12 @@ Pallas kernel in interpret mode), on the cases of ``tests/test_kernels.py``
 at its tolerances (float32 2e-5, bfloat16 2e-2).  The CUDA kernel itself is
 held against the plain version in ``tests/test_torch_cuda.py``.
 
-Module level: ``attention_train`` (dense, chunked, pallas), decode, the SWA
-ring buffer and the int8 KV cache, with the reference's weights carried
-across by ``params_from_numpy``, at the tolerances of
+Module level: ``attention_train`` (dense, chunked, wedge, pallas), decode,
+the SWA ring buffer and the int8 KV cache, with the reference's weights
+carried across by ``params_from_numpy``, at the tolerances of
 ``tests/test_attention.py`` (2e-5 for the full-sequence paths, 1e-5 for
-decode).
+decode).  The kernel has no backward, so a call that needs one is refused
+on the CPU as on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -308,12 +309,45 @@ def test_prefill_cache_then_decode_matches_reference(kv_quant, swa):
     _assert_close(to, jo, rtol=1e-5, atol=1e-5)
 
 
-def test_wedge_is_not_ported_yet():
-    td = TA.AttnDims(D, 4, 2, 8)
-    _, tp = _params(JA.AttnDims(D, 4, 2, 8), 9)
-    _, tx = _x(np.random.default_rng(9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.attention_train(tp, tx, td, impl="wedge")
+@pytest.mark.parametrize("swa", [None, 20])
+@pytest.mark.parametrize("s,chunk", [(64, 16), (64, 32), (48, 16), (64, 64)])
+def test_wedge_matches_reference(s, chunk, swa):
+    """impl='wedge' at even (4, 2) and odd (3, 1: the all-pairs fallback)
+    chunk counts, against the reference's wedge and the port's dense."""
+    jd, td = JA.AttnDims(D, 4, 2, 8), TA.AttnDims(D, 4, 2, 8)
+    jp, tp = _params(jd, 9)
+    jx, tx = _x(np.random.default_rng(9), s=s)
+    jo, _, _ = JA.attention_train(jp, jx, jd, impl="wedge", swa_window=swa,
+                                  chunk_q=chunk)
+    to, _, _ = TA.attention_train(tp, tx, td, impl="wedge", swa_window=swa,
+                                  chunk_q=chunk)
+    _assert_close(to, jo, rtol=2e-5, atol=2e-5)
+    dense, _, _ = TA.attention_train(tp, tx, td, impl="dense", swa_window=swa)
+    torch.testing.assert_close(to, dense, rtol=2e-5, atol=2e-5)
+
+
+def _requires_grad(*ts):
+    return [t.clone().requires_grad_() for t in ts]
+
+
+def test_flash_attention_refuses_a_call_that_needs_its_backward():
+    """The CUDA kernel has no backward; the CPU path refuses the same call,
+    so neither device returns an output without a gradient."""
+    q = torch.randn(1, 2, 32, 16)
+    for grads in ((True, False, False), (False, True, False),
+                  (False, False, True)):
+        qkv = [t.clone().requires_grad_(g) for t, g in zip((q, q, q), grads)]
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            fa.flash_attention_cuda(*qkv)
+    with torch.no_grad():
+        out = fa.flash_attention_cuda(*_requires_grad(q, q, q))
+    assert out.grad_fn is None
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, q, q))
+    _, tp = _params(JA.AttnDims(D, 4, 4, 16), 3)
+    tp = {k: v.requires_grad_() for k, v in tp.items()}
+    _, tx = _x(np.random.default_rng(3))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        TA.attention_train(tp, tx, TA.AttnDims(D, 4, 4, 16), impl="pallas")
 
 
 @pytest.mark.parametrize("tokens,kv,causal", [(64, 64, True), (1, 512, False),

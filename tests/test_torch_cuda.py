@@ -14,6 +14,8 @@ bfloat16 5e-2, absolute plus relative).  The serving paths' logits within
 1e-4 of the CPU's (float32, summed in another order).  The MoE FFN on the
 card within 1e-5 of the CPU's, drops included, with no host synchronise.
 ``stream_run`` on the card's estimates: both engines give one report.
+Training: the kernels refuse a call that needs their backward, and a train
+step on the card is within 1e-5 of the CPU's.
 """
 import dataclasses
 
@@ -31,6 +33,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
+from repro_torch.train import make_train_step
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.cluster import NodeSpec
 from repro_torch.pipeline import (PipelineConfig, plan_estimates,
@@ -595,3 +601,87 @@ def test_cuda_moe_serving_smoke_matches_cpu(cuda, arch):
     np.testing.assert_array_equal(card["tokens"].cpu().numpy(),
                                   cpu["tokens"].numpy())
     assert card["energy"]["steps"] == cpu["energy"]["steps"]
+
+
+# ------------------------------------------------------------- training ---
+
+def _grad_inputs(ts, which):
+    return [t.clone().requires_grad_(i == which) for i, t in enumerate(ts)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_refuses_a_call_that_needs_its_backward(
+        cuda, dtype):
+    """Its output is written through ctypes and would carry no gradient."""
+    q = torch.randn((1, 2, 64, 64), device=cuda).to(dtype)
+    fa.reset_launches()
+    for which in range(3):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            fa.flash_attention_cuda(*_grad_inputs((q, q, q), which))
+    assert fa.LAUNCHES["flash_attention"] == 0
+    with torch.no_grad():
+        out = fa.flash_attention_cuda(*(t.clone().requires_grad_()
+                                        for t in (q, q, q)))
+    assert out.grad_fn is None and fa.LAUNCHES["flash_attention"] == 1
+
+
+def test_cuda_ssd_scan_refuses_a_call_that_needs_its_backward(cuda):
+    rng = np.random.default_rng(3)
+    b, s, h, g, p, n = 1, 64, 2, 1, 16, 16
+    ins = [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+           .to(cuda) for shape in ((b, s, h, p), (b, s, h), (h,),
+                                   (b, s, g, n), (b, s, g, n))]
+    ins[1] = ins[1].abs() * 0.1
+    ss.reset_launches()
+    for which in range(len(ins)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            ss.ssd_scan_cuda(*_grad_inputs(ins, which))
+    assert ss.LAUNCHES["ssd_scan"] == 0
+    with torch.no_grad():
+        y = ss.ssd_scan_cuda(*(t.clone().requires_grad_() for t in ins))
+    assert y.grad_fn is None and ss.LAUNCHES["ssd_scan"] == 1
+
+
+@pytest.mark.parametrize("arch,over", [("olmo-1b", {"attn_impl_train":
+                                                    "pallas"}),
+                                       ("mamba2-1.3b", {})])
+def test_cuda_loss_backward_through_a_kernel_raises(cuda, arch, over):
+    cfg = smoke_config(arch, **over)
+    params = tree_map(lambda t: t.requires_grad_(), T.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda))
+    toks = torch.ones((2, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
+        T.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_cuda_train_step_matches_cpu(cuda, micro):
+    """olmo-1b at smoke size, 3 steps from the same weights: losses,
+    gradient norms and weights on the card within 1e-5 of the CPU's
+    (float32, summed in another order); no kernel wrapper launched."""
+    cfg = smoke_config("olmo-1b", remat=True)
+    opt = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt, num_microbatches=micro,
+                           lr_fn=linear_warmup_cosine(1e-3, 2, 10))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [{k: rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+                for k in ("tokens", "labels")} for _ in range(3)]
+    out = {}
+    fa.reset_launches()
+    for dev in ("cpu", cuda):
+        p = params_from_numpy(tree_map(lambda t: t.numpy(), params), dev)
+        state = adamw_init(p, opt)
+        metrics = []
+        for b in batches:
+            p, state, m = step(p, state, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in b.items()})
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm",
+                                                  "lr")])
+        out[str(dev)] = (metrics, p)
+    assert fa.LAUNCHES["flash_attention"] == 0
+    np.testing.assert_allclose(out[str(cuda)][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(tree_leaves(out[str(cuda)][1]),
+                    tree_leaves(out["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)

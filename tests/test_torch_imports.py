@@ -25,7 +25,8 @@ def _forbidden(name: str) -> bool:
 @pytest.mark.parametrize("package", ["kernels", "models", "configs", "serve",
                                      "train", "launch", "cluster",
                                      "calibrate", "core", "pipeline",
-                                     "runtime", "serving"])
+                                     "runtime", "serving", "optim",
+                                     "checkpoint", "data"])
 def test_subpackage_is_covered(package):
     """The subprocess below imports every module of each subpackage."""
     mods = [m for m in _modules() if m.startswith(f"repro_torch.{package}")]

@@ -6,7 +6,9 @@ interpret mode (the Pallas kernel's body run on the CPU) and against the
 naive recurrence, on the reference's own sweep (``tests/test_kernels.py``)
 at its tolerances, 5e-4 float32 and 5e-2 bfloat16.  The block's functions
 take the reference's weights (``params_from_numpy``) and the same seeded
-NumPy inputs, and agree at 1e-5 in float32 (sums in another order).
+NumPy inputs, and agree at 1e-5 in float32 (sums in another order).  The
+kernel has no backward, so a call that needs one is refused on the CPU as
+on the card, and with it ``loss_fn`` of a model with a Mamba layer.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import mamba2 as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.tree import tree_map
 
 TOL = 1e-5
 
@@ -101,6 +104,33 @@ def test_ssd_scan_refuses_what_it_cannot_take(case):
     else:
         with pytest.raises(ValueError, match="must be in"):
             ops.ssd_scan(x, dt, a_log, bm, bm, chunk=16, device="cpu")
+
+
+def test_ssd_scan_refuses_a_call_that_needs_its_backward():
+    x, dt, a_log, bm, cm, _ = (torch.from_numpy(a) for a in _ssd_inputs(
+        np.random.default_rng(5), 1, 16, 2, 8, 1, 8))
+    ins = (x, dt, a_log, bm, cm)
+    for i in range(len(ins)):
+        args = [t.clone().requires_grad_(j == i) for j, t in enumerate(ins)]
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            ss.ssd_scan_cuda(*args, chunk=8)
+    with torch.no_grad():
+        y = ss.ssd_scan_cuda(*(t.clone().requires_grad_() for t in ins),
+                             chunk=8)
+    assert y.grad_fn is None
+    torch.testing.assert_close(y, ss.ssd_scan_cuda(*ins, chunk=8))
+
+
+def test_loss_fn_through_a_mamba_layer_names_the_roadmap_item():
+    cfg = tcfg.smoke_config("mamba2-1.3b")
+    leaves = tree_map(lambda t: t.requires_grad_(), TT.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    toks = torch.ones((2, 32), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
+        TT.loss_fn(leaves, cfg, {"tokens": toks, "labels": toks})
+    with torch.no_grad():
+        loss, _ = TT.loss_fn(leaves, cfg, {"tokens": toks, "labels": toks})
+    assert torch.isfinite(loss)
 
 
 def test_ssd_scan_op_default_device_raises_without_a_card(monkeypatch):
