@@ -32,10 +32,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the block-boundary loop), then with online re-planning, migration,
      actuation, a cap, a slowdown and a transient crash (the vector engine
      against the scalar oracle, report and event log, and the ledger
-     audit), the serving fabric on that plan under three tenants (both
-     engines, and its conservation audit), and the reference benchmark's
-     fleet scenario at 10,000 x 16 (both engines) and 1,000,000 x 100
-     (vector), with host walls;
+     audit), read by the fleet observatory: each node's wall split into
+     its causes (explain_miss), the energy channels, one ablation per
+     mechanism with its makespan and deadline (profile_mechanisms,
+     ablate), the run again with the online re-planner's replan_threshold
+     narrowed, the run diff against the ablation that moves the makespan
+     most, the watchdog's alerts, and a Chrome trace and a Prometheus
+     exposition held to their validators; the serving fabric on that plan
+     under three tenants (both engines, its conservation audit, its tenant
+     rows and its worst missed job explained), and the reference
+     benchmark's fleet scenario at 10,000 x 16 (both engines) and
+     1,000,000 x 100 (vector; then again with streamed metrics and a ring
+     flight recorder, for their host cost), with host walls;
   6. the same path on a small dataset, card against CPU;
   7. the five apps on the card at the paper-figure block sizes, with the
      paper's estimate -> plan -> simulate comparison against DVO;
@@ -74,7 +82,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      shared memory, CTAs an SM, the cluster size and grid, one device kernel
      a call (profiler), the SM clock and power under load and a read
      yardstick (torch.sum of the same tokens, not the same function);
- 15. the training path at full width: olmo-1b (1,279,787,008 float32
+ 15. the examples of repro_torch.examples on the card, each through its
+     entry point: cluster_sim, calibrate and quickstart at their defaults,
+     serve_batch on the H100's roofline, train_lm at its 100m preset's full
+     width (163,577,856 parameters) for 30 steps, each one's printed
+     numbers finite and its deadlines met where its text says so, with
+     walls, and train_lm's steps timed by CUDA events;
+ 16. the training path at full width: olmo-1b (1,279,787,008 float32
      parameters, random from a seed) trained through Trainer.run under
      deterministic algorithms: 3 calibration steps, the DV-DVFS plan, 8
      steps of 8 x 256 tokens (remat, chunked attention, so no kernel
@@ -95,11 +109,15 @@ nothing here measures the card's energy.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
+import io
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -119,11 +137,18 @@ from repro_torch.cluster import (ClusterReport, NodeReport,  # noqa: E402
                                  simulate_cluster, simulate_cluster_reference)
 from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (CPU_PAPER_POWER, BlockArrays,  # noqa: E402
-                              BlockInfo, ChipSpec, EstimateArrays,
+                              BlockInfo, EstimateArrays,
                               FrequencyLadder, PowerModel, RooflineTimeModel,
                               plan_dvfs, plan_dvo, plan_dvo_arrays, simulate,
                               variety_stats)
 from repro_torch.data import BlockDataset, pack_tokens  # noqa: E402
+from repro_torch.device import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
+                                H100, HBM_BYTES_PER_S)
+from repro_torch.examples import calibrate as ex_calibrate  # noqa: E402
+from repro_torch.examples import cluster_sim as ex_cluster_sim  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import serve_batch as ex_serve_batch  # noqa: E402
+from repro_torch.examples import train_lm as ex_train_lm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -133,6 +158,14 @@ from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import SEP, flatten  # noqa: E402
+from repro_torch.obs import (Scenario, StreamingMetrics,  # noqa: E402
+                             Watchdog, ablate, build_spans, diff_runs,
+                             explain_energy, explain_miss, format_table,
+                             mechanism_columns, neutralize,
+                             profile_mechanisms,
+                             standard_rules, tenant_rows, to_prometheus,
+                             validate_chrome_trace, validate_prometheus,
+                             write_chrome_trace)
 from repro_torch.pipeline import (ArrivalSpec,  # noqa: E402
                                   PipelineConfig, TenantSpec, plan_estimates,
                                   stream_estimates_tokens, stream_run,
@@ -149,14 +182,6 @@ from repro_torch.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.tree import flatten as tree_flatten  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
-# H100 SXM, NVIDIA's data sheet, at its 700 W power limit (the run prints the
-# card's own limit): device memory, dense float32 without tensor cores, dense
-# bf16 on tensor cores, NVLink each way
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
-H100 = ChipSpec(peak_flops=F32_FLOPS, hbm_bw=HBM_BYTES_PER_S, ici_bw=450e9,
-                hbm_bytes=80e9)
 PATTERN = (17, 23, 5)
 POWER = CPU_PAPER_POWER       # the paper's power model (formula 7)
 SLACKS = (1.08, 1.20)         # tight and firm deadlines, benchmarks/paper_figs.py
@@ -223,6 +248,13 @@ BURST = dict(factor=5.0, start=0.4, end=0.6)
 # (blocks, nodes, speed step)
 FLEET_EQUIV = (10_000, 16, 0.02)
 FLEET = (1_000_000, 100, 0.002)
+FLEET_RING = 4096          # flight-recorder rows kept in (d)'s metrics runs
+# run (b) again with the online re-planner's dead band (RuntimeConfig's
+# replan_threshold, 0.15 in (b)) narrowed to each of these
+REPLAN_SWEEP = (0.10, 0.05, 0.02)
+# explain_miss's parts of a node's or a job's wall
+MISS_KEYS = ("queueing_s", "cap_clamp_s", "crash_s", "migration_s",
+             "slowdown_s", "actuation_s", "service_s")
 MIXER_KERNEL = {"attn": "flash_attention", "mamba": "ssd_scan"}
 # olmo-1b trained at full width: TrainConfig's batch and sequence defaults;
 # a checkpoint at step 4 and 8 (keep 1), a node failure injected at step 6,
@@ -235,6 +267,8 @@ TRAIN_SMOKE = dict(batch=2, seq_len=64, total_steps=12, ckpt_every=4,
                    warmup=2, seed=3, dvfs_enabled=False)
 SMOKE_FAIL_AT = 9
 DISK_MARGIN = 1.05
+# the examples phase: train_lm at its 100m preset's full width, 30 steps
+TRAIN_LM_ARGS = ["--preset", "100m", "--steps", "30"]
 SERVE_LOGIT_TOL = 1e-3     # kernel vs chunked prefill, 16 float32 layers
 # prefill of S tokens vs prefill of S-1 and one decode step, 48 float32
 # layers: the chunked scan against the recurrence, summed in other orders
@@ -839,15 +873,217 @@ def fleet_scenario(n_blocks, n_nodes, speed_step):
     return blocks, nodes, deadline, events, cfg
 
 
+def busy_by_freq(spans, node: str, since: float) -> dict:
+    """Seconds ``node`` spent busy at each relative frequency from
+    ``since`` on, off its block spans' constant-frequency segments."""
+    out = collections.Counter()
+    for s in spans.get(node, ()):
+        if s.cat not in ("block", "crashed", "unfinished"):
+            continue
+        for seg in [c for c in s.children if c.cat == "freq"] or [s]:
+            dur = seg.end - max(seg.start, since)
+            if dur > 0.0:
+                out[seg.get("freq", 1.0)] += dur
+    return dict(sorted(out.items()))
+
+
+def observe_run_b(rep, scenario: Scenario, deadline: float) -> None:
+    """Run (b) through the fleet observatory: each node's wall split into
+    its causes, the energy channels, one ablation per mechanism (its exact
+    energy delta, makespan and deadline), the run diff against the
+    ablation that moves the makespan most, the watchdog's alerts on a run
+    with streamed metrics, and the Chrome-trace and Prometheus exports,
+    each held to its validator."""
+    spans = build_spans(rep.event_log)
+    print(f"  (b) explain_miss per node: [0, finish] split into "
+          f"{', '.join(MISS_KEYS)} (s); deadline {deadline!r} s")
+    for nr in rep.node_reports:
+        ex = explain_miss(rep, node=nr.name, spans=spans)
+        total = math.fsum(ex[k] for k in MISS_KEYS)
+        check(ex["wall_s"] == nr.finish_s
+              and all(np.isfinite(ex[k]) for k in MISS_KEYS)
+              and all(ex[k] >= 0.0 for k in MISS_KEYS if k != "service_s"),
+              f"explain_miss of node {nr.name} is not a split of its wall")
+        print(f"    {nr.name}: wall {ex['wall_s']!r}, missed={ex['missed']}, "
+              f"over by {ex['wall_s'] - deadline:+.6f} s; "
+              + ", ".join(f"{k} {ex[k]:.6f}" for k in MISS_KEYS)
+              + f"; fsum {total!r} "
+              f"{'==' if total == ex['wall_s'] else '!='} wall_s")
+        faults = [e.time for e in scenario.events
+                  if isinstance(e, FaultEvent) and e.node == nr.name]
+        if ex["missed"] or faults:
+            since = min(faults, default=0.0)
+            print(f"      busy seconds by relative frequency from "
+                  f"t={since:.6f} s: " + ", ".join(
+                      f"{f} {s:.6f}" for f, s in busy_by_freq(
+                          spans, nr.name, since).items()))
+    energy = explain_energy(rep)
+    print("  (b) explain_energy: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in energy.items()))
+
+    rows = profile_mechanisms(scenario, engines=("vector",), base=rep)
+    print("  (b) profile_mechanisms, each mechanism ablated (ablated minus "
+          "base; vector engine):")
+    print(format_table(rows, mechanism_columns(), indent="    "))
+    ablations = {}
+    for row in rows:
+        if not row["changed"]:
+            print(f"    {row['mechanism']}: already off in (b), identity "
+                  "replay")
+            continue
+        abl = ablate(scenario, row["mechanism"], engines=("vector",))
+        check(row["d_slack_s"] == (abl.deadline_s - abl.makespan_s)
+              - (rep.deadline_s - rep.makespan_s),
+              f"ablation {row['mechanism']}: its makespan disagrees with "
+              "profile_mechanisms's row")
+        ablations[row["mechanism"]] = abl
+        print(f"    without {row['mechanism']}: makespan "
+              f"{abl.makespan_s:.6f} s ({abl.makespan_s - rep.makespan_s:+.6f}"
+              f" s), deadline_met={abl.deadline_met}, d_total_j "
+              f"{row['d_total_j']:+.6f}, {abl.n_migrations} migrations, "
+              f"peak {abl.peak_power_w:.3f} W")
+    check(bool(ablations), "no mechanism of run (b) could be ablated")
+    faster = [m for m, a in ablations.items() if a.makespan_s < rep.makespan_s]
+    if len(faster) > 1:
+        both = scenario
+        for m in faster:
+            both = neutralize(both, m)[0]
+        joint = both.run(engine="vector")
+        print(f"    without {' and '.join(faster)} together: makespan "
+              f"{joint.makespan_s:.6f} s "
+              f"({joint.makespan_s - rep.makespan_s:+.6f} s), deadline_met="
+              f"{joint.deadline_met}, {joint.n_migrations} migrations, peak "
+              f"{joint.peak_power_w:.3f} W")
+    # the re-planner re-plans a node's tail only once its drift estimate
+    # has moved by more than replan_threshold since the node's last re-plan
+    cfg = scenario.config
+    for thr in REPLAN_SWEEP:
+        r = dataclasses.replace(scenario, config=dataclasses.replace(
+            cfg, replan_threshold=thr)).run(engine="vector")
+        print(f"    replan_threshold {thr} (not {cfg.replan_threshold}): "
+              f"makespan {r.makespan_s:.6f} s "
+              f"({r.makespan_s - rep.makespan_s:+.6f} s), deadline_met="
+              f"{r.deadline_met}, {r.n_replans} replans, {r.n_migrations} "
+              f"migrations, {r.total_energy_j:.6f} J busy "
+              f"({r.total_energy_j - rep.total_energy_j:+.6f} J)")
+    mover = max(ablations, key=lambda m: abs(ablations[m].makespan_s
+                                             - rep.makespan_s))
+    d = diff_runs(rep, ablations[mover])
+    print(f"  (b) diff_runs against the ablation that moves the makespan "
+          f"most ({mover}): d_makespan_s {d.totals['d_makespan_s']:+.6f}, "
+          f"d_total_j {d.totals['d_total_j']:+.6f}; {len(d.blocks)} blocks "
+          f"changed, {len(d.moved)} moved, {len(d.added)} added, "
+          f"{len(d.dropped)} dropped; spans aligned {d.spans_aligned}")
+    for row in d.nodes:
+        print("    node " + ", ".join(
+            f"{k} {v:+.6f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()))
+    for row in d.mechanisms:
+        print(f"    mechanism {row}")
+
+    mx = StreamingMetrics()
+    wd = Watchdog(standard_rules(deadline)).attach(mx)
+    watched = scenario.run(engine="vector", metrics=mx)
+    check(watched == rep, "run (b) with streamed metrics differs from (b)")
+    by_rule = collections.Counter(a.rule for a in wd.alerts)
+    print(f"  (b) watchdog (standard_rules of the deadline): "
+          f"{len(wd.alerts)} alerts, by rule {dict(by_rule)}; first: "
+          + "; ".join(f"t={a.time:.3f} s [{a.severity}] {a.rule} burn "
+                      f"{a.value:.3f}x" for a in wd.alerts[:3]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        path = Path(tmp) / "run_b.trace.json"
+        doc = write_chrome_trace(path, rep)
+        problems = validate_chrome_trace(doc) \
+            + validate_chrome_trace(json.loads(path.read_text()))
+        check(not problems, f"run (b)'s Chrome trace is invalid: "
+              f"{problems[:5]}")
+        sizes = {"trace": path.stat().st_size}
+        for name, source in (("metrics", mx), ("report", rep)):
+            prom = Path(tmp) / f"run_b.{name}.prom"
+            prom.write_text(to_prometheus(source))
+            problems = validate_prometheus(prom.read_text())
+            check(not problems, f"run (b)'s Prometheus exposition of its "
+                  f"{name} is invalid: {problems[:5]}")
+            sizes[name] = prom.stat().st_size
+    print(f"  (b) exports valid: Chrome trace {len(doc['traceEvents'])} "
+          f"events ({sizes['trace']} bytes), Prometheus from the metrics "
+          f"{sizes['metrics']} bytes and from the report {sizes['report']} "
+          "bytes")
+
+
+def observe_serving(sv) -> None:
+    """Run (c)'s tenant rows, and the worst missed job's wall split into its
+    causes, if a job missed."""
+    print(format_table(tenant_rows(sv), [
+        ("tenant", "tenant", "s"), ("arrived", "arrived", "d"),
+        ("accepted", "accepted", "d"), ("rejected", "rejected", "d"),
+        ("shed", "shed", "d"), ("finished", "finished", "d"),
+        ("slo_miss", "slo_miss", "d"), ("miss_rate", "miss_rate", ".1%")],
+        indent="    "))
+    end = sv.runtime.makespan_s
+    missed = [j for j in sv.jobs if not j.slo_met and j.status == "accepted"]
+    if not missed:
+        print(f"  (c) no accepted job missed its SLO "
+              f"({sum(j.status == 'shed' for j in sv.jobs)} shed, "
+              f"{sum(j.status == 'rejected' for j in sv.jobs)} rejected)")
+        return
+    worst = max(missed, key=lambda j: (j.t_finish if j.t_finish >= 0.0
+                                       else end) - j.deadline_s)
+    ex = explain_miss(sv, job_id=worst.job_id)
+    check(all(np.isfinite(ex[k]) for k in MISS_KEYS),
+          f"explain_miss of job {worst.job_id} is not finite")
+    print(f"  (c) worst of {len(missed)} missed jobs: job {worst.job_id} "
+          f"({worst.tenant}, {worst.status} on {worst.node or '-'}), wall "
+          f"{ex['wall_s']:.6f} s, admission {ex['admission_s']:.6f} s; "
+          + ", ".join(f"{k} {ex[k]:.6f}" for k in MISS_KEYS))
+
+
+def fleet_metrics_overhead(fplan, blocks, fcfg, fevents, frep,
+                           plain_s: float) -> None:
+    """(d)'s largest fleet run again with a ``ring:N`` flight recorder, with
+    and without ``StreamingMetrics`` fed inline, in turns (ring, metrics,
+    metrics, ring): the instrumentation's host cost as the reference's CI
+    guard defines it (metrics on against off, both under the ring), and
+    the ring's own cost against the run with logging off (``plain_s``)."""
+    walls = {"ring": [], "metrics": []}
+    for kind in ("ring", "metrics", "metrics", "ring"):
+        mx = StreamingMetrics() if kind == "metrics" else None
+        cfg = dataclasses.replace(fcfg, metrics=mx, log_events=True,
+                                  event_log=f"ring:{FLEET_RING}")
+        rep, s = sync_seconds(lambda: run_cluster(
+            fplan, blocks, config=cfg, events=fevents, engine="vector"))
+        walls[kind].append(s)
+        check(rep.makespan_s == frep.makespan_s
+              and rep.total_energy_j == frep.total_energy_j,
+              "(d) with a flight recorder differs from the plain run")
+        check(len(rep.event_log) == FLEET_RING and rep.events_dropped > 0,
+              f"(d)'s ring kept {len(rep.event_log)} rows")
+        if mx is not None:
+            fin = mx.snapshot()["counters"]["finishes"]
+            check(fin == sum(nr.n_blocks for nr in rep.node_reports),
+                  f"(d)'s metrics counted {fin} finishes")
+    ring = sum(walls["ring"]) / 2
+    with_mx = sum(walls["metrics"]) / 2
+    print(f"  (d) ring:{FLEET_RING} flight recorder on the {len(blocks):,}-"
+          f"block run, host walls: without metrics {walls['ring']} s, with "
+          f"StreamingMetrics {walls['metrics']} s; metrics overhead "
+          f"{100 * (with_mx / ring - 1):+.3f}% (means; the reference's CI "
+          f"bound is +5% at 100,000 blocks), ring against logging off "
+          f"({plain_s:.6f} s) {100 * (ring / plain_s - 1):+.3f}%; "
+          f"{fin} finishes counted, {rep.events_dropped} log rows dropped")
+
+
 def phase_runtime(main_path: dict) -> dict:
     """The main path's estimates (from the block_stats_batched kernel on
     the card) planned over its four nodes and executed by the event-driven
     runtime: (a) with zero actuation and no cap, bit for bit the
     block-boundary loop; (b) with online re-planning, migration, actuation,
     a cap, a slowdown and a transient crash, the vector engine against the
-    scalar oracle; (c) the serving fabric on (b)'s plan under three
-    tenants; (d) the reference benchmark's fleet scenario.  All of it is
-    host work: it launches no kernel."""
+    scalar oracle, then read by the fleet observatory (``observe_run_b``);
+    (c) the serving fabric on (b)'s plan under three tenants, with its
+    tenant rows and worst missed job; (d) the reference benchmark's fleet
+    scenario, and at 1,000,000 blocks the cost of streamed metrics.  All
+    of it is host work: it launches no kernel."""
     est, truth_blocks = main_path["est"], main_path["truth_blocks"]
     produced = main_path["launches"]["block_stats_batched"]
     print(f"runtime: on the main path's {len(est)} estimates, made by "
@@ -942,6 +1178,9 @@ def phase_runtime(main_path: dict) -> dict:
           f"{len(rep_b.missed_blocks)} blocks missed, recoveries "
           f"{[d.action for d in rep_b.recoveries]}; scalar == vector, report"
           f" and {len(rep_b.event_log)} logged events; conservation holds")
+    _, walls["b_obs"] = sync_seconds(lambda: observe_run_b(
+        rep_b, Scenario(plan=cpa_b, truth=truth_b, config=runtime_b(cap),
+                        events=events), deadline))
 
     # (c) the serving fabric on (b)'s plan under three tenants
     tenants = []
@@ -981,6 +1220,7 @@ def phase_runtime(main_path: dict) -> dict:
           + f"; makespan {sv.runtime.makespan_s:.6f} s, "
           f"{sv.runtime.total_energy_j:.6f} J; scalar == vector, report and "
           f"{len(sv.event_log)} logged events; conservation holds")
+    observe_serving(sv)
 
     # (d) fleet scale on the host
     n, k, step = FLEET_EQUIV
@@ -1017,6 +1257,8 @@ def phase_runtime(main_path: dict) -> dict:
           f"{frep.makespan_s:.6f} s of {fdeadline:.6f} s, deadline_met="
           f"{frep.deadline_met}, {frep.n_migrations} migrations, peak "
           f"{frep.peak_power_w:.3f} W of {fcfg.power_cap_w:.3f} W")
+    fleet_metrics_overhead(fplan, blocks, fcfg, fevents, frep,
+                           walls[f"d_vector_{n}"])
     counts = launches()
     check(not any(counts.values()), f"the runtime launched kernels: {counts}")
     print("  host wall: " + ", ".join(f"{key} {v:.6f} s"
@@ -1638,6 +1880,146 @@ def phase_moe_replicas(eng, sv: dict, prompts, single, roof) -> dict:
           f"{dvo} J")
     return {"feasible": cp.feasible, "mean_freq": mean,
             "saving": 1 - busy / dvo, "generate_s": gen_s}
+
+
+class EventTrainer(Trainer):
+    """The trainer with every call of its step timed by CUDA events on the
+    card: the step alone, without the host's batch packing or the
+    checkpoint I/O."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.step_events: list = []
+        step_fn = self._step_fn
+
+        def timed_step(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(*args)
+            end.record()
+            self.step_events.append((start, end))
+            return out
+
+        self._step_fn = timed_step
+
+    def step_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.step_events]
+
+
+def run_example(name: str, fn) -> tuple:
+    """``(result, wall)`` of one example run through ``fn``; what it
+    printed is printed again, indented, and must hold no number that is
+    not finite."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, wall = sync_seconds(fn)
+    text = buf.getvalue()
+    print(f"  {name}: wall {wall:.6f} s")
+    for line in text.splitlines():
+        print(f"    | {line}")
+    check(re.search(r"\b(nan|inf)\b", text, re.IGNORECASE) is None,
+          f"{name} printed a number that is not finite")
+    return out, wall
+
+
+def phase_examples() -> None:
+    """The port's examples on the card, each through its entry point:
+    cluster_sim, calibrate and quickstart at their defaults, serve_batch at
+    its defaults on the H100's roofline, train_lm at its 100m preset's full
+    width for 30 steps (its steps timed by CUDA events, apart from the
+    checkpoint I/O).  Each one's deadlines are met where the reference's
+    text says they are."""
+    free_device_memory()
+    reset_launches()
+    walls = {}
+    out, walls["cluster_sim"] = run_example("cluster_sim", ex_cluster_sim.main)
+    check(out["offline_demo"]["cluster"].deadline_met
+          and not out["online_demo"]["static"].deadline_met
+          and out["online_demo"]["online"].deadline_met
+          and out["migration_demo"]["migration"].deadline_met
+          and out["crash_recovery_demo"]["recovery"].deadline_met
+          and out["overload_serving_demo"]["guarded"].accepted_miss_rate
+          == 0.0 and len(out["counterfactual_demo"]["alerts"]) > 0,
+          "cluster_sim: a deadline its text says is met was missed")
+    out, walls["calibrate"] = run_example("calibrate", ex_calibrate.main)
+    check(out["calibrated"].deadline_met and not out["default"].deadline_met,
+          "calibrate: the calibrated plan did not recover the deadline")
+    out, walls["quickstart"] = run_example(
+        "quickstart", lambda: ex_quickstart.main(["--device", "cuda"]))
+    res = out["training"]
+    check(all(r.deadline_met for r in out["scheduler"].values())
+          and np.isfinite(res["final_loss"])
+          and res["final_loss"] < res["first_loss"]
+          and res["energy"]["busy_j"] <= res["energy_dvo"]["busy_j"],
+          "quickstart: a plan missed its deadline, or training did not "
+          "learn or save")
+    (out, eng), walls["serve_batch"] = run_example(
+        "serve_batch", lambda: ex_serve_batch.main(["--device", "cuda"]))
+    terms = eng.actuator.roofline.terms
+    n_params = eng.cfg.param_count()
+    check(terms.t_mem == 2 * n_params / H100.hbm_bw
+          and terms.t_comp == 2 * n_params * eng.sc.batch / H100.peak_flops,
+          "serve_batch did not plan on the H100's roofline")
+    check(out["n_generated"] == 65 and out["energy"]["busy_j"]
+          <= out["energy_dvo"]["busy_j"] * 1.001,
+          "serve_batch generated the wrong count or saved nothing")
+
+    preset = TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--preset") + 1]
+    n_steps = int(TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--steps") + 1])
+    cfg, sizes = ex_train_lm.make_cfg(preset)
+    n_params = int(cfg.param_count())
+    ckpt_bytes = 12 * n_params         # float32 params and two moments
+    trainers = []
+
+    def event_trainer(*args, **kw):
+        trainers.append(EventTrainer(*args, **kw))
+        return trainers[-1]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as tmp:
+        need = int(4 * ckpt_bytes * DISK_MARGIN)     # keep 3, 1 in flight
+        free = shutil.disk_usage(tmp).free
+        check(free >= need, f"{tmp} has {free / 1e9:.3f} GB free; train_lm "
+              f"holds up to four {ckpt_bytes / 1e9:.3f} GB checkpoints")
+        ck = os.path.join(tmp, "ck")
+        res, walls["train_lm"] = run_example(
+            "train_lm " + " ".join(TRAIN_LM_ARGS), lambda: ex_train_lm.main(
+                TRAIN_LM_ARGS + ["--ckpt-dir", ck, "--device", "cuda"],
+                trainer_cls=event_trainer))
+        kept = sorted(os.listdir(ck))
+        on_disk = sum(f.stat().st_size for d in Path(ck).iterdir()
+                      for f in d.iterdir())
+    tr = trainers[0]
+    ms = tr.step_ms()
+    n_cal = len(ms) - len(res["history"])
+    run_ms = ms[n_cal:]
+    hist = res["history"]
+    check(len(hist) == n_steps and all(np.isfinite(h["loss"]) for h in hist)
+          and res["final_loss"] < res["first_loss"],
+          f"train_lm: the {n_steps} steps' losses are not finite or did not "
+          "fall")
+    tokens = sizes["batch"] * sizes["seq_len"]
+    flops = T.model_flops(cfg, tokens, sizes["seq_len"])
+    steps_s = sum(ms) / 1e3
+    med = float(np.median(run_ms))
+    print(f"  train_lm: {cfg.name} {preset} preset, {n_params} parameters "
+          f"({cfg.n_layers} x {cfg.d_model}, vocab {cfg.vocab}), "
+          f"{sizes['batch']} x {sizes['seq_len']} tokens a step; steps by "
+          f"CUDA events: {n_cal} calibration "
+          f"{[round(x, 3) for x in ms[:n_cal]]} ms, {n_steps} steps median "
+          f"{med:.3f} ms (min {min(run_ms):.3f}, max {max(run_ms):.3f}), "
+          f"{tokens / (med / 1e3):.0f} tokens/s, "
+          f"{flops / (med / 1e3) / 1e12:.3f} TFLOP/s of model FLOPs (the steps"
+          f" in order: {[round(x, 1) for x in run_ms]} ms); all "
+          f"steps {steps_s:.6f} s of the {walls['train_lm']:.6f} s wall, the "
+          f"rest ({walls['train_lm'] - steps_s:.6f} s) is initialisation, "
+          f"batch packing and checkpoint I/O ({len(kept)} checkpoints kept, "
+          f"{on_disk / 1e9:.3f} GB)")
+    counts = launches()
+    print(f"  kernel wrapper launches in the examples: {counts}; walls: "
+          + ", ".join(f"{k} {v:.6f} s" for k, v in walls.items()))
+    del res, tr, trainers, eng, out
 
 
 @contextlib.contextmanager
@@ -2312,6 +2694,7 @@ def main() -> int:
     kernels.append(phase_flash_times({SERVE["arch"]: serving,
                                       MOE_SERVE["arch"]: moe}, worst))
     kernels.append(phase_ssd_times(mamba, worst))
+    phase_examples()
     # after the timed phases: run before them once, it was followed by six
     # profiler sessions in a row that recorded too few device events
     phase_training()

@@ -24,13 +24,13 @@ import torch
 
 import repro_torch
 from repro_torch.data import BlockDataset
+from repro_torch.device import HBM_BYTES_PER_S
 from repro_torch.kernels import block_stats as bs
 
 MAIN = dict(n_blocks=256, records_per_block=2048, max_len=256, vocab=32768,
             variety_z=1.0, seed=0)
 SAMPLED_ROWS = 103          # 5% of 2048, the main path's k
 PATTERN = (17, 23, 5)
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 
 
 def event_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:

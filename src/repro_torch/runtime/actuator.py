@@ -123,8 +123,9 @@ class PowerLedger:
         self.peak_w = self.total_w
         self._record = record
         # streaming observer: called as observer(now, total_w) on every
-        # change — the inline metrics feed (repro.obs).  Unlike ``samples``
-        # it holds no per-change memory here; bounding is the observer's job.
+        # change — the inline metrics feed (repro_torch.obs).  Unlike
+        # ``samples`` it holds no per-change memory here; bounding is the
+        # observer's job.
         self._obs = observer
         self.samples: list = []         # (time, total_w), when recording
 

@@ -82,8 +82,8 @@ class RuntimeConfig:
     # fabric and the failure audits read the whole log.  Ignored entirely
     # when log_events=False.
     event_log: str = "full"
-    # inline streaming-metrics sink (repro.obs.StreamingMetrics): fed from
-    # the handlers + the power ledger while the run executes, without
+    # inline streaming-metrics sink (repro_torch.obs.StreamingMetrics): fed
+    # from the handlers + the power ledger while the run executes, without
     # materializing the event log.  STATEFUL, like trace/calibrator below:
     # construct a fresh one per run.
     metrics: object | None = None

@@ -13,7 +13,8 @@ and the final state within the reference's kernel tolerances (float32 5e-4,
 bfloat16 5e-2, absolute plus relative).  The serving paths' logits within
 1e-4 of the CPU's (float32, summed in another order).  The MoE FFN on the
 card within 1e-5 of the CPU's, drops included, with no host synchronise.
-``stream_run`` on the card's estimates: both engines give one report.
+``stream_run`` on the card's estimates: both engines give one report, and
+the fleet observatory's streaming metrics and attribution read it.
 Training: the kernels refuse a call that needs their backward, and a train
 step on the card is within 1e-5 of the CPU's.
 """
@@ -34,6 +35,7 @@ from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.obs import StreamingMetrics, explain_energy, explain_miss
 from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
 from repro_torch.train import make_train_step
 from repro_torch.tree import tree_leaves, tree_map
@@ -269,6 +271,54 @@ def test_cuda_stream_run_engines_agree(cuda):
     assert got == want and got.event_log == want.event_log
     assert got.n_crashes == 1 and got.peak_power_w <= cap + 1e-9
     assert check_conservation(want, plan) == []
+
+
+def test_cuda_stream_run_metrics_and_explain_miss(cuda):
+    """A small stream run whose estimates come from the block-statistics
+    kernel on the card, with a fault, a transient crash and a cap, fed to
+    ``StreamingMetrics`` inline and attributed by ``explain_miss``: the
+    metrics agree with the sealed report, each node's parts add up to its
+    finish time, and the energy channels to the report's total."""
+    ds = BlockDataset(n_blocks=24, records_per_block=256, max_len=64, seed=4)
+    bs.reset_launches()
+    est = stream_estimates_tokens(ds.iter_token_chunks(8, device=cuda),
+                                  PipelineConfig(fraction=0.1), device=cuda)
+    assert bs.LAUNCHES["block_stats_batched"] == 3
+    nodes = [NodeSpec(n, speed=s) for n, s in zip("abcd", (1.0, 0.7, 1.3,
+                                                            0.9))]
+    deadline = 1.2 * float(est.total.sum()) / len(nodes)
+    truth = est.to_block_arrays()
+    truth = dataclasses.replace(truth, est_time_fmax=1.1 * truth.est_time_fmax)
+    pw = nodes[0].power
+    cap = len(nodes) * (pw.p_idle + 0.6 * (pw.p_full - pw.p_idle))
+    mx = StreamingMetrics()
+    rep = stream_run(est, deadline, nodes=nodes, truth=truth,
+                     runtime=RuntimeConfig(online=True, migrate=True,
+                                           recovery=RecoveryPolicy(),
+                                           metrics=mx),
+                     events=(FaultEvent(time=0.3 * deadline, node="b",
+                                        factor=1.6),
+                             NodeFailureEvent(time=0.5 * deadline, node="c",
+                                              repair_s=0.1 * deadline)),
+                     power_cap_w=cap)
+    snap = mx.snapshot()
+    assert snap["counters"]["finishes"] == \
+        sum(nr.n_blocks for nr in rep.node_reports) == 24
+    assert snap["counters"]["crashes"] == rep.n_crashes == 1
+    assert np.isclose(mx.peak_power_w, rep.peak_power_w)
+    keys = ("queueing_s", "cap_clamp_s", "crash_s", "migration_s",
+            "slowdown_s", "actuation_s", "service_s")
+    for nr in rep.node_reports:
+        ex = explain_miss(rep, node=nr.name)
+        assert ex["wall_s"] == nr.finish_s
+        assert all(ex[k] >= 0.0 for k in keys if k != "service_s")
+        assert np.isclose(sum(ex[k] for k in keys), ex["wall_s"],
+                          rtol=1e-12, atol=0.0)
+    ee = explain_energy(rep)
+    assert ee["busy_j"] == rep.total_energy_j
+    assert np.isclose(sum(ee[k] for k in ("busy_j", "idle_j", "switch_j",
+                                          "wire_j", "failed_j")),
+                      ee["total_j"], rtol=1e-12)
 
 
 @pytest.mark.parametrize("name", list(ALL_APPS))

@@ -1,4 +1,10 @@
-"""The port imports neither JAX nor anything of the JAX package ``repro``."""
+"""The port imports neither JAX nor anything of the JAX package ``repro``.
+
+The source scan walks every node of each file, so an import inside a
+function (``from repro.serving import ...`` at any indentation) counts as
+much as one at the top, and so does a literal module name handed to
+``importlib.import_module`` or ``__import__``.
+"""
 import ast
 import os
 import subprocess
@@ -26,7 +32,8 @@ def _forbidden(name: str) -> bool:
                                      "train", "launch", "cluster",
                                      "calibrate", "core", "pipeline",
                                      "runtime", "serving", "optim",
-                                     "checkpoint", "data"])
+                                     "checkpoint", "data", "obs",
+                                     "examples"])
 def test_subpackage_is_covered(package):
     """The subprocess below imports every module of each subpackage."""
     mods = [m for m in _modules() if m.startswith(f"repro_torch.{package}")]
@@ -46,14 +53,42 @@ def test_every_module_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
-def test_source_has_no_jax_or_repro_import(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _bad_imports(source: str, filename: str = "<source>") -> list:
+    """Every forbidden module ``source`` imports, at any depth."""
     bad = []
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(source, filename=filename)):
         if isinstance(node, ast.Import):
             bad += [a.name for a in node.names if _forbidden(a.name)]
         elif isinstance(node, ast.ImportFrom) and node.module \
                 and node.level == 0 and _forbidden(node.module):
             bad.append(node.module)
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and _forbidden(node.args[0].value) \
+                and getattr(node.func, "attr",
+                            getattr(node.func, "id", None)) in (
+                                "import_module", "__import__"):
+            bad.append(node.args[0].value)
+    return bad
+
+
+@pytest.mark.parametrize("source,found", [
+    ("def f():\n    from repro.serving.fabric import run_serving\n",
+     ["repro.serving.fabric"]),
+    ("class A:\n    def f(self):\n        if True:\n"
+     "            import jax.numpy as jnp\n", ["jax.numpy"]),
+    ("import importlib\nm = importlib.import_module('repro.obs')\n",
+     ["repro.obs"]),
+    ("m = __import__('jaxlib')\n", ["jaxlib"]),
+    ("def f():\n    from repro_torch.obs import explain_miss\n"
+     "    from . import spans\n", []),
+])
+def test_scan_finds_imports_at_any_depth(source, found):
+    assert _bad_imports(source) == found
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_has_no_jax_or_repro_import(path):
+    bad = _bad_imports(path.read_text(), str(path))
     assert not bad, f"{path}: imports {bad}"
