@@ -88,7 +88,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      width (163,577,856 parameters) for 30 steps, each one's printed
      numbers finite and its deadlines met where its text says so, with
      walls, and train_lm's steps timed by CUDA events;
- 16. the training path at full width: olmo-1b (1,279,787,008 float32
+ 16. the sharded path (DTensors on a DeviceMesh) at world size 1 under a
+     one-rank NCCL process group (its store a file under TMPDIR):
+     int8_all_reduce (1000 values within one quantization step; olmo-1b's
+     embedding table, with walls) and hierarchical_grad_reduce; olmo-1b at
+     full width with its weights laid out by param_specs (wrapped, not
+     copied): the serving traffic's prefill (flash once a layer on the
+     local heads, logits against plain within 1e-5) and 16 greedy decode
+     steps on a cache laid out by cache_specs (tokens equal), then two
+     train steps with ZeRO-1 moments and gradients over 'data' (losses and
+     weights within 1e-5 relative), each beside the plain path's walls;
+     qwen2-moe-a2.7b at full width with groups and experts over 'data'
+     (flash 24 times, logits within 1e-6, routes identical, under 80 GB);
+     mamba2-1.3b and jamba at smoke size (the SSD kernel on each rank's
+     heads);
+ 17. the training path at full width: olmo-1b (1,279,787,008 float32
      parameters, random from a seed) trained through Trainer.run under
      deterministic algorithms: 3 calibration steps, the DV-DVFS plan, 8
      steps of 8 x 256 tokens (remat, chunked attention, so no kernel
@@ -127,6 +141,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -154,10 +169,19 @@ from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.launch.block_stats_timing import event_ms  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, mesh_shape_dict  # noqa: E402
+from repro_torch.launch.optconfig import build_cfg  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import SEP, flatten  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.parallel import (batch_specs,  # noqa: E402
+                                  distribute_tree,
+                                  hierarchical_grad_reduce,
+                                  int8_all_reduce, param_specs,
+                                  zero1_specs)
+from repro_torch.parallel.sharding import P  # noqa: E402
 from repro_torch.obs import (Scenario, StreamingMetrics,  # noqa: E402
                              Watchdog, ablate, build_spans, diff_runs,
                              explain_energy, explain_miss, format_table,
@@ -178,7 +202,7 @@ from repro_torch.runtime import (ActuationModel,  # noqa: E402
 from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serving import (check_serving_conservation,  # noqa: E402
                                  run_serving)
-from repro_torch.train import TrainConfig, Trainer  # noqa: E402
+from repro_torch.train import TrainConfig, Trainer, make_train_step  # noqa: E402
 from repro_torch.tree import flatten as tree_flatten  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -2312,6 +2336,345 @@ def phase_training_smoke() -> None:
                                "without a backward kernel")
 
 
+# ------------------------------------------------------- the sharded path --
+
+PARALLEL_MESH = {"data": 1, "model": 1}
+PARALLEL_DECODE_STEPS = 16
+PARALLEL_TRAIN = dict(batch=8, seq_len=256, steps=2, lr=3e-4)
+PARALLEL_LOGIT_TOL = 1e-5      # float32, world size 1: the same kernels
+MOE_PARALLEL_TOL = 1e-6        # tests/test_layouts.py's bound
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A one-rank NCCL process group of this process, its store a file under
+    TMPDIR (no port is opened); destroyed on exit."""
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir)
+
+
+def sharded(tree, specs, mesh):
+    """``tree`` as DTensors laid out by ``specs``; at world size 1 each
+    wraps its tensor's storage (checked: no copy)."""
+    out = distribute_tree(tree, specs, mesh)
+    wrapped = tree_flatten(out)
+    for k, t in tree_flatten(tree).items():
+        if isinstance(t, torch.Tensor):
+            check(wrapped[k].to_local().data_ptr() == t.data_ptr(),
+                  f"distribute_tree copied {k}")
+    return out
+
+
+def parallel_collectives(mesh_pd) -> dict:
+    """int8_all_reduce and hierarchical_grad_reduce under NCCL."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 3.0, (1000,)).astype(np.float32)
+                         ).cuda()
+    out = int8_all_reduce(x, mesh_pd.get_group("pod"))
+    err = _max_err(out, x)
+    bound = float(x.abs().max()) / 127.0 + 1e-6
+    print(f"  int8_all_reduce over 'pod' (NCCL, 1 rank), 1000 normal(0, 3) "
+          f"float32: max |err| {err:.6g} (bound max|x|/127 + 1e-6 = "
+          f"{bound:.6g})")
+    check(err <= bound, f"int8_all_reduce off by {err}")
+    table = torch.from_numpy(rng.normal(0, 0.02, (50304, 2048)).astype(
+        np.float32)).cuda()
+    int8_all_reduce(table, mesh_pd.get_group("pod"))          # warm-up
+    walls = []
+    for _ in range(5):
+        got, s = sync_seconds(lambda: int8_all_reduce(
+            table, mesh_pd.get_group("pod")))
+        walls.append(s)
+    terr = _max_err(got, table)
+    tbound = float(table.abs().max()) / 127.0 + 1e-6
+    print(f"  int8_all_reduce of olmo-1b's embedding table (50304 x 2048 "
+          f"float32, {table.numel() * 4 / 1e6:.1f} MB): walls "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; max |err| "
+          f"{terr:.6g} (bound {tbound:.6g})")
+    check(terr <= tbound, f"int8_all_reduce of the table off by {terr}")
+    del table, got
+    hier = {}
+    for compress in (True, False):
+        h = hierarchical_grad_reduce({"w": x}, mesh_pd,
+                                     compress_cross_pod=compress)["w"]
+        hier["int8" if compress else "float"] = _max_err(h, x)
+    print(f"  hierarchical_grad_reduce on (pod 1, data 1): int8 max |err| "
+          f"{hier['int8']:.6g} (bound {bound:.6g}), float {hier['float']}")
+    check(hier["int8"] <= bound and hier["float"] == 0.0,
+          f"hierarchical_grad_reduce: {hier}")
+    return {"int8_err": err, "table_ms": float(np.median(walls)) * 1e3,
+            "table_err": terr, "hier": hier}
+
+
+def greedy_decode(params, cfg, first, cache, steps: int, lay=None):
+    """``steps`` greedy ``decode_step``s from the tokens ``first`` (B, 1);
+    returns (tokens (B, steps), per-step seconds).  ``lay`` lays each step's
+    tokens out for a sharded run."""
+    toks, walls = [], []
+    tok = first
+    for _ in range(steps):
+        (logits, cache), s = sync_seconds(lambda: T.decode_step(
+            params, cfg, tok if lay is None else lay(tok), cache))
+        walls.append(s)
+        logits = logits.full_tensor() if hasattr(logits, "full_tensor") \
+            else logits
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok)
+    return torch.cat(toks, dim=1), walls
+
+
+def parallel_olmo_serving(mesh) -> dict:
+    """olmo-1b at full width, weights laid out by ``param_specs``: the
+    serving traffic's prefill and 16 greedy decode steps, plain then
+    sharded, on the same weights."""
+    dev = torch.device("cuda")
+    msd = mesh_shape_dict(mesh)
+    sv = SERVE
+    cfg = build_cfg(sv["arch"], msd, kind="decode").replace(
+        attn_impl_train="pallas")
+    check(cfg.batch_axes == ("data",), f"batch_axes {cfg.batch_axes}")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        sv["seed"]), device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(sv["seed"]).integers(
+        1, cfg.vocab, (sv["batch"], sv["prompt"])).astype(np.int32)).to(dev)
+    lay = lambda t: distribute_tree(t, P("data"), mesh)
+    plain = lambda: T.prefill(params, cfg, {"tokens": prompts},
+                              sv["max_len"])
+    torch.cuda.reset_peak_memory_stats()
+    sync_seconds(plain)                                        # warm-up
+    (want, wcache), plain_s = sync_seconds(plain)
+    first = want.argmax(-1).to(torch.int32)[:, None]
+    plain_toks, plain_walls = greedy_decode(params, cfg, first, wcache,
+                                            PARALLEL_DECODE_STEPS)
+    del wcache
+    dparams = sharded(params, param_specs(cfg, params, msd), mesh)
+    batch = {"tokens": prompts}
+    dbatch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
+    shard = lambda: T.prefill(dparams, cfg, dbatch, sv["max_len"])
+    reset_launches()
+    (got, gcache), shard_s = sync_seconds(shard)
+    counts = launches()
+    got = got.full_tensor()
+    err = _max_err(got, want)
+    same = torch.equal(got, want)
+    k0 = gcache["blocks"][0]["k"]
+    print(f"  olmo-1b sharded prefill ({sv['batch']} x {sv['prompt']} "
+          f"tokens, mesh {msd}, batch_axes {cfg.batch_axes}): launches "
+          f"{json.dumps(counts)}; last logits vs plain max |err| {err:.6g} "
+          f"(tol {PARALLEL_LOGIT_TOL}), bit-identical {same}; cache "
+          f"{type(k0).__name__} {tuple(k0.shape)} {k0.placements}")
+    check(counts["flash_attention"] == cfg.n_layers
+          and sum(counts.values()) == cfg.n_layers,
+          f"the sharded prefill launched {counts}, not flash once a layer")
+    check(err <= PARALLEL_LOGIT_TOL, f"sharded prefill logits off by {err}")
+    shard_toks, shard_walls = greedy_decode(dparams, cfg, first, gcache,
+                                            PARALLEL_DECODE_STEPS, lay)
+    check(torch.equal(shard_toks, plain_toks),
+          "sharded greedy tokens differ from plain")
+    del gcache
+    # in turns: plain, sharded, sharded, plain
+    shard2_s = sync_seconds(shard)[1]
+    plain2_s = sync_seconds(plain)[1]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = lambda w: float(np.median(w[1:])) * 1e3
+    print(f"  prefill walls in turns (after a warm-up): plain "
+          f"{plain_s:.6f}, sharded {shard_s:.6f}, sharded {shard2_s:.6f}, "
+          f"plain {plain2_s:.6f} s; decode a step (median of steps "
+          f"2-{PARALLEL_DECODE_STEPS}): plain {ms(plain_walls):.3f} ms, "
+          f"sharded {ms(shard_walls):.3f} ms; greedy tokens equal over "
+          f"{PARALLEL_DECODE_STEPS} steps; peak {peak:.3f} GB")
+    return {"launches": counts, "logit_err": err, "bit_identical": same,
+            "prefill_s": {"plain": [plain_s, plain2_s],
+                          "sharded": [shard_s, shard2_s]},
+            "decode_ms": {"plain": ms(plain_walls),
+                          "sharded": ms(shard_walls)}, "peak_gb": peak}
+
+
+def parallel_olmo_training(mesh) -> dict:
+    """Two train steps of olmo-1b at full width, plain and sharded (batch
+    over 'data', ZeRO-1 moments, gradients over 'data'), from the same
+    weights, under deterministic algorithms."""
+    dev = torch.device("cuda")
+    msd = mesh_shape_dict(mesh)
+    tr = PARALLEL_TRAIN
+    cfg = build_cfg("olmo-1b", msd, kind="train").replace(
+        grad_shard=("data", msd["data"]))
+    check(cfg.attn_impl_train == "chunked" and cfg.remat,
+          "training runs chunked attention under remat")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    opt_cfg = AdamWConfig(lr=tr["lr"])
+    opt = adamw_init(params, opt_cfg)
+    batch = packed_batch(cfg, tr["batch"], tr["seq_len"])
+    step = make_train_step(cfg, opt_cfg)
+
+    def run(p, o, b):
+        losses, walls = [], []
+        for _ in range(tr["steps"]):
+            (p, o, m), s = sync_seconds(lambda: step(p, o, b))
+            losses.append(m["loss"])
+            walls.append(s)
+        return p, o, losses, walls
+
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic():
+        want_p, want_o, want_l, plain_walls = run(params, opt, batch)
+        del want_o
+        specs = param_specs(cfg, params, msd)
+        zs = zero1_specs(specs, params, msd)
+        dparams = sharded(params, specs, mesh)
+        dopt = sharded(opt, {"m": zs, "v": zs, "step": P()}, mesh)
+        dbatch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
+        got_p, got_o, got_l, shard_walls = run(dparams, dopt, dbatch)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got_l = [float(l.full_tensor()) for l in got_l]
+    want_l = [float(l) for l in want_l]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got_l, want_l))
+    perr, pmax = 0.0, 0.0
+    for k, w in tree_flatten(want_p).items():
+        g = tree_flatten(got_p)[k]
+        perr = max(perr, _max_err(g.full_tensor(), w))
+        pmax = max(pmax, float(w.abs().max()))
+    kept = all(a.placements == b.placements for a, b in zip(
+        tree_flatten(got_o["m"]).values(), tree_flatten(dopt["m"]).values()))
+    print(f"  olmo-1b sharded train steps ({tr['batch']} x {tr['seq_len']} "
+          f"tokens, grad_shard {cfg.grad_shard}, ZeRO-1 moments, chunked "
+          f"attention, remat, deterministic): losses plain "
+          f"{want_l} sharded {got_l} (max rel {rel:.3g}); new weights max "
+          f"|err| {perr:.6g} (|w| up to {pmax:.4g}; tol 1e-5 relative); "
+          f"moments kept their layout {kept}; step walls plain "
+          f"{', '.join(f'{w:.6f}' for w in plain_walls)} s, sharded "
+          f"{', '.join(f'{w:.6f}' for w in shard_walls)} s; peak "
+          f"{peak:.3f} GB")
+    check(rel <= 1e-5 and perr <= 1e-5 * max(pmax, 1.0),
+          f"the sharded step differs: loss rel {rel}, weights {perr}")
+    check(kept, "ZeRO-1 moments lost their layout")
+    return {"loss_rel": rel, "param_err": perr,
+            "step_s": {"plain": plain_walls, "sharded": shard_walls},
+            "peak_gb": peak}
+
+
+def parallel_moe(mesh) -> dict:
+    """qwen2-moe-a2.7b at full width, groups and experts over 'data': the
+    plain prefill, then the same weight storage wrapped as DTensors
+    (``from_local``, no copy) and the sharded prefill."""
+    dev = torch.device("cuda")
+    msd = mesh_shape_dict(mesh)
+    sv = MOE_SERVE
+    base = build_cfg(sv["arch"], msd, kind="decode")
+    cfg = base.replace(attn_impl_train="pallas", moe=dataclasses.replace(
+        base.moe, group_axis="data", expert_axis="data"))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        sv["seed"]), device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(sv["seed"]).integers(
+        1, cfg.vocab, (sv["batch"], sv["prompt"])).astype(np.int32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    plain_routes = RouteRecorder()
+    (want, cache), plain_s = sync_seconds(lambda: recorded_prefill(
+        params, cfg, prompts, sv["max_len"], route=plain_routes))
+    del cache
+    dparams = sharded(params, param_specs(cfg, params, msd), mesh)
+    wi = dparams["blocks"][0]["moe"]["wi"]
+    batch = {"tokens": prompts}
+    dbatch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
+    shard_routes = RouteRecorder()
+    reset_launches()
+    (got, cache), shard_s = sync_seconds(lambda: recorded_prefill(
+        dparams, cfg, dbatch["tokens"], sv["max_len"], route=shard_routes))
+    counts = launches()
+    del cache
+    got = got.full_tensor()
+    # in turns: plain, sharded, sharded, plain
+    shard2_s = sync_seconds(lambda: T.prefill(
+        dparams, cfg, dbatch, sv["max_len"]))[1]
+    plain2_s = sync_seconds(lambda: T.prefill(
+        params, cfg, {"tokens": prompts}, sv["max_len"]))[1]
+    err = _max_err(got, want)
+    flips = sum(int((a[0] != b[0]).sum()) + int((a[1] != b[1]).sum())
+                for a, b in zip(plain_routes.routes, shard_routes.routes))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  qwen2-moe-a2.7b sharded prefill (groups and experts over "
+          f"'data', expert weights {tuple(wi.shape)} {wi.placements}): "
+          f"launches {json.dumps(counts)}; last logits vs plain max |err| "
+          f"{err:.6g} (tol {MOE_PARALLEL_TOL}), bit-identical "
+          f"{torch.equal(got, want)}; {len(shard_routes.routes)} MoE calls, "
+          f"{flips} routes or keep flags differ; prefill walls in turns: "
+          f"plain {plain_s:.6f}, sharded {shard_s:.6f}, sharded "
+          f"{shard2_s:.6f}, plain {plain2_s:.6f} s; peak {peak:.3f} GB")
+    check(counts["flash_attention"] == cfg.n_layers
+          and sum(counts.values()) == cfg.n_layers,
+          f"the sharded prefill launched {counts}, not flash once a layer")
+    check(len(shard_routes.routes) == cfg.n_layers and flips == 0,
+          f"the sharded prefill routed differently ({flips} flips)")
+    check(err <= MOE_PARALLEL_TOL, f"sharded MoE logits off by {err}")
+    check(peak < 80, f"the sharded MoE prefill needed {peak} GB")
+    return {"launches": counts, "logit_err": err, "route_flips": flips,
+            "prefill_s": {"plain": [plain_s, plain2_s],
+                          "sharded": [shard_s, shard2_s]},
+            "peak_gb": peak}
+
+
+def parallel_smoke(mesh, arch: str, kernels: set) -> dict:
+    """``arch`` at smoke size, plain then sharded on the card: each kernel
+    once a layer whose mixer runs it, and the same logits."""
+    dev = torch.device("cuda")
+    msd = mesh_shape_dict(mesh)
+    cfg = smoke_config(arch, attn_impl_train="pallas", batch_axes=("data",))
+    mixers = [spec.mixer for spec in cfg.pattern] * cfg.n_repeats
+    want_counts = {name: sum(MIXER_KERNEL[m] == name for m in mixers)
+                   if name in kernels else 0 for name in launches()}
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (2, 48)).astype(np.int32)).to(dev)
+    want, _ = T.prefill(params, cfg, {"tokens": prompts}, 96)
+    dparams = sharded(params, param_specs(cfg, params, msd), mesh)
+    batch = {"tokens": prompts}
+    reset_launches()
+    got, _ = T.prefill(dparams, cfg, distribute_tree(
+        batch, batch_specs(cfg, batch, msd), mesh), 96)
+    counts = launches()
+    err = _max_err(got.full_tensor(), want)
+    print(f"  {arch} at smoke size, sharded prefill: launches "
+          f"{json.dumps(counts)} (expected {json.dumps(want_counts)}); "
+          f"logits vs plain on the card max |err| {err:.3g} (tol "
+          f"{PARALLEL_LOGIT_TOL})")
+    check(counts == want_counts, f"sharded smoke {arch} launched {counts}")
+    check(err <= PARALLEL_LOGIT_TOL, f"sharded smoke {arch} off by {err}")
+    return {"launches": counts, "logit_err": err}
+
+
+def phase_parallel(smi: str) -> dict:
+    """The sharded path (DTensors on a DeviceMesh) at world size 1 under
+    NCCL: collectives, olmo-1b serving and training and qwen2-moe-a2.7b's
+    prefill at full width, mamba2-1.3b and jamba at smoke size, each
+    against the plain path on the same weights."""
+    free_device_memory()
+    print(f"sharded path on {smi} (NCCL, world size 1):")
+    out = {}
+    with nccl_world_of_one():
+        mesh = make_mesh(PARALLEL_MESH, "cuda")
+        out["collectives"] = parallel_collectives(
+            make_mesh({"pod": 1, "data": 1}, "cuda"))
+        out["olmo"] = parallel_olmo_serving(mesh)
+        free_device_memory()
+        out["olmo_train"] = parallel_olmo_training(mesh)
+        free_device_memory()
+        out["moe"] = parallel_moe(mesh)
+        free_device_memory()
+        out["mamba"] = parallel_smoke(mesh, "mamba2-1.3b", {"ssd_scan"})
+        out["jamba"] = parallel_smoke(mesh, "jamba-1.5-large-398b",
+                                      {"flash_attention", "ssd_scan"})
+    return out
+
+
 def phase_times(main: dict, worst: dict) -> list:
     toks = main["first_chunk"]                  # (256, 2048, 256) int32
     k = main["k"]
@@ -2695,6 +3058,14 @@ def main() -> int:
                                       MOE_SERVE["arch"]: moe}, worst))
     kernels.append(phase_ssd_times(mamba, worst))
     phase_examples()
+    par = phase_parallel(smi)
+    sharded_launches = {
+        "flash_attention": sum(par[k]["launches"]["flash_attention"]
+                               for k in ("olmo", "moe", "jamba")),
+        "ssd_scan": sum(par[k]["launches"]["ssd_scan"]
+                        for k in ("mamba", "jamba"))}
+    for k in kernels:
+        k["launches_sharded"] = sharded_launches.get(k["name"], 0)
     # after the timed phases: run before them once, it was followed by six
     # profiler sessions in a row that recorded too few device events
     phase_training()

@@ -13,16 +13,28 @@ TP head layout:
 
 Caches are updated in place (the reference returns new arrays): decode and
 prefill write into the tensors of the cache dict they are given.
+
+On DTensors (a tensor-parallel layout, ``parallel.param_specs``) the
+projections are DTensor products, and RoPE, the attention itself and the
+cache writes run on each rank's (batch, head) shard under ``local_map``
+(``parallel.shards.on_shards``): attention never mixes heads or sequences,
+so the core needs no collective, and the flash kernel runs on each rank's
+local heads.  A rank's q heads are contiguous, as are its kv heads, and
+with ``AttnDims``'s padding and duplication both counts split evenly
+whenever the kv heads do, so local q head j reads local kv head j // R,
+the same logical head as in the unsharded layout.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
 from repro_torch.models.common import apply_rope, normal
+from repro_torch.parallel.shards import head_roles, layout, mesh_of, on_shards
 
 NEG_INF = -1e30
 
@@ -109,7 +121,8 @@ def init_attention(generator: torch.Generator, dims: AttnDims, dtype, *,
     return p
 
 
-def _project_qkv(params, x, dims: AttnDims, positions, rope_theta):
+def _project_qkv(params, x, dims: AttnDims):
+    """q (B,S,Hq,dh), k and v (B,S,G,dh), before RoPE."""
     b, s, _ = x.shape
     dh = dims.d_head
     q = x @ params["wq"]
@@ -120,8 +133,6 @@ def _project_qkv(params, x, dims: AttnDims, positions, rope_theta):
     q = q.reshape(b, s, dims.n_q_phys, dh)
     k = k.reshape(b, s, dims.n_kv_phys, dh)
     v = v.reshape(b, s, dims.n_kv_phys, dh)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
     return q, k, v
 
 
@@ -167,20 +178,44 @@ def attention_train(params, x, dims: AttnDims, *, positions=None,
     Returns (out (B,S,d), k, v) so prefill can build a cache for free.
     """
     b, s, _ = x.shape
+    if impl not in ("dense", "chunked", "wedge", "pallas"):
+        raise ValueError(impl)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, x, dims, positions, rope_theta)
-    g, r = dims.n_kv_phys, dims.rep_phys
-    qg = q.reshape(b, s, g, r, dims.d_head)
+    q, k, v = _project_qkv(params, x, dims)
+    core = functools.partial(_train_core, swa_window=swa_window,
+                             rope_theta=rope_theta, impl=impl,
+                             chunk_q=chunk_q, chunk_k=chunk_k)
+    mesh = mesh_of(q)
+    in_pl = out_pl = None
+    if mesh is not None:
+        mr = head_roles(q, 2, dims.n_q_phys, dims.n_kv_phys)
+        qpl = layout(mr, batch=0, heads=2)
+        in_pl = (qpl, qpl, qpl, layout(mr, batch=0))
+        out_pl = (qpl, qpl, qpl)
+    out, k, v = on_shards(core, mesh, (q, k, v, positions), in_pl, out_pl)
+    out = out.reshape(b, s, dims.n_q_phys * dims.d_head)
+    return out @ params["wo"], k, v
+
+
+def _train_core(q, k, v, positions, *, swa_window, rope_theta, impl,
+                chunk_q, chunk_k):
+    """RoPE and attention of (local) q (B,S,Hq,dh), k/v (B,S,G,dh) ->
+    (out (B,S,Hq,dh), k after RoPE, v)."""
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    b, s, hq, dh = q.shape
+    g = k.shape[2]
+    qg = q.reshape(b, s, g, hq // g, dh)
 
     if impl == "dense":
-        pos = torch.arange(s, device=x.device)
+        pos = torch.arange(s, device=q.device)
         out = _sdpa(qg, k, v, _mask_bias(pos, pos, swa_window))
     elif impl == "chunked":
         out = _chunked_causal(qg, k, v, swa_window, chunk_q, chunk_k)
     elif impl == "wedge":
         out = _wedge_causal(qg, k, v, swa_window, chunk_q)
-    elif impl == "pallas":
+    else:
         from repro_torch.kernels import ops
         # (B, S, H, D) -> (B, H, S, D) views: the kernel reads the strides,
         # and its output keeps q's layout, so the transpose back is free
@@ -188,12 +223,9 @@ def attention_train(params, x, dims: AttnDims, *, positions=None,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, swa_window=swa_window,
             block_q=_largest_halving(chunk_q, s),
-            block_k=_largest_halving(chunk_k, s), device=x.device)
-        out = o.transpose(1, 2).reshape(b, s, g, r, dims.d_head)
-    else:
-        raise ValueError(impl)
-    out = out.reshape(b, s, dims.n_q_phys * dims.d_head)
-    return out @ params["wo"], k, v
+            block_k=_largest_halving(chunk_k, s), device=q.device)
+        out = o.transpose(1, 2)
+    return out.reshape(b, s, hq, dh), k, v
 
 
 def _largest_divisor(chunk: int, s: int) -> int:
@@ -304,9 +336,36 @@ def _quantize_kv(x):
     return q, s
 
 
+def _cache_call(core, cache: dict, tensors: tuple, *, returns: bool):
+    """``core(*tensors, cache)`` on each rank's (batch, head) shard, laid out
+    as the cache is (whose tensors are written in place there), its output
+    (if it ``returns`` one) laid out so too; ``tensors`` have the batch at
+    dim 0 and the heads at dim 2."""
+    names = tuple(cache)
+    main = cache["k_q" if "k_q" in cache else "k"]
+    mesh = mesh_of(main)
+    in_pl = out_pl = None
+    if mesh is not None:
+        mr = head_roles(main, 2, main.shape[2])
+        pl = layout(mr, batch=0, heads=2)
+        in_pl = (pl,) * len(tensors) + tuple(cache[n].placements
+                                             for n in names)
+        out_pl = (pl,) if returns else None
+    n = len(tensors)
+    return on_shards(lambda *a: core(*a[:n], dict(zip(names, a[n:]))), mesh,
+                     tensors + tuple(cache[k] for k in names), in_pl, out_pl)
+
+
 def fill_attention_cache(cache: dict, k, v, *, swa_window=None) -> dict:
     """Write prefill k/v (B, S, g, dh) into a fresh cache (positions
-    0..S-1), in place; returns the same dict."""
+    0..S-1), in place; returns the same dict.  A cache of DTensors is
+    written on each rank's shard."""
+    _cache_call(lambda k, v, c: _fill_core(c, k, v, swa_window), cache,
+                (k, v), returns=False)
+    return cache
+
+
+def _fill_core(cache: dict, k, v, swa_window) -> None:
     s = k.shape[1]
     length = cache["k_q" if "k_q" in cache else "k"].shape[1]
     if swa_window and s > length:
@@ -328,7 +387,6 @@ def fill_attention_cache(cache: dict, k, v, *, swa_window=None) -> dict:
     if "slot_pos" in cache:
         cache["slot_pos"][:n] = start + torch.arange(
             n, dtype=torch.int32, device=k.device)
-    return cache
 
 
 def attention_decode(params, x, cache: dict, pos: int, dims: AttnDims, *,
@@ -338,11 +396,24 @@ def attention_decode(params, x, cache: dict, pos: int, dims: AttnDims, *,
     Writes the new k/v into ``cache`` in place; returns (out (B,1,d), cache).
     """
     b = x.shape[0]
-    pos = int(pos)
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, dims, positions, rope_theta)
-    g, r, dh = dims.n_kv_phys, dims.rep_phys, dims.d_head
-    qg = q.reshape(b, 1, g, r, dh)
+    q, k_new, v_new = _project_qkv(params, x, dims)
+    core = functools.partial(_decode_core, pos=int(pos),
+                             swa_window=swa_window, rope_theta=rope_theta)
+    out = _cache_call(core, cache, (q, k_new, v_new), returns=True)
+    out = out.reshape(b, 1, dims.n_q_phys * dims.d_head)
+    return out @ params["wo"], cache
+
+
+def _decode_core(q, k_new, v_new, cache: dict, *, pos: int, swa_window,
+                 rope_theta):
+    """RoPE, the cache write and attention of one token on (local) q
+    (B,1,Hq,dh), k/v (B,1,G,dh) -> out (B,1,Hq,dh)."""
+    b, _, hq, dh = q.shape
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=q.device)
+    q = apply_rope(q, positions, rope_theta)
+    k_new = apply_rope(k_new, positions, rope_theta)
+    g = k_new.shape[2]
+    qg = q.reshape(b, 1, g, hq // g, dh)
 
     length = (cache["k"] if "k" in cache else cache["k_q"]).shape[1]
     slot = (pos % length) if swa_window else pos
@@ -353,8 +424,8 @@ def attention_decode(params, x, cache: dict, pos: int, dims: AttnDims, *,
         cache["v_q"][:, slot:slot + 1] = vq
         cache["k_s"][:, slot:slot + 1] = ks
         cache["v_s"][:, slot:slot + 1] = vs
-        k_all = (cache["k_q"].float() * cache["k_s"]).to(x.dtype)
-        v_all = (cache["v_q"].float() * cache["v_s"]).to(x.dtype)
+        k_all = (cache["k_q"].float() * cache["k_s"]).to(q.dtype)
+        v_all = (cache["v_q"].float() * cache["v_s"]).to(q.dtype)
     else:
         cache["k"][:, slot:slot + 1] = k_new
         cache["v"][:, slot:slot + 1] = v_new
@@ -365,15 +436,14 @@ def attention_decode(params, x, cache: dict, pos: int, dims: AttnDims, *,
         sp = cache["slot_pos"]
         valid = (sp >= 0) & (sp <= pos) & (sp > pos - swa_window)
     else:
-        valid = torch.arange(length, device=x.device) <= pos
+        valid = torch.arange(length, device=q.device) <= pos
 
     scale = 1.0 / math.sqrt(dh)
     sc = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_all).float() * scale
     sc = torch.where(valid, sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1).to(x.dtype)
+    p = torch.softmax(sc, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v_all)
-    out = out.reshape(b, 1, dims.n_q_phys * dh)
-    return out @ params["wo"], cache
+    return out.reshape(b, 1, hq, dh)
 
 
 def attn_flops(dims: AttnDims, tokens: int, kv_len: int, *, causal=True

@@ -14,17 +14,27 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel.shards import gather_dim, replicate_like
+
 __all__ = ["rms_norm", "layer_norm_nonparam", "make_norm", "init_norm",
            "apply_norm", "rope_frequencies", "apply_rope", "init_mlp",
            "apply_mlp", "mlp_flops", "chunked_cross_entropy",
-           "init_embedding", "embed_tokens", "normal"]
+           "init_embedding", "embed_tokens", "normal", "MetaGenerator"]
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which torch
+    has none of: initialisers build shapes there and draw no numbers."""
+
+    device = torch.device("meta")
 
 
 def normal(generator: torch.Generator, shape, dtype, scale: float
            ) -> torch.Tensor:
     """``N(0, 1) * scale`` of ``shape`` on the generator's device."""
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
+    x = torch.randn(shape, dtype=torch.float32, device=generator.device,
+                    generator=None if isinstance(generator, MetaGenerator)
+                    else generator)
     return (x * scale).to(dtype)
 
 
@@ -145,13 +155,16 @@ def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
     def chunk_loss(h_c, l_c):
         if norm_params is not None:
             h_c = apply_norm(norm_kind, norm_params, h_c)
-        logits = (h_c @ lm_head).float()                           # (B, c, V)
+        # a vocab-sharded DTensor is gathered whole: the target's gather
+        # and the logsumexp read every vocab entry of a row
+        logits = gather_dim((h_c @ lm_head).float(), -1)           # (B, c, V)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.take_along_dim(
             logits, torch.clamp(l_c, min=0).long()[..., None], dim=-1)[..., 0]
         return torch.where(l_c >= 0, lse - tgt, 0.0).sum()
 
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    tot = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=hidden.device), hidden)
     for i in range(0, s, chunk):
         tot = tot + checkpoint(chunk_loss, hidden[:, i:i + chunk],
                                labels[:, i:i + chunk], use_reentrant=False)

@@ -12,6 +12,14 @@ Projections are separate parameters (wz/wx/wb/wc/wdt), as in the reference.
 Decode is the O(1) recurrence h = exp(dt·A)·h + dt·B⊗x ; y = C·h + D·x,
 in plain torch (the reference has no kernel there); it updates the cache
 in place, as the port's attention caches are updated.
+
+On DTensors (``parallel.param_specs``: the head-aligned z/x/dt projections,
+conv-x, ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_scale`` over 'model',
+the B/C projections replicated) the projections, convolutions and the gated
+norm (whose mean crosses the sharded heads) are DTensor ops, and the SSD
+scan, and decode's recurrence, run on each rank's (batch, head) shard under
+``local_map``: a head's scan reads only its own x, dt and A and its group's
+B/C, so the ``ssd_scan`` kernel runs on each rank's heads.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models.common import normal, rms_norm
+from repro_torch.parallel.shards import head_roles, layout, mesh_of, on_shards
 
 __all__ = ["SSMConfig", "init_mamba", "mamba_train", "mamba_prefill",
            "mamba_decode", "init_mamba_cache", "mamba_flops"]
@@ -86,7 +95,20 @@ def init_mamba(generator: torch.Generator, cfg: SSMConfig, dtype) -> dict:
 
 
 def _causal_conv_train(xs, w, b):
-    """Depthwise causal conv over (B, S, C): k taps, left-padded."""
+    """Depthwise causal conv over (B, S, C): k taps, left-padded.  On
+    DTensors it runs on each rank's (batch, channel) shard: a channel's
+    conv reads only its own channel."""
+    mesh = mesh_of(xs)
+    in_pl = out_pl = None
+    if mesh is not None:
+        mr = head_roles(xs, 2, xs.shape[2])
+        xpl = layout(mr, batch=0, heads=2)
+        in_pl = (xpl, layout(mr, heads=1), layout(mr, heads=0))
+        out_pl = (xpl,)
+    return on_shards(_conv_core, mesh, (xs, w, b), in_pl, out_pl)
+
+
+def _conv_core(xs, w, b):
     k = w.shape[0]
     pad = F.pad(xs, (0, 0, k - 1, 0))
     out = sum(pad[:, i:i + xs.shape[1], :] * w[i] for i in range(k))
@@ -99,8 +121,24 @@ def _ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, cfg: SSMConfig):
     x: (B,S,H,P)  dt: (B,S,H) float32 (post-softplus)  b_mat/c_mat:
     (B,S,G,N), H = G·R, views read as they are (never repeated per head).
     Returns y: (B,S,H,P) in x's dtype, final_state: (B,H,P,N) float32.
+    On DTensors the scan runs on each rank's (batch, head) shard.
     """
-    y, hlast = ssd_scan_cuda(x, dt, a_log, b_mat, c_mat, chunk=cfg.chunk,
+    mesh = mesh_of(x)
+    in_pl = out_pl = None
+    if mesh is not None:
+        g = b_mat.shape[2]
+        mr = head_roles(x, 2, x.shape[2], g if g > 1 else None)
+        xpl = layout(mr, batch=0, heads=2)
+        bpl = layout(mr, batch=0, heads=2 if g > 1 else None)
+        hpl = layout(mr, heads=0)
+        in_pl = (xpl, xpl, hpl, bpl, bpl, hpl)
+        out_pl = (xpl, layout(mr, batch=0, heads=1))
+    return on_shards(lambda *a: _ssd_core(*a, chunk=cfg.chunk), mesh,
+                     (x, dt, a_log, b_mat, c_mat, d_skip), in_pl, out_pl)
+
+
+def _ssd_core(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int):
+    y, hlast = ssd_scan_cuda(x, dt, a_log, b_mat, c_mat, chunk=chunk,
                              final_state=True)
     y = y.to(x.dtype) + x * d_skip[None, None, :, None].to(x.dtype)
     return y.to(x.dtype), hlast
@@ -179,11 +217,44 @@ def init_mamba_cache(batch: int, cfg: SSMConfig, dtype=torch.float32,
 def mamba_decode(params, u, cache: dict, cfg: SSMConfig):
     """One-token step. u: (B,1,d) -> (y: (B,1,d), cache), the cache's
     tensors updated in place."""
-    bsz = u.shape[0]
-    h, p, g, n = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
     z, x_raw, bc_raw, dt = _project(params, u, cfg)
     z, x_raw, bc_raw, dt = z[:, 0], x_raw[:, 0], bc_raw[:, 0], dt[:, 0]
+    names = ("conv_wx", "conv_bx", "conv_wbc", "conv_bbc", "dt_bias",
+             "a_log", "d_skip")
+    keys = tuple(cache)
+    args = (x_raw, bc_raw, dt) + tuple(params[k] for k in names) \
+        + tuple(cache[k] for k in keys)
+    mesh = mesh_of(cache["ssm"])
+    in_pl = out_pl = None
+    if mesh is not None:
+        mr = head_roles(cache["ssm"], 1, cfg.n_heads,
+                        cfg.n_groups if cfg.n_groups > 1 else None)
+        if "heads" in mr and cfg.n_groups > 1:
+            raise ValueError("decode shards Mamba heads only with one B/C "
+                             f"group, not {cfg.n_groups}")
+        hpl, rpl = layout(mr, heads=0), layout(mr)
+        in_pl = (layout(mr, batch=0, heads=1), layout(mr, batch=0),
+                 layout(mr, batch=0, heads=1), layout(mr, heads=1), hpl,
+                 rpl, rpl, hpl, hpl, hpl) + tuple(cache[k].placements
+                                                  for k in keys)
+        out_pl = (layout(mr, batch=0, heads=1),)
 
+    def core(x_raw, bc_raw, dt, *rest):
+        p = dict(zip(names, rest[:len(names)]))
+        return _decode_core(p, x_raw, bc_raw, dt,
+                            dict(zip(keys, rest[len(names):])), cfg)
+
+    y = on_shards(core, mesh, args, in_pl, out_pl)
+    y = rms_norm(y.to(u.dtype) * F.silu(z), params["norm_scale"])
+    return (y @ params["out_proj"])[:, None, :], cache
+
+
+def _decode_core(params, x_raw, bc_raw, dt, cache: dict, cfg: SSMConfig):
+    """The conv windows, the recurrence and the D-skip of one token on
+    (local) x_raw (B,di), bc_raw (B,2GN), dt (B,H) -> y (B,di) float32;
+    writes the cache in place."""
+    bsz, h = dt.shape
+    p, g, n = cfg.head_dim, cfg.n_groups, cfg.d_state
     win_x = torch.cat([cache["conv_x"], x_raw[:, None, :]], dim=1)
     win_bc = torch.cat([cache["conv_bc"], bc_raw[:, None, :]], dim=1)
     x_c = F.silu(torch.einsum("bkc,kc->bc", win_x, params["conv_wx"])
@@ -204,13 +275,10 @@ def mamba_decode(params, u, cache: dict, cfg: SSMConfig):
             * b_vec.float()[:, :, None, :])                         # (B,H,P,N)
     y = torch.einsum("bhpn,bhn->bhp", hnew, c_vec.float())
     y = y + xf * params["d_skip"][None, :, None]
-    y = y.reshape(bsz, cfg.d_inner).to(u.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_scale"])
-    out = (y @ params["out_proj"])[:, None, :]
     cache["conv_x"].copy_(win_x[:, 1:])
     cache["conv_bc"].copy_(win_bc[:, 1:])
     cache["ssm"].copy_(hnew)
-    return out, cache
+    return y.reshape(bsz, h * p)
 
 
 def mamba_flops(cfg: SSMConfig, tokens: int) -> float:

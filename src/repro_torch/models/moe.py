@@ -17,9 +17,17 @@ takes every dropped slot, as the reference's ``mode="drop"`` scatter
 discards index ``cap``.  No step reads a value back to the host, so a layer
 on the card never waits for it.
 
-Not ported: ``group_axis`` and ``expert_axis`` shard groups and experts over
-a device mesh; the port has none yet (ROADMAP Queue 1 item 13), so either
-raises ``NotImplementedError``.
+On DTensors the groups lie over ``group_axis``; without one they keep the
+layout the batch gave them (dim 0 sharded over a data axis, wherever the
+groups split evenly there), as the reference's vmap over groups keeps it:
+each rank routes, dispatches and combines its own groups under
+``local_map``, so ranking and capacity never cross a group, and its buffer
+rows are its groups' slots.  With ``expert_axis`` the buffer is
+redistributed from its groups to its experts (an all-to-all) before the
+expert products, which run on each rank's experts against the ``(E, d,
+ff)`` weights laid out by ``param_specs`` (E over ``expert_axis``), and back
+before the combine.  Collectives are device work: the sharded layer does
+not synchronise with the host either.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import apply_mlp, init_mlp, normal
+from repro_torch.parallel.shards import layout, mesh_of, on_shards, roles
 
 __all__ = ["MoEConfig", "init_moe", "apply_moe", "moe_flops"]
 
@@ -137,24 +146,78 @@ def apply_moe(params: dict, x, cfg: MoEConfig, *, capacity: int | None = None):
     scatters never cross a group boundary; the capacity comes from the
     group size.  Groups = 1 reproduces the classic single-pool behaviour.
     """
-    if cfg.group_axis or cfg.expert_axis:
-        raise NotImplementedError(
-            "MoEConfig.group_axis / expert_axis shard the MoE over a device "
-            "mesh, which needs the sharded port (ROADMAP Queue 1 item 13)")
     t, d = x.shape
     g = cfg.dispatch_groups
     if t % g:
         g = 1
     gs = t // g
     cap = capacity if capacity is not None else _capacity(gs, cfg)
-
-    buf, meta = _dispatch(params, x.reshape(g, gs, d), cfg, cap)
     ffn_params = {kk: params[kk] for kk in ("wi", "wg", "wo") if kk in params}
-    h = apply_mlp(ffn_params, buf, cfg.mlp_kind)                 # (E, G·cap, d)
-    out, auxs = _combine(h, meta, g, gs, cfg)
+
+    mesh = mesh_of(x)
+    if mesh is None:
+        buf, meta = _dispatch(params, x.reshape(g, gs, d), cfg, cap)
+        h = apply_mlp(ffn_params, buf, cfg.mlp_kind)             # (E, G·cap, d)
+        out, auxs = _combine(h, meta, g, gs, cfg)
+    else:
+        out, auxs = _sharded(params, ffn_params, x.reshape(g, gs, d), cfg,
+                             cap, mesh)
     if "shared" in params:
         out = out + apply_mlp(params["shared"], x, cfg.mlp_kind)
     return out, auxs.mean()
+
+
+def _axis_roles(mesh, axis, size: int, role: str) -> tuple:
+    """``role`` on the mesh dim named ``axis`` when ``size`` splits over
+    it; None on every other dim."""
+    names = mesh.mesh_dim_names
+    if axis is None or axis not in names or size % mesh.size(
+            names.index(axis)):
+        return (None,) * mesh.ndim
+    return tuple(role if n == axis else None for n in names)
+
+
+def _own_group_roles(xg) -> tuple:
+    """"group" on each mesh dim over which the DTensor ``xg`` (G, gs, d)
+    already shards its groups, as long as they still split evenly there;
+    None elsewhere."""
+    mesh, g, n = xg.device_mesh, xg.shape[0], 1
+    out = []
+    for m, role in enumerate(roles(xg, group=0)):
+        if role is not None and g % (n * mesh.size(m)) == 0:
+            n *= mesh.size(m)
+        else:
+            role = None
+        out.append(role)
+    return tuple(out)
+
+
+def _sharded(params, ffn_params, xg, cfg: MoEConfig, cap: int, mesh):
+    """``apply_moe``'s dispatch, expert products and combine on DTensors;
+    ``xg`` (G, gs, d).  Returns (out (G·gs, d), aux (G,))."""
+    g, gs, _ = xg.shape
+    by_group = _axis_roles(mesh, cfg.group_axis, g, "group") \
+        if cfg.group_axis else _own_group_roles(xg)
+    # the buffer's rows are group-major within an expert: (E, G·cap, d)
+    rows = layout(by_group, group=1)
+    meta_pl = layout(by_group, group=0)
+
+    def dispatch(xx, router):
+        buf, meta = _dispatch({"router": router}, xx, cfg, cap)
+        return (buf, *meta)
+
+    buf, *meta = on_shards(dispatch, mesh, (xg, params["router"]),
+                           (layout(by_group, group=0), layout(by_group)),
+                           (rows,) + (meta_pl,) * 5)
+    if cfg.expert_axis:
+        by_expert = _axis_roles(mesh, cfg.expert_axis, cfg.n_experts,
+                                "expert")
+        both = tuple(e or r for e, r in zip(by_expert, by_group))
+        buf = buf.redistribute(mesh, layout(both, expert=0, group=1))
+    h = apply_mlp(ffn_params, buf, cfg.mlp_kind)                 # (E, G·cap, d)
+    return on_shards(
+        lambda hh, *mm: _combine(hh, mm, hh.shape[1] // cap, gs, cfg),
+        mesh, (h, *meta), (rows,) + (meta_pl,) * 5, (meta_pl, meta_pl))
 
 
 def moe_flops(d: int, cfg: MoEConfig, tokens: int) -> float:

@@ -13,12 +13,21 @@ by autograd, except through the CUDA kernels, which have no backward and
 refuse a call that needs one: training goes through ``attn_impl_train``
 "dense", "chunked" or "wedge", and not through a Mamba layer.
 
+Every function also runs on DTensors: parameters laid out by
+``parallel.param_specs`` and a batch by ``parallel.batch_specs``
+(``parallel.distribute_tree``) on a ``DeviceMesh``.  The activations are
+pinned to ``cfg.batch_axes`` as the reference pins them, what the model
+makes from shapes (positions, the aux sum, the prefill's cache, laid out by
+``parallel.cache_specs``) lies on the inputs' mesh, and the mixers and the
+MoE run their per-head and per-group work on each rank's shards.  The
+results are the plain path's, up to the order of float sums.
+
 API (pure functions over parameter trees of tensors; caches are updated in
 place):
     init_params(cfg, generator, dtype, device)   -> params
     forward(params, cfg, batch)                  -> (hidden (B, S, d), aux)
     loss_fn(params, cfg, batch)                  -> (loss, metrics)
-    init_cache(cfg, batch, max_len, dtype, device) -> cache
+    init_cache(cfg, batch, max_len, dtype, device, mesh) -> cache
     prefill(params, cfg, batch, max_len, dtype)  -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache)      -> (logits, cache)
 """
@@ -32,11 +41,15 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
-from repro_torch.models.common import (apply_mlp, apply_norm,
-                                       chunked_cross_entropy, embed_tokens,
-                                       init_embedding, init_mlp, init_norm,
-                                       normal)
-from repro_torch.tree import tree_map
+from repro_torch.models.common import (MetaGenerator, apply_mlp,
+                                       apply_norm, chunked_cross_entropy,
+                                       embed_tokens, init_embedding, init_mlp,
+                                       init_norm, normal)
+from repro_torch.parallel.sharding import (_batch_dim_spec, cache_specs,
+                                           mesh_shape_dict, placements)
+from repro_torch.parallel.shards import (batch_like, is_dtensor, match,
+                                         mesh_of, replicate_like)
+from repro_torch.tree import tree_map, tree_map_with_keys
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
            "decode_step", "model_flops"]
@@ -106,9 +119,12 @@ def _stacked_layers(cfg: ArchConfig, spec: LayerSpec, generator, dtype):
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
                 dtype=torch.float32, device="cuda") -> dict:
     """Random weights drawn from ``generator`` (a fresh one seeded 0 on
-    ``device`` when None), laid out as the reference's tree."""
+    ``device`` when None), laid out as the reference's tree; on
+    ``device="meta"`` the tree's shapes and dtypes only."""
     dev = resolve_device(device)
-    if generator is None:
+    if dev.type == "meta":
+        generator = MetaGenerator()
+    elif generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator lies on {generator.device}, params on "
@@ -146,13 +162,17 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------- forward ---
 
 def _pin_batch(cfg: ArchConfig, x):
-    """The identity on one device.  The reference pins the batch dim to
-    mesh axes for GSPMD; the port has no mesh yet (ROADMAP Queue 1 item 13),
-    so a config that names batch axes is refused."""
-    if cfg.batch_axes:
-        raise NotImplementedError(
-            "cfg.batch_axes needs the sharded port (ROADMAP Queue 1 item 13)")
-    return x
+    """Pin the batch dim of an activation DTensor to ``cfg.batch_axes``:
+    dim 0 sharded over as many of them as divide it (``batch_specs``'s rule),
+    replicated over the other mesh dims.  A plain tensor lies on no mesh,
+    so there it is the identity: the values are the same either way."""
+    if not cfg.batch_axes or not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    axes = tuple(cfg.batch_axes)
+    spec = _batch_dim_spec(x.shape, mesh_shape_dict(mesh),
+                           axes if len(axes) > 1 else axes[0])
+    return x.redistribute(mesh, placements(spec, mesh))
 
 
 def _mix(cfg: ArchConfig, spec: LayerSpec, p: dict, x, positions):
@@ -189,7 +209,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch) -> tuple:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     x = _pin_batch(cfg, x)
     b, s = x.shape[0], x.shape[1]
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = batch_like(torch.arange(s, device=x.device).expand(b, s), x)
     return x, positions
 
 
@@ -215,7 +235,8 @@ def forward(params, cfg: ArchConfig, batch):
 
     def body(h, *layer_params):
         h = _pin_batch(cfg, h)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                         device=h.device), h)
         for spec, p in zip(cfg.pattern, layer_params):
             out, _, _ = _mix(cfg, spec, p, h, positions)
             h, a = _ffn(cfg, spec, p, h + out)
@@ -223,7 +244,8 @@ def forward(params, cfg: ArchConfig, batch):
                 aux = aux + a
         return h, aux
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     for rep in range(cfg.n_repeats):
         layer_params = [b[rep] for b in blocks]
         if cfg.remat:
@@ -242,7 +264,9 @@ def loss_fn(params, cfg: ArchConfig, batch):
     hidden, aux = forward(params, cfg, batch)
     labels = batch["labels"]
     if cfg.frontend == "patch":  # patches carry no labels
-        pad = labels.new_full((labels.shape[0], cfg.n_patches), -1)
+        pad = batch_like(torch.full((labels.shape[0], cfg.n_patches), -1,
+                                    dtype=labels.dtype, device=labels.device),
+                         labels)
         labels = torch.cat([pad, labels], dim=1)
     ce = dict(chunk=cfg.loss_chunk, norm_kind=cfg.norm,
               norm_params=params["final_norm"])
@@ -264,11 +288,21 @@ def _logits(params, cfg: ArchConfig, h):
 # ----------------------------------------------------------------- decode ---
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.float32, device="cuda"):
+               dtype=torch.float32, device="cuda", mesh=None):
     """Cache: tuple over pattern positions, leading dim = n_repeats; ``pos``
-    is the next position, a Python int."""
+    is the next position, a Python int.
+
+    With ``mesh`` (a ``DeviceMesh`` of ``device``'s type) each leaf is a
+    DTensor laid out by ``parallel.cache_specs`` and allocated at its
+    shard's shape: no rank ever holds the whole cache."""
     dev = resolve_device(device)
     _check_ported(cfg)
+    if mesh is not None:
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a {dev.type} cache on a {mesh.device_type} "
+                             "mesh")
+        return _cache_shards(init_cache(cfg, batch, max_len, dtype, "meta"),
+                             cfg, mesh)
     blocks = []
     for spec in cfg.pattern:
         if spec.mixer == "attn":
@@ -280,6 +314,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         blocks.append({k: v.expand((cfg.n_repeats,) + v.shape).clone()
                        for k, v in one.items()})
     return {"blocks": tuple(blocks), "pos": 0}
+
+
+def _cache_shards(shapes, cfg: ArchConfig, mesh):
+    """The cache of ``shapes`` (meta tensors) as DTensors on ``mesh``, each
+    rank allocating its own shard.  Every leaf starts as one value: zero,
+    but a ring buffer's slot positions, -1 (as
+    ``attention.init_attention_cache`` fills them)."""
+    specs = cache_specs(cfg, shapes, mesh_shape_dict(mesh))
+
+    def alloc(keys, t, spec):
+        if not isinstance(t, torch.Tensor):
+            return t                                   # ``pos``
+        return torch.distributed.tensor.full(
+            t.shape, -1 if keys[-1] == "slot_pos" else 0, dtype=t.dtype,
+            device_mesh=mesh, placements=placements(spec, mesh))
+
+    return tree_map_with_keys(alloc, shapes, specs)
 
 
 def decode_step(params, cfg: ArchConfig, tokens, cache):
@@ -320,7 +371,8 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
     """
     x, positions = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
-    cache = init_cache(cfg, b, max_len, dtype, device=x.device)
+    cache = init_cache(cfg, b, max_len, dtype, device=x.device,
+                       mesh=mesh_of(x))
     for rep in range(cfg.n_repeats):
         x = _pin_batch(cfg, x)
         for j, spec in enumerate(cfg.pattern):
@@ -333,7 +385,7 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
                 out, filled = mamba2.mamba_prefill(
                     p["mamba"], apply_norm(cfg.norm, p["norm1"], x), cfg.ssm)
                 for key, t in filled.items():   # conv caches take c's dtype
-                    c[key].copy_(t)
+                    c[key].copy_(match(t, c[key]))
             x, _ = _ffn(cfg, spec, p, x + out)
     h = apply_norm(cfg.norm, params["final_norm"], x[:, -1])
     cache["pos"] = s

@@ -6,6 +6,11 @@ config, where float32 moments would not fit).  The update is functional, as
 the reference's pure step is: it returns new trees and never writes into the
 ones it is given, so a caller may run a step and throw its result away (the
 trainer's calibration steps do).
+
+On DTensors each leaf's update runs in its moments' layout (ZeRO-1 when they
+are laid out by ``parallel.zero1_specs``): the gradient and the parameter
+are laid out as the moments are, and the new parameter goes back to the
+parameter's layout; the moments keep theirs.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.parallel.shards import match, replicate_like
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update"]
@@ -34,10 +40,11 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
     """Zero moments beside each leaf, on its device; ``step`` an int32
     scalar on the device of the first leaf."""
     dt = _DTYPES[cfg.moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
-    device = tree_leaves(params)[0].device
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)
+    first = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": replicate_like(step, first)}
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig, lr=None):
@@ -51,15 +58,16 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr=None):
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
 
-    def upd(p, g, m, v):
-        gf = g.float()
+    def upd(p_in, g, m, v):
+        p, gf = match(p_in, m), match(g, m).float()
         m_new = b1 * m.float() + (1 - b1) * gf
         v_new = b2 * v.float() + (1 - b2) * torch.square(gf)
         delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
         if p.dim() >= 2:  # no decay on norms/biases/scalars
             delta = delta + cfg.weight_decay * p.float()
         p_new = p.float() - lr * delta
-        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+        return (match(p_new.to(p.dtype), p_in), m_new.to(m.dtype),
+                v_new.to(v.dtype))
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     # ``out`` has params' structure with a (p, m, v) triple at each leaf

@@ -1,0 +1,129 @@
+"""What the models need to run on DTensors: layouts by role, and a function
+run on each rank's shards.
+
+A model tensor is sharded over a mesh dim by one of its roles: its batch
+dim, its head dim (attention and Mamba heads under tensor parallelism), or
+its group or expert dim (the MoE's dispatch).  ``roles`` reads, for each
+mesh dim, which role a DTensor is sharded by; ``layout`` gives the
+placements of another tensor that has those roles at its own dims; and
+``on_shards`` runs a function of plain tensors on each rank's shards through
+``local_map``, for work that is independent across the sharded roles (the
+attention of one (batch, head), the SSD scan of one head, the dispatch of
+one group) and whose tensors are made from local shapes.  On plain tensors
+every helper is the identity, or calls the function as it is.
+"""
+from __future__ import annotations
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, \
+    distribute_tensor
+from torch.distributed.tensor.experimental import local_map
+
+__all__ = ["is_dtensor", "mesh_of", "roles", "head_roles", "layout",
+           "on_shards", "replicate_like", "batch_like", "match", "gather_dim"]
+
+
+def is_dtensor(t) -> bool:
+    return isinstance(t, DTensor)
+
+
+def mesh_of(*ts):
+    """The mesh of the first DTensor among ``ts``, or None."""
+    for t in ts:
+        if isinstance(t, DTensor):
+            return t.device_mesh
+    return None
+
+
+def roles(t: DTensor, **dims) -> tuple:
+    """For each mesh dim, the role (a key of ``dims``, whose value is a dim
+    of ``t``) that ``t`` is sharded by there, or None."""
+    by_dim = {d: r for r, d in dims.items() if d is not None}
+    return tuple(by_dim.get(p.dim) if isinstance(p, Shard) else None
+                 for p in t.placements)
+
+
+def head_roles(t: DTensor, head_dim: int, n_heads: int,
+               n_groups: int | None = None) -> tuple:
+    """For each mesh dim, "batch" or "heads" where the DTensor ``t`` (the
+    batch at dim 0, the heads at ``head_dim``) is sharded by them and they
+    split evenly; None (replicated in the per-head work) elsewhere.
+    ``n_groups`` counts a second head-like dim whose tensors shard with the
+    heads (attention's kv heads, Mamba's B/C groups), so the heads stay
+    sharded only where it splits evenly too; None when every head reads
+    the same replicated tensors (a single B/C group)."""
+    mesh = t.device_mesh
+    out = []
+    for m, role in enumerate(roles(t, batch=0, heads=head_dim)):
+        n = mesh.size(m)
+        if role == "heads" and (n_heads % n or (n_groups is not None
+                                                and n_groups % n)):
+            role = None
+        if role == "batch" and t.shape[0] % n:
+            role = None
+        out.append(role)
+    return tuple(out)
+
+
+def layout(mesh_roles: tuple, **dims) -> tuple:
+    """Placements of a tensor whose role ``r`` lies at dim ``dims[r]`` (a
+    role it lacks, or maps to None, is replicated) on a mesh whose dims are
+    sharded by ``mesh_roles``."""
+    return tuple(Shard(dims[r]) if dims.get(r) is not None else Replicate()
+                 for r in mesh_roles)
+
+
+def on_shards(fn, mesh, args: tuple, in_placements: tuple,
+              out_placements):
+    """``fn(*local args)`` on each rank's shard of every DTensor in ``args``
+    (each first laid out as ``in_placements`` says; None for a non-tensor),
+    its outputs made DTensors laid out as ``out_placements`` says: a tuple
+    with one entry an output (``(pl,)`` for a single output; None for a
+    function that returns None).  Without a DTensor among ``args`` it is
+    ``fn(*args)``."""
+    if mesh is None:
+        return fn(*args)
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def replicate_like(t: torch.Tensor, ref):
+    """``t`` (the same on every rank) as a DTensor replicated over the mesh
+    of ``ref`` when ``ref`` is one; else ``t``."""
+    if not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def batch_like(t: torch.Tensor, ref):
+    """``t`` (the whole tensor, the same on every rank) laid out as ``ref``
+    on the leading dims they share, replicated elsewhere: each rank keeps
+    its own slice, with no collective.  ``t`` itself when ``ref`` is not a
+    DTensor."""
+    if not isinstance(ref, DTensor):
+        return t
+    pl = [p if isinstance(p, Shard) and p.dim < t.dim() else Replicate()
+          for p in ref.placements]
+    return distribute_tensor(t, ref.device_mesh, pl, src_data_rank=None)
+
+
+def match(t, ref):
+    """``t`` laid out as ``ref`` is, when both are DTensors."""
+    if isinstance(t, DTensor) and isinstance(ref, DTensor) \
+            and t.placements != ref.placements:
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
+
+
+def gather_dim(t, dim: int):
+    """``t`` whole along ``dim`` on every rank (all-gathered where a mesh dim
+    shards it), its other placements kept, when it is a DTensor."""
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.dim()
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in t.placements]
+    return t.redistribute(t.device_mesh, pl)

@@ -23,6 +23,7 @@ import time
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ArchConfig
@@ -32,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, linear_warmup_cosine)
+from repro_torch.parallel.shards import is_dtensor, replicate_like
 from repro_torch.train.dvfs_controller import (DVFSController, EnergyLedger,
                                                SimulatedActuator)
 from repro_torch.train.straggler import StragglerDetector
@@ -77,11 +79,38 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     """The train step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss's gradients (microbatches summed in a float32
     accumulator and divided by their count), global-norm clipping,
-    ``lr_fn(opt_state["step"])`` and AdamW.  Returns new trees."""
-    if cfg.grad_shard:
-        raise NotImplementedError(
-            "cfg.grad_shard shards the gradient accumulator over a device "
-            "mesh, which needs the sharded port (ROADMAP Queue 1 item 13)")
+    ``lr_fn(opt_state["step"])`` and AdamW.  Returns new trees.
+
+    The trees may be DTensors (``parallel.distribute_tree``); then
+    ``cfg.grad_shard`` shards the gradients as the reference pins them."""
+
+    def pin_grads(grads):
+        """Shard the grad accumulator (ZeRO-style): each DTensor gradient's
+        first dim that divides by ``size`` (and is at least ``size``) over
+        the ``grad_shard`` axis, so a gradient still summed across ranks
+        (``Partial``) is reduce-scattered, not all-reduced.  Its other
+        shardings stay; a plain tensor lies on no mesh and stays as it
+        is."""
+        if not cfg.grad_shard:
+            return grads
+        axis, size = cfg.grad_shard
+
+        def pin(g):
+            if not is_dtensor(g):
+                return g
+            names = g.device_mesh.mesh_dim_names
+            if axis not in names:
+                raise ValueError(f"grad_shard axis {axis!r} is not a dim of "
+                                 f"the mesh {names}")
+            for i, dim in enumerate(g.shape):
+                if dim % size == 0 and dim >= size:
+                    pl = [Replicate() if p.is_partial() else p
+                          for p in g.placements]
+                    pl[names.index(axis)] = Shard(i)
+                    return g.redistribute(g.device_mesh, pl)
+            return g
+
+        return tree_map(pin, grads)
 
     def value_and_grad(params, mb):
         """(loss, gradient tree of params' structure and dtypes)."""
@@ -98,17 +127,20 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     def step(params, opt_state, batch):
         if num_microbatches == 1:
             loss, grads = value_and_grad(params, batch)
+            grads = pin_grads(grads)
         else:
             m = num_microbatches
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
+            gsum = pin_grads(tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params))
+            lsum = replicate_like(torch.zeros(
+                (), dtype=torch.float32, device=tree_leaves(params)[0].device),
+                tree_leaves(params)[0])
             for i in range(m):
                 mb = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
                       for k, v in batch.items()}
                 l, g = value_and_grad(params, mb)
-                gsum = tree_map(lambda a, b: a + b.float(), gsum, g)
+                gsum = pin_grads(tree_map(lambda a, b: a + b.float(), gsum,
+                                          g))
                 lsum = lsum + l
             grads = tree_map(lambda g: g / m, gsum)
             loss = lsum / m

@@ -8,8 +8,8 @@ them (``src/repro/checkpoint/ckpt.py``).
 """
 from __future__ import annotations
 
-__all__ = ["SEP", "tree_map", "tree_map_with_path", "tree_leaves",
-           "flatten"]
+__all__ = ["SEP", "tree_map", "tree_map_with_path", "tree_map_with_keys",
+           "tree_leaves", "flatten"]
 
 SEP = "§"
 
@@ -24,26 +24,34 @@ def _items(tree):
     return None
 
 
-def tree_map_with_path(fn, tree, *rest, prefix: str = ""):
+def tree_map_with_keys(fn, tree, *rest, keys: tuple = ()):
+    """``fn(keys, leaf, *matching leaves of rest)`` over the leaves of
+    ``tree``, as a new tree of its structure, with ``keys`` the tuple of
+    dict keys and sequence indices (ints) that leads to the leaf; ``rest``
+    share the structure of ``tree`` down to its leaves."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_keys(fn, v, *(r[k] for r in rest),
+                                      keys=keys + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_keys(fn, v, *(r[i] for r in rest),
+                                             keys=keys + (i,))
+                          for i, v in enumerate(tree))
+    return fn(keys, tree, *rest)
+
+
+def tree_map_with_path(fn, tree, *rest):
     """``fn(path, leaf, *matching leaves of rest)`` over the leaves of
     ``tree``, as a new tree of its structure; ``rest`` share the structure
     of ``tree`` down to its leaves (what lies below is passed to ``fn``)."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(
-                    fn, v, *(r[k] for r in rest),
-                    prefix=f"{prefix}{SEP}{k}" if prefix else str(k))
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map_with_path(
-                              fn, v, *(r[i] for r in rest),
-                              prefix=f"{prefix}{SEP}{i}" if prefix else str(i))
-                          for i, v in enumerate(tree))
-    return fn(prefix, tree, *rest)
+    return tree_map_with_keys(
+        lambda keys, *leaves: fn(SEP.join(map(str, keys)), *leaves), tree,
+        *rest)
 
 
 def tree_map(fn, tree, *rest):
     """``fn(leaf, *matching leaves of rest)`` over the leaves of ``tree``."""
-    return tree_map_with_path(lambda _, *leaves: fn(*leaves), tree, *rest)
+    return tree_map_with_keys(lambda _, *leaves: fn(*leaves), tree, *rest)
 
 
 def flatten(tree, prefix: str = "") -> dict:

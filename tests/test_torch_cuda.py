@@ -16,7 +16,11 @@ card within 1e-5 of the CPU's, drops included, with no host synchronise.
 ``stream_run`` on the card's estimates: both engines give one report, and
 the fleet observatory's streaming metrics and attribution read it.
 Training: the kernels refuse a call that needs their backward, and a train
-step on the card is within 1e-5 of the CPU's.
+step on the card is within 1e-5 of the CPU's.  The sharded path at world
+size 1 under NCCL (one rank a card): the int8 all-reduce within one
+quantization step, and a sharded smoke olmo-1b prefill launching the flash
+kernel once a layer on its local heads, its logits and next decode step
+equal to the plain path's on the card within 1e-5.
 """
 import dataclasses
 
@@ -35,7 +39,11 @@ from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.launch.mesh import make_mesh, mesh_shape_dict
 from repro_torch.obs import StreamingMetrics, explain_energy, explain_miss
+from repro_torch.parallel import (batch_specs, distribute_tree,
+                                  hierarchical_grad_reduce, int8_all_reduce,
+                                  param_specs)
 from repro_torch.optim import AdamWConfig, adamw_init, linear_warmup_cosine
 from repro_torch.train import make_train_step
 from repro_torch.tree import tree_leaves, tree_map
@@ -48,6 +56,7 @@ from repro_torch.runtime import (ActuationModel, FaultEvent,
                                  NodeFailureEvent, RecoveryPolicy,
                                  RuntimeConfig, check_conservation,
                                  run_cluster)
+from torch_parallel_workers import one_rank_group
 
 pytestmark = pytest.mark.cuda
 PAT = (17, 23, 5)
@@ -735,3 +744,49 @@ def test_cuda_train_step_matches_cpu(cuda, micro):
     for a, b in zip(tree_leaves(out[str(cuda)][1]),
                     tree_leaves(out["cpu"][1])):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_nccl_int8_all_reduce_and_hierarchical_reduce(cuda, tmp_path):
+    """``tests/test_distribution.py:81-92`` under NCCL: one rank's values
+    come back within one quantization step; the hierarchical reduce over a
+    (pod 1, data 1) mesh gives them back the same way (int8) or exactly
+    (float)."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(0, 3.0, (1000,))
+                         .astype(np.float32)).to(cuda)
+    with one_rank_group(tmp_path, "nccl"):
+        out = int8_all_reduce(x, None)
+        mesh = make_mesh({"pod": 1, "data": 1}, "cuda")
+        hier = [hierarchical_grad_reduce({"w": x}, mesh,
+                                         compress_cross_pod=c)["w"]
+                for c in (True, False)]
+    bound = float(x.abs().max()) / 127.0 + 1e-6
+    assert out.device.type == "cuda"
+    assert float((out - x).abs().max()) <= bound
+    assert float((hier[0] - x).abs().max()) <= bound
+    assert torch.equal(hier[1], x)
+
+
+def test_cuda_sharded_olmo_prefill_launches_flash_a_layer(cuda, tmp_path):
+    cfg = smoke_config("olmo-1b", attn_impl_train="pallas",
+                       batch_axes=("data",))
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)).to(cuda)
+    want, wcache = T.prefill(params, cfg, {"tokens": toks}, 72)
+    with one_rank_group(tmp_path, "nccl"):
+        mesh = make_mesh({"data": 1, "model": 1}, "cuda")
+        msd = mesh_shape_dict(mesh)
+        dp = distribute_tree(params, param_specs(cfg, params, msd), mesh)
+        batch = {"tokens": toks}
+        fa.reset_launches()
+        got, gcache = T.prefill(dp, cfg, distribute_tree(
+            batch, batch_specs(cfg, batch, msd), mesh), 72)
+        assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+        nxt = {"tokens": want.argmax(-1).to(torch.int32)[:, None]}
+        got2 = T.decode_step(dp, cfg, distribute_tree(
+            nxt, batch_specs(cfg, nxt, msd), mesh)["tokens"], gcache)[0]
+        got, got2 = got.full_tensor(), got2.full_tensor()
+    want2 = T.decode_step(params, cfg, nxt["tokens"], wcache)[0]
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((got2 - want2).abs().max()) <= 1e-5

@@ -33,7 +33,7 @@ def _forbidden(name: str) -> bool:
                                      "calibrate", "core", "pipeline",
                                      "runtime", "serving", "optim",
                                      "checkpoint", "data", "obs",
-                                     "examples"])
+                                     "examples", "parallel"])
 def test_subpackage_is_covered(package):
     """The subprocess below imports every module of each subpackage."""
     mods = [m for m in _modules() if m.startswith(f"repro_torch.{package}")]

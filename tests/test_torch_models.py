@@ -127,11 +127,22 @@ def test_model_flops_match_reference(arch):
             JT.model_flops(jc, tokens, kv, mode=mode)
 
 
-def test_batch_axes_need_the_sharded_port():
+def test_batch_axes_on_plain_tensors_is_unsharded():
+    """Batch pinning acts on DTensors only (``tests/test_torch_parallel.py``
+    runs it on a mesh); plain tensors lie on none, so a config that names
+    batch axes gives the unsharded results bit for bit."""
     jc, tc, _, tp = _both("olmo-1b")
-    batch = {"tokens": torch.ones((B, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.forward(tp, tc.replace(batch_axes=("data",)), batch)
+    pinned = tc.replace(batch_axes=("data",))
+    batch = {k: torch.from_numpy(v)
+             for k, v in _batch(jc, np.random.default_rng(3), seq=16).items()}
+    for a, b in zip(TT.forward(tp, pinned, batch), TT.forward(tp, tc, batch)):
+        assert torch.equal(a, b)
+    got, gcache = TT.prefill(tp, pinned, batch, 20)
+    want, wcache = TT.prefill(tp, tc, batch, 20)
+    assert torch.equal(got, want)
+    nxt = want.argmax(-1).to(torch.int32)[:, None]
+    assert torch.equal(TT.decode_step(tp, pinned, nxt, gcache)[0],
+                       TT.decode_step(tp, tc, nxt, wcache)[0])
 
 
 @pytest.mark.parametrize("arch", jcfg.ARCH_IDS)

@@ -17,7 +17,12 @@ import torch
 
 from repro.models import moe as JM
 from repro_torch.models import moe as TM
+from repro_torch.launch.mesh import make_mesh, mesh_shape_dict
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.parallel import distribute_tree
+from repro_torch.parallel.sharding import P, _leaf_rule
+from repro_torch.tree import tree_map_with_keys
+from torch_parallel_workers import one_rank_group
 
 TOL = 1e-5
 D = 16
@@ -118,9 +123,33 @@ def test_moe_flops_and_capacity_equal(case):
 
 
 @pytest.mark.parametrize("axis", ["group_axis", "expert_axis"])
-def test_mesh_axes_need_the_sharded_port(axis):
-    fields = {**CASES["dropless"][0], axis: "data"}
-    tc = TM.MoEConfig(**fields)
-    tp = TM.init_moe(torch.Generator().manual_seed(0), D, tc, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TM.apply_moe(tp, torch.zeros((8, D)), tc)
+def test_mesh_axis_on_one_rank_matches_plain(axis, tmp_path):
+    """``tests/test_layouts.py:test_moe_ep_numerics_match_plain`` on a
+    one-rank gloo mesh: the MoE with its groups or experts over 'data'
+    (DTensors laid out by the ``param_specs`` rule) equals plain
+    ``apply_moe`` within 1e-6, and the reference's within ``TOL``."""
+    fields = dict(n_experts=4, top_k=2, d_ff_expert=16, capacity_factor=8.0,
+                  dispatch_groups=2)
+    plain = TM.MoEConfig(**fields)
+    sharded = TM.MoEConfig(**fields, **{axis: "data"})
+    jp = JM.init_moe(jax.random.PRNGKey(0), 8, JM.MoEConfig(**fields),
+                     jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    x = np.random.default_rng(0).normal(0, 1, (32, 8)).astype(np.float32)
+    jo, jaux = JM.apply_moe(jp, jnp.asarray(x), JM.MoEConfig(**fields))
+    want, want_aux = TM.apply_moe(tp, torch.from_numpy(x), plain)
+    with one_rank_group(tmp_path):
+        mesh = make_mesh({"data": 1, "model": 1}, "cpu")
+        msd = mesh_shape_dict(mesh)
+        specs = tree_map_with_keys(lambda keys, t: _leaf_rule(
+            ("moe",) + keys, t.shape, msd, None, sharded.expert_axis), tp)
+        got, got_aux = TM.apply_moe(
+            distribute_tree(tp, specs, mesh),
+            distribute_tree(torch.from_numpy(x), P("data"), mesh), sharded)
+        got, got_aux = got.full_tensor(), got_aux.full_tensor()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jo), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(float(got_aux), float(jaux), rtol=TOL)

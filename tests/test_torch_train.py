@@ -128,10 +128,22 @@ def test_loss_fn_value_and_grads_match_reference(arch, remat):
                                    err_msg=k)
 
 
-def test_grad_shard_needs_the_sharded_port():
-    cfg = tcfg.smoke_config("olmo-1b", grad_shard=("data", 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        make_train_step(cfg, AdamWConfig())
+@pytest.mark.parametrize("micro", [1, 2])
+def test_grad_shard_on_plain_tensors_is_unsharded(micro):
+    """Gradient sharding acts on DTensors only (``tests/test_torch_parallel.py``
+    runs it on a mesh); on plain tensors a config that names it takes the
+    unsharded step bit for bit."""
+    jc, tc, _, tp = _both("olmo-1b", 6)
+    opt = AdamWConfig(lr=1e-3)
+    batch = {k: torch.from_numpy(v)
+             for k, v in _batch(jc, np.random.default_rng(6), b=4, s=32).items()}
+    got = make_train_step(tc.replace(grad_shard=("data", 2)), opt,
+                          num_microbatches=micro)(tp, adamw_init(tp, opt),
+                                                  batch)
+    want = make_train_step(tc, opt, num_microbatches=micro)(
+        tp, adamw_init(tp, opt), batch)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------- train step --
