@@ -101,7 +101,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      qwen2-moe-a2.7b at full width with groups and experts over 'data'
      (flash 24 times, logits within 1e-6, routes identical, under 80 GB);
      mamba2-1.3b and jamba at smoke size (the SSD kernel on each rank's
-     heads);
+     heads), and a smoke mamba2-1.3b train step (the SSD's backward on the
+     rank's heads) against plain;
  17. the training path at full width: olmo-1b (1,279,787,008 float32
      parameters, random from a seed) trained through Trainer.run under
      deterministic algorithms: 3 calibration steps, the DV-DVFS plan, 8
@@ -113,7 +114,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      then which gradient leaves differ between two identical backward
      passes without deterministic algorithms; then, at smoke size, a
      25-step run whose loss decreases, a failure-and-restore run equal bit
-     for bit to a clean one, and a backward through each kernel refused.
+     for bit to a clean one, a backward through the flash kernel refused,
+     and smoke mamba2-1.3b and jamba trained two steps on the card against
+     the CPU (the SSD kernel and its backward kernels launched as
+     counted);
+ 18. Mamba training at full width: mamba2-1.3b (1,445,363,712 float32
+     parameters, random from a seed) trained through Trainer.run under
+     deterministic algorithms (3 calibration steps, the DV-DVFS plan, 6
+     steps of 8 x 256 tokens, remat, no checkpoint), each layer's SSD
+     through the ssd_scan kernel (twice a step: the forward and remat's
+     recomputation) and its backward kernels (once), with the step walls,
+     tokens/s and memory peaks and the losses falling; then one more
+     backward with the first and last layers' real SSD inputs and
+     cotangents recorded, the backward kernels' five gradients held against
+     autograd of the plain chunked version on the card; then the backward
+     kernels timed at (8, 256) and (8, 1024) tokens beside their bound, the
+     plain version, registers and spills.
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
@@ -168,7 +184,9 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
-from repro_torch.launch.block_stats_timing import event_ms  # noqa: E402
+from repro_torch.launch import ssd_bwd_timing  # noqa: E402
+from repro_torch.launch.block_stats_timing import (  # noqa: E402
+    event_ms, traced)
 from repro_torch.launch.mesh import make_mesh, mesh_shape_dict  # noqa: E402
 from repro_torch.launch.optconfig import build_cfg  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
@@ -238,6 +256,10 @@ KERNELS = {
     "block_stats": "src/repro/kernels/block_stats.py:62",
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:27",
+    "ssd_scan_bwd": "no TPU kernel: the gradient of "
+                    "src/repro/kernels/ssd_scan.py:27's function, which the "
+                    "reference takes with jax.grad of "
+                    "src/repro/models/mamba2.py:86",
 }
 
 # the serving path: olmo-1b at its published width and depth, float32 (the
@@ -285,6 +307,27 @@ MIXER_KERNEL = {"attn": "flash_attention", "mamba": "ssd_scan"}
 # so steps 4 and 5 run twice
 TRAIN = dict(arch="olmo-1b", batch=8, seq_len=256, total_steps=8, warmup=2,
              ckpt_every=4, ckpt_keep=1, fail_at=6)
+# mamba2-1.3b trained at full width: TrainConfig's batch and sequence
+# defaults, 6 steps after the 3 calibration steps, no checkpoint
+MAMBA_TRAIN = dict(arch="mamba2-1.3b", batch=8, seq_len=256, total_steps=6,
+                   warmup=2)
+# the backward kernels against autograd of the plain chunked version, as a
+# share of each gradient's largest magnitude: both sum in float32, in other
+# orders (64-row chunks against the model's 256, dB and dC over 64 heads,
+# da_log over every token of the batch); the kernel's split, run on the CPU
+# against the plain gradients, stays under 5e-6 of it
+SSD_BWD_TOL = 1e-4
+# card against CPU at smoke size, float32 summed in other orders: the
+# gradients as a share of each leaf's largest (a_log's and dt_bias's are
+# sums over every token with cancellation: on smoke jamba's third layer the
+# plain SSD on an H100 (700 W) is 6.9e-6 of its largest from the CPU, the
+# kernel 1.09e-5), losses and norms relative, and the weights after two AdamW
+# steps of lr 1e-3 absolute (AdamW moves every weight by about lr whatever
+# its gradient's size, so a gradient near its eps moves by a visible share;
+# a tenth of one step bounds that)
+SMOKE_GRAD_TOL = 5e-5
+SMOKE_TRAIN_TOL = 1e-5
+SMOKE_WEIGHT_TOL = 1e-4
 # the reference's trainer tests at smoke size (tests/test_checkpoint_train.py
 # :80-89): a failure at step 9 restores the checkpoint of step 8
 TRAIN_SMOKE = dict(batch=2, seq_len=64, total_steps=12, ckpt_every=4,
@@ -375,7 +418,8 @@ def phase_card() -> tuple:
 
 
 def phase_build() -> None:
-    for built in _build.build(bs.SOURCE, *fa.SOURCES.values(), ss.SOURCE):
+    for built in _build.build(bs.SOURCE, *fa.SOURCES.values(), ss.SOURCE,
+                              ss.BWD_SOURCE):
         print(f"build: {built.seconds:.3f} s nvcc {' '.join(_build.NVCC_FLAGS)}"
               f" -> {built.path.relative_to(_build.BUILD_ROOT.parents[1])}")
         for line in built.log.splitlines():
@@ -2201,7 +2245,7 @@ def phase_training() -> None:
               f"wrappers {counts}; attention trains through chunked")
         print(f"  kernel wrapper launches in the run: {counts} (attention "
               f"trains through the plain chunked route, as the reference's "
-              f"attn_impl_train does; the kernels have no backward)")
+              f"attn_impl_train does, and olmo-1b has no Mamba layer)")
         del res, trainer
     free_device_memory()
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -2218,6 +2262,242 @@ def phase_training() -> None:
           f"{strict}")
     del params, batch
     phase_training_smoke()
+
+
+class NoCheckpoints:
+    """A checkpoint manager that writes nothing: ``Trainer.run`` saves at
+    its last step, and olmo-1b's phase already measures checkpoint I/O."""
+
+    def __init__(self):
+        self.saves: list = []
+
+    def save(self, tree, step, extra=None):
+        self.saves.append(step)
+
+    def wait(self):
+        pass
+
+    def restore_latest(self, like, *, device="cuda"):
+        return None
+
+
+class SsdGradRecorder:
+    """A pass-through around the model's ``ssd_scan_cuda`` that keeps the
+    inputs of the calls numbered in ``keep`` and, through a hook on y, the
+    cotangent the backward pass brings it."""
+
+    def __init__(self, keep):
+        self.keep = set(keep)
+        self.calls: dict = {}
+        self.n = 0
+
+    def __call__(self, *args, **kw):
+        out = ss.ssd_scan_cuda(*args, **kw)
+        if self.n in self.keep:
+            rec = self.calls[self.n] = {"args": [a.detach() for a in args],
+                                        "chunk": kw["chunk"]}
+            out[0].register_hook(
+                lambda g, rec=rec: rec.update(dy=g.detach()))
+        self.n += 1
+        return out
+
+
+def grads_err(got, want) -> dict:
+    """For each of (dx, ddt, da_log, dB, dC): max |got - want|, max |want|
+    and whether the first is within SSD_BWD_TOL of the second."""
+    out = {}
+    for name, a, w in zip(("dx", "ddt", "da_log", "dB", "dC"), got, want):
+        err, scale = _max_err(a, w), float(w.abs().max())
+        out[name] = {"err": err, "scale": scale,
+                     "ok": bool(torch.isfinite(w).all())
+                     and err <= SSD_BWD_TOL * scale}
+    return out
+
+
+def phase_mamba_training() -> dict:
+    """mamba2-1.3b trained at full width through ``Trainer.run`` (DV-DVFS
+    calibration and plan, no checkpoint), each Mamba layer's SSD through the
+    ``ssd_scan`` kernel and its backward kernels; then one more backward
+    with the first and last layers' SSD inputs and cotangents recorded,
+    their five gradients held against the plain version's; then the
+    backward kernels timed."""
+    free_device_memory()
+    tr = MAMBA_TRAIN
+    cfg = get_arch(tr["arch"])
+    sc = cfg.ssm
+    check(cfg.remat and cfg.loss_chunk == 2048 and cfg.opt_dtype == "float32"
+          and cfg.n_layers == 48 and cfg.d_model == 2048,
+          f"{cfg.name} does not train as the reference's config does")
+    n_params = int(cfg.param_count())
+    tokens = tr["batch"] * tr["seq_len"]
+    flops = T.model_flops(cfg, tokens, tr["seq_len"])
+    print(f"Mamba training: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {sc.n_heads}x{sc.head_dim} heads, d_state "
+          f"{sc.d_state}, {sc.n_groups} group, vocab {cfg.vocab}, float32, "
+          f"remat, loss chunk {cfg.loss_chunk}), {n_params} parameters by "
+          f"param_count(); {tr['batch']} x {tr['seq_len']} tokens a step; "
+          "Trainer.run with DV-DVFS calibration and plan, its checkpoint "
+          "manager one that writes nothing")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mamba_") as tmp, \
+            deterministic():
+        tc = TrainConfig(batch=tr["batch"], seq_len=tr["seq_len"],
+                         total_steps=tr["total_steps"], warmup=tr["warmup"],
+                         ckpt_dir=os.path.join(tmp, "ck"), dvfs_enabled=True,
+                         planner="paper")
+        trainer = RecordingTrainer(cfg, tc, device="cuda")
+        trainer.ckpt = NoCheckpoints()
+        reset_launches()
+        res, run_s = sync_seconds(lambda: trainer.run(resume=False))
+        counts = launches()
+    hist = res["history"]
+    n_steps = len(trainer.step_log)          # calibration's and the run's
+    losses = [h["loss"] for h in hist]
+    peak = max(r["peak"] for r in trainer.step_log)
+    print(f"  Trainer.run wall {run_s:.3f} s, {n_steps} steps (3 of "
+          f"calibration); launches {json.dumps(counts)}; peak device memory "
+          f"in a step {peak / 1e9:.3f} GB; calibration left the weights "
+          f"as they were: {trainer.calibration['unchanged']}")
+    for h, r in zip(hist, trainer.step_log[3:]):
+        print(f"    step {h['step']}: loss {h['loss']:.6f}, wall "
+              f"{h['wall_s']:.6f} s, {tokens / h['wall_s']:.1f} tokens/s, "
+              f"{flops / h['wall_s'] / 1e12:.3f} model TFLOP/s "
+              f"({flops * 4 / 3 / h['wall_s'] / 1e12:.3f} with remat), peak "
+              f"{r['peak'] / 1e9:.3f} GB, rel_freq {h['rel_freq']}")
+    check(len(hist) == tr["total_steps"] and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(trainer.calibration["unchanged"], "calibration changed the weights")
+    check(peak < 80e9, f"a step needed {peak / 1e9:.3f} GB")
+    want = dict.fromkeys(counts, 0)
+    want.update(ssd_scan=2 * cfg.n_layers * n_steps,
+                ssd_scan_bwd=cfg.n_layers * n_steps)
+    check(counts == want, f"the run launched {counts}, expected {want}: the "
+          "SSD twice a layer a step (the forward, and remat's recomputation "
+          "in the backward), its backward once")
+
+    # one more backward, the first and last layers' SSD recorded
+    last = cfg.n_layers - 1
+    rec = SsdGradRecorder((0, last))
+    batch = packed_batch(cfg, tr["batch"], tr["seq_len"])
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), res["params"])
+    del res, trainer
+    M.ssd_scan_cuda = rec
+    try:
+        reset_launches()
+        loss, _ = T.loss_fn(leaves, cfg, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        step_counts = launches()
+    finally:
+        M.ssd_scan_cuda = ss.ssd_scan_cuda
+    del grads, leaves
+    print(f"  one loss_fn backward: launches {json.dumps(step_counts)} "
+          f"({rec.n} ssd_scan calls: {cfg.n_layers} in the forward, "
+          f"{rec.n - cfg.n_layers} in remat's recomputation)")
+    check(step_counts["ssd_scan"] == 2 * cfg.n_layers == rec.n
+          and step_counts["ssd_scan_bwd"] == cfg.n_layers,
+          f"one backward launched {step_counts}")
+    worst = fwd_worst = 0.0
+    layer_err = {}
+    for i, call in sorted(rec.calls.items()):
+        check("dy" in call, f"layer {i}'s SSD got no cotangent")
+        args, dy = call["args"], call["dy"]
+        with torch.no_grad():
+            fwd = ss.ssd_scan_cuda(*args, chunk=call["chunk"],
+                                   final_state=True)
+        want_f = ref.ssd_chunked_ref(*args, chunk=call["chunk"])
+        y_err, state_err = (_max_err(a, w) for a, w in zip(fwd, want_f))
+        fwd_err = max(y_err, state_err)
+        fwd_worst = max(fwd_worst, fwd_err)
+        print(f"  layer {i} SSD forward, kernel vs the plain chunked version "
+              f"on its real inputs: max |err| y {y_err:.3g}, state "
+              f"{state_err:.3g} (tol {SSD_TOL[torch.float32]} abs + rel)")
+        check(all(ssd_close(a, w, torch.float32) for a, w in zip(fwd, want_f)),
+              f"layer {i}: the forward kernel differs from the plain chunked "
+              f"version by {fwd_err}")
+        del fwd, want_f
+        got = ss.ssd_scan_bwd_cuda(*args, dy, None)
+        want_g = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=call["chunk"])
+        errs = layer_err[i] = grads_err(got, want_g)
+        worst = max([worst] + [e["err"] for e in errs.values()])
+        print(f"  layer {i} SSD backward, kernel vs autograd of the plain "
+              f"chunked version on its real inputs and cotangent: "
+              + ", ".join(f"{k} {e['err']:.3g} of {e['scale']:.4g}"
+                          for k, e in errs.items())
+              + f" (max |err| of max |grad|; tol {SSD_BWD_TOL} of it)")
+        check(all(e["ok"] for e in errs.values()),
+              f"layer {i}: the backward kernels differ from the plain "
+              f"gradients: {errs}")
+    del rec, batch
+    free_device_memory()
+    times = ssd_bwd_times(sc, worst)
+    return {"launches": counts, "steps": n_steps, "per_step": step_counts,
+            "losses": losses, "peak_gb": peak / 1e9, "run_s": run_s,
+            "layer_err": layer_err, "fwd_max_abs_err": fwd_worst, **times}
+
+
+def ssd_bwd_times(sc, worst: float) -> dict:
+    """The backward kernels and autograd of the plain chunked version timed
+    at mamba2-1.3b's heads for each of ``ssd_bwd_timing.SHAPES`` (a training
+    step's 8 x 256 tokens, and the serving prompts' 8 x 1024) on that
+    script's inputs, after an L2 evict, beside the bound; a cotangent of y
+    alone, as training brings."""
+    h, g, p, n = sc.n_heads, sc.n_groups, sc.head_dim, sc.d_state
+    check(ssd_bwd_timing.HEADS == dict(h=h, g=g, p=p, n=n),
+          "ssd_bwd_timing times other heads than mamba2-1.3b's")
+    rng = np.random.default_rng(6)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    (built,) = _build.build(ss.BWD_SOURCE)
+    usage = {k: ptxas_usage(built.log, f"ssd_bwd_{k}_kernel")
+             for k in ("states", "chunk", "reduce")}
+    occ = ss.bwd_occupancy(p, n)
+    per_shape = []
+    for b, s in ssd_bwd_timing.SHAPES:
+        *args, dy = ssd_bwd_timing.inputs(rng, b, s, torch.device("cuda"))
+        got = ss.ssd_scan_bwd_cuda(*args, dy, None)
+        want = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=sc.chunk)
+        errs = grads_err(got, want)
+        check(all(e["ok"] for e in errs.values()),
+              f"ssd_scan_bwd at ({b}, {s}) differs: {errs}")
+        again = ss.ssd_scan_bwd_cuda(*args, dy, None)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              "two backward calls gave different bits")
+        worst = max([worst] + [e["err"] for e in errs.values()])
+        del got, want, again
+        t = ssd_bwd_timing.time_shape(tuple(args), dy, flush)
+        ms = t["ms"]
+        plain_ms = event_ms(lambda: ref.ssd_chunked_bwd_ref(
+            *args, dy, None, chunk=sc.chunk), flush)
+        design = 2 * ss.bwd_fmas(b, s, h, p, n)
+        print(f"  ssd_scan_bwd float32 (B,S,H,G,P,N)=({b},{s},{h},{g},{p},"
+              f"{n}): kernels {ms:.6f} ms, autograd of the plain chunked "
+              f"version (chunk {sc.chunk}) {plain_ms:.6f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {t['flops']} FLOP "
+              f"at the least chunk cost, L = {t['bound_chunk']}; "
+              f"{t['bytes']} bytes) = {100 * t['bound_ms'] / ms:.4f}% of the "
+              f"bound; design {design} FLOP of FMAs "
+              f"({design / t['flops']:.4f}x the bound's, "
+              f"{design / (ms * 1e-3) / 1e12:.3f} TFLOP/s); scratch "
+              f"{ss.bwd_scratch_bytes(b, s, h, p, n) / 1e6:.1f} MB; "
+              f"bit-identical twice; max |err| "
+              + ", ".join(f"{k} {e['err']:.3g}" for k, e in errs.items()))
+        print("    device time a call (torch.profiler, mean of 5): "
+              + ", ".join(f"{k} {us:.3f} us ({100 * us / (ms * 1e3):.1f}% "
+                          "of the event time)"
+                          for k, us in t["kernels_us"].items()))
+        per_shape.append({"shape": [b, s, h, g, p, n], "plain_ms": plain_ms,
+                          "library_ms": None, "design_flops": design,
+                          "share": t["bound_ms"] / ms, **t})
+        del args, dy
+    for k, u in usage.items():
+        print(f"    {k} kernel: {u['registers']} registers a thread, spills "
+              f"{u['spill_stores']} B stored / {u['spill_loads']} B loaded "
+              "(ptxas)")
+    print(f"    shared memory a CTA: states {occ['states_smem_bytes']} B, "
+          f"chunk {occ['chunk_smem_bytes']} B ({occ['chunk_ctas_per_sm']} "
+          f"CTA(s) an SM, occupancy API); {ss.BWD_DEVICE_KERNELS} device "
+          "kernels a call")
+    return {"per_shape": per_shape, "ptxas": usage, "occupancy": occ,
+            "max_abs_err": worst}
 
 
 def training_report(trainer, res, cfg, tokens, flops, n_params, run_s
@@ -2291,7 +2571,8 @@ def training_report(trainer, res, cfg, tokens, flops, n_params, run_s
 def phase_training_smoke() -> None:
     """At smoke size on the card: 25 steps whose loss decreases, and the
     reference's clean-against-faulty run, bit for bit; then a backward
-    through the flash kernel and through a Mamba layer must raise."""
+    through the flash kernel must raise, and smoke mamba2 and jamba train
+    on the card as on the CPU."""
     cfg = smoke_config("olmo-1b")
     ds = BlockDataset(n_blocks=4, records_per_block=64, max_len=48,
                       vocab=cfg.vocab, seed=1)
@@ -2318,22 +2599,75 @@ def phase_training_smoke() -> None:
           and long["final_loss"] < long["first_loss"],
           "the smoke run's loss did not decrease")
     check(same, "the faulty run's parameters differ from the clean run's")
-    for arch, over in (("olmo-1b", {"attn_impl_train": "pallas"}),
-                       ("mamba2-1.3b", {})):
-        c = smoke_config(arch, **over)
-        params = tree_map(lambda t: t.requires_grad_(), T.init_params(
-            c, torch.Generator(device="cuda").manual_seed(0), device="cuda"))
-        toks = torch.ones((2, 32), dtype=torch.int32, device="cuda")
-        try:
-            loss, _ = T.loss_fn(params, c, {"tokens": toks, "labels": toks})
-            loss.backward()
-        except NotImplementedError as e:
-            print(f"  backward through {arch} "
-                  f"({c.attn_impl_train if arch == 'olmo-1b' else 'mamba'})"
-                  f" on the card raises: {e}")
-        else:
-            raise RuntimeError(f"chip_smoke: a backward through {arch} ran "
-                               "without a backward kernel")
+    c = smoke_config("olmo-1b", attn_impl_train="pallas")
+    params = tree_map(lambda t: t.requires_grad_(), T.init_params(
+        c, torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    toks = torch.ones((2, 32), dtype=torch.int32, device="cuda")
+    try:
+        loss, _ = T.loss_fn(params, c, {"tokens": toks, "labels": toks})
+        loss.backward()
+    except NotImplementedError as e:
+        print(f"  backward through olmo-1b (pallas) on the card raises: {e}")
+    else:
+        raise RuntimeError("chip_smoke: a backward through the flash kernel "
+                           "ran without a backward kernel")
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+        smoke_train_card_vs_cpu(arch)
+
+
+def smoke_train_card_vs_cpu(arch: str) -> None:
+    """``arch`` at smoke size (remat on) on the card and on the CPU from the
+    same weights: the first batch's gradients within SMOKE_GRAD_TOL of each
+    leaf's largest CPU magnitude; two train steps' losses and gradient
+    norms within SMOKE_TRAIN_TOL relative and their weights within
+    SMOKE_WEIGHT_TOL; on the card each Mamba layer runs the SSD kernel
+    twice a step (the forward and remat's recomputation) and its backward
+    once, the CPU launches nothing."""
+    cfg = smoke_config(arch, remat=True)
+    n_mamba = [s.mixer for s in cfg.pattern].count("mamba") * cfg.n_repeats
+    opt = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    batches = [{k: rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = T.loss_fn(leaves, cfg, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in batches[0].items()})
+        grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        reset_launches()
+        state = adamw_init(p, opt)
+        metrics = []
+        for b in batches:
+            p, state, m = step(p, state, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in b.items()})
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm")])
+        out[dev] = (metrics, p, launches(), grads)
+    want = dict.fromkeys(launches(), 0)
+    want.update(ssd_scan=4 * n_mamba, ssd_scan_bwd=2 * n_mamba)
+    check(out["cuda"][2] == want and not any(out["cpu"][2].values()),
+          f"smoke {arch} train steps launched {out['cuda'][2]} on the card "
+          f"(expected {want}) and {out['cpu'][2]} on the CPU")
+    gerr = max(_max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(out["cuda"][3], out["cpu"][3]))
+    rel = max(abs(a - b) / abs(b) for ra, rb in zip(out["cuda"][0],
+                                                    out["cpu"][0])
+              for a, b in zip(ra, rb))
+    perr = max(_max_err(a.cpu(), b) for a, b in zip(
+        tree_leaves(out["cuda"][1]), tree_leaves(out["cpu"][1])))
+    print(f"  smoke {arch} ({n_mamba} Mamba layer(s), remat) trains on the "
+          f"card: gradients max |err| {gerr:.3g} of each leaf's largest "
+          f"(tol {SMOKE_GRAD_TOL}); 2 steps, losses and grad norms card "
+          f"{out['cuda'][0]} cpu {out['cpu'][0]} (max rel {rel:.3g}, tol "
+          f"{SMOKE_TRAIN_TOL}), weights max |err| {perr:.3g} (tol "
+          f"{SMOKE_WEIGHT_TOL}); card launches {json.dumps(out['cuda'][2])}")
+    check(gerr <= SMOKE_GRAD_TOL and rel <= SMOKE_TRAIN_TOL
+          and perr <= SMOKE_WEIGHT_TOL,
+          f"smoke {arch}: the card's train steps differ from the CPU's")
 
 
 # ------------------------------------------------------- the sharded path --
@@ -2651,11 +2985,59 @@ def parallel_smoke(mesh, arch: str, kernels: set) -> dict:
     return {"launches": counts, "logit_err": err}
 
 
+def whole(t):
+    """A DTensor's whole value; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def parallel_mamba_training(mesh) -> dict:
+    """One train step of smoke mamba2-1.3b (remat), plain then sharded on
+    the card from the same weights, the SSD's backward on the rank's heads
+    under ``local_map``: losses, gradient norms and weights within 1e-5
+    relative."""
+    dev = torch.device("cuda")
+    msd = mesh_shape_dict(mesh)
+    cfg = smoke_config("mamba2-1.3b", remat=True, batch_axes=("data",))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 48)).astype(
+        np.int32)).to(dev) for k in ("tokens", "labels")}
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt_cfg)
+    want_p, _, want_m = step(params, adamw_init(params, opt_cfg), batch)
+    specs = param_specs(cfg, params, msd)
+    dopt = sharded(adamw_init(params, opt_cfg),
+                   {"m": specs, "v": specs, "step": P()}, mesh)
+    reset_launches()
+    got_p, _, got_m = step(sharded(params, specs, mesh), dopt,
+                           distribute_tree(batch, batch_specs(cfg, batch, msd),
+                                           mesh))
+    counts = launches()
+    rel = max(abs(float(whole(got_m[k])) - float(want_m[k]))
+              / abs(float(want_m[k])) for k in ("loss", "grad_norm"))
+    perr, pmax = 0.0, 0.0
+    for k, w in tree_flatten(want_p).items():
+        perr = max(perr, _max_err(whole(tree_flatten(got_p)[k]), w))
+        pmax = max(pmax, float(w.abs().max()))
+    print(f"  mamba2-1.3b at smoke size, one sharded train step (remat): "
+          f"launches {json.dumps(counts)}; loss and grad norm max rel "
+          f"{rel:.3g}, new weights max |err| {perr:.3g} (|w| up to "
+          f"{pmax:.4g}; tol 1e-5 relative)")
+    check(counts["ssd_scan"] == 2 * cfg.n_layers
+          and counts["ssd_scan_bwd"] == cfg.n_layers,
+          f"the sharded step launched {counts}")
+    check(rel <= 1e-5 and perr <= 1e-5 * max(pmax, 1.0),
+          f"the sharded Mamba step differs: rel {rel}, weights {perr}")
+    return {"launches": counts, "rel": rel, "param_err": perr}
+
+
 def phase_parallel(smi: str) -> dict:
     """The sharded path (DTensors on a DeviceMesh) at world size 1 under
     NCCL: collectives, olmo-1b serving and training and qwen2-moe-a2.7b's
-    prefill at full width, mamba2-1.3b and jamba at smoke size, each
-    against the plain path on the same weights."""
+    prefill at full width, mamba2-1.3b and jamba at smoke size (and a
+    mamba2-1.3b train step), each against the plain path on the same
+    weights."""
     free_device_memory()
     print(f"sharded path on {smi} (NCCL, world size 1):")
     out = {}
@@ -2672,6 +3054,7 @@ def phase_parallel(smi: str) -> dict:
         out["mamba"] = parallel_smoke(mesh, "mamba2-1.3b", {"ssd_scan"})
         out["jamba"] = parallel_smoke(mesh, "jamba-1.5-large-398b",
                                       {"flash_attention", "ssd_scan"})
+        out["mamba_train"] = parallel_mamba_training(mesh)
     return out
 
 
@@ -2815,29 +3198,30 @@ def device_events(fn) -> list:
     """For two torch.profiler sessions of ``DEVICE_CALLS`` calls of ``fn``
     each, the names of the device events (kernels, copies, memsets) they
     recorded.  Sessions have missed the first kernels launched in them (one
-    of four, two of four, now and then all), so each session first runs a
-    spin kernel of about 1 ms and the calls run on the device after it; its
-    event is left out.  A session that still recorded fewer events than
+    of four, two of four, now and then all), so each session is ``traced``
+    (after a warm-up step whose events the profiler drops) and first runs a
+    spin kernel of about 1 ms, the calls running on the device after it;
+    its event and the step's own range (``ProfilerStep#``) are left out.  A session that still recorded fewer events than
     ``DEVICE_CALLS - 1`` (every call launches at least one kernel) is run
     again, up to six sessions in all."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    sessions = []
+    def run():
+        torch.cuda._sleep(SPIN_CYCLES)
+        for _ in range(DEVICE_CALLS):
+            fn()
+    sessions, recorded = [], []
     for _ in range(6):
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(SPIN_CYCLES)
-            for _ in range(DEVICE_CALLS):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
+        names = [e.name for e in traced(run).events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "spin_kernel" not in e.name]
+                 and "spin_kernel" not in e.name
+                 and not e.name.startswith("ProfilerStep")]
+        recorded.append(len(names))
         if len(names) >= DEVICE_CALLS - 1:
             sessions.append(names)
         if len(sessions) == 2:
             return sessions
     raise RuntimeError("chip_smoke: six profiler sessions, fewer than two "
-                       f"recorded {DEVICE_CALLS - 1} device events or more")
+                       f"recorded {DEVICE_CALLS - 1} device events or more "
+                       f"(they recorded {recorded})")
 
 
 def clock_under_load(fn, seconds: float = 1.0) -> dict:
@@ -3056,19 +3440,38 @@ def main() -> int:
     kernels = phase_times(main_path, worst)
     kernels.append(phase_flash_times({SERVE["arch"]: serving,
                                       MOE_SERVE["arch"]: moe}, worst))
-    kernels.append(phase_ssd_times(mamba, worst))
+    ssd_entry = phase_ssd_times(mamba, worst)
+    kernels.append(ssd_entry)
     phase_examples()
     par = phase_parallel(smi)
     sharded_launches = {
         "flash_attention": sum(par[k]["launches"]["flash_attention"]
                                for k in ("olmo", "moe", "jamba")),
         "ssd_scan": sum(par[k]["launches"]["ssd_scan"]
-                        for k in ("mamba", "jamba"))}
+                        for k in ("mamba", "jamba")),
+        "ssd_scan_bwd": par["mamba_train"]["launches"]["ssd_scan_bwd"]}
     for k in kernels:
         k["launches_sharded"] = sharded_launches.get(k["name"], 0)
     # after the timed phases: run before them once, it was followed by six
     # profiler sessions in a row that recorded too few device events
     phase_training()
+    mtrain = phase_mamba_training()
+    # the forward kernel held against the plain version at the training shape
+    ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"],
+                                   mtrain["fwd_max_abs_err"])
+    main_bwd = mtrain["per_shape"][0]       # the training step's shape
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/" + ss.BWD_SOURCE,
+        "replaces": KERNELS["ssd_scan_bwd"],
+        "launches": mtrain["launches"]["ssd_scan_bwd"],
+        "launches_per_step": mtrain["per_step"]["ssd_scan_bwd"],
+        "launches_sharded": sharded_launches["ssd_scan_bwd"],
+        "max_abs_err": mtrain["max_abs_err"],
+        "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
+        "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
+        "library_ms": None, "ptxas": mtrain["ptxas"],
+        "per_shape": mtrain["per_shape"]})
     print(f"total wall: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

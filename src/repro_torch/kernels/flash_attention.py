@@ -147,7 +147,8 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{kernel} has no backward kernel, so its output would carry no "
             "gradient; call it under torch.no_grad() or on inputs that do not "
-            "require grad (training through it is ROADMAP Queue 1 item 15)")
+            "require grad (training through it is ROADMAP Queue 1 item 15, "
+            "its flash part)")
 
 
 def tma_ready(t: torch.Tensor) -> bool:

@@ -8,7 +8,10 @@ main path.  ``ssd_chunked_ref`` is the chunked SSD of
 ``src/repro/models/mamba2.py:_ssd_chunked`` without its D-skip term, the
 plain version of the ``ssd_scan`` kernel; ``ssd_split_ref`` computes the
 same function split as that kernel splits it (64-row chunks, C B^T once per
-group, the head dim in slices), for the tests only.  Counts and mass are
+group, the head dim in slices), for the tests only.  ``ssd_chunked_bwd_ref``
+is autograd of ``ssd_chunked_ref``, the plain version of the ``ssd_scan``
+backward kernels, and ``ssd_split_bwd_ref`` the same gradients split as
+those kernels split them, for the tests only.  Counts and mass are
 summed as int64 and cast to float32 once, so mass is the exact sum rounded
 to float32; the reference sums mass in float32, which is inexact past
 2**24.
@@ -20,7 +23,8 @@ import math
 import torch
 
 __all__ = ["flash_attention_ref", "ssd_scan_ref", "ssd_chunked_ref",
-           "ssd_split_ref", "SSD_CHUNK", "SSD_P_SLICE", "row_matches",
+           "ssd_split_ref", "ssd_chunked_bwd_ref", "ssd_split_bwd_ref",
+           "SSD_CHUNK", "SSD_P_SLICE", "row_matches",
            "row_stats", "block_stats_ref", "block_stats_batched_ref"]
 
 NEG_INF = -1e30
@@ -193,6 +197,132 @@ def ssd_split_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         ys.append(yc.reshape(bsz, h, chunk, p).transpose(1, 2))
     y = torch.cat(ys, dim=1)[:, :s] if ys else x.new_zeros(x.shape).float()
     return y.to(x.dtype), state.reshape(bsz, h, p, n)
+
+
+def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                        a_log: torch.Tensor, b_mat: torch.Tensor,
+                        c_mat: torch.Tensor, dy, dstate=None, *,
+                        chunk: int = 256) -> tuple:
+    """Gradients of ``ssd_chunked_ref``: (dx, ddt, da_log, dB, dC), each of
+    its input's shape and type, for the cotangents ``dy`` of y and
+    ``dstate`` of the final state (None for either means zero).  It is
+    ``torch.autograd.grad`` of ``ssd_chunked_ref`` recomputed under
+    ``enable_grad``: the CPU route of the ``ssd_scan`` autograd Function,
+    and the card's yardstick for its backward kernel."""
+    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b_mat,
+                                                 c_mat)]
+    with torch.enable_grad():
+        y, state = ssd_chunked_ref(*ins, chunk=chunk)
+        outs = [(o, g) for o, g in ((y, dy), (state, dstate))
+                if g is not None and o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in outs],
+                                    ins, [g for _, g in outs],
+                                    allow_unused=True) if outs \
+            else [None] * len(ins)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, ins))
+
+
+def ssd_split_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                      b_mat: torch.Tensor, c_mat: torch.Tensor, dy,
+                      dstate=None, *, chunk: int = SSD_CHUNK) -> tuple:
+    """The gradients of ``ssd_chunked_bwd_ref`` computed as the CUDA
+    backward (``csrc/ssd_scan_bwd.cu``) splits them, for the tests only.
+
+    Same arguments and result.  S is padded to whole chunks of ``chunk``
+    rows with dt = 0 and zeros.  Per (batch, head), a is dt A with
+    A = -exp(a_log), seg the inclusive cumsum of a in a chunk, u_j = dt_j
+    x_j, E_ij = exp(seg_i - seg_j) on and below the diagonal:
+
+    1. states: h_{c-1}, the state entering chunk c, forward over the
+       chunks; dh_c, the cotangent of the state leaving it, backward from
+       ``dstate``: dh_{c-1} = exp(seg_last) dh_c + sum_i exp(seg_i) dy_i
+       (x) C_i;
+    2. per chunk: K = (C B^T) E and W = E (dy_i . u_j) give
+       du_j = sum_i K_ij dy_i + exp(seg_last - seg_j) dh_c B_j,
+       dC_i = sum_j W_ij B_j + exp(seg_i) h_{c-1}^T dy_i and
+       dB_j = sum_i W_ij C_i + exp(seg_last - seg_j) dh_c^T u_j; dx =
+       dt du, and dt's direct share is x . du; d seg takes every
+       exponent's cotangent, d a is its reverse cumsum in the chunk, and
+       ddt += A d a, da_log = A sum dt d a;
+    3. dB and dC summed over the heads of their group.
+    """
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    r = h // g
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunked(t):   # (B, S, ...) float32, zero-padded -> (B, nc, L, ...)
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape((bsz, nc, chunk) + t.shape[2:])
+
+    head_group = torch.arange(h, device=x.device) // r
+    xf, dyf = chunked(x), chunked(dy)                     # (B,nc,L,H,P)
+    dtf = chunked(dt)                                     # (B,nc,L,H)
+    bf = chunked(b_mat)[:, :, :, head_group]              # (B,nc,L,H,N)
+    cf = chunked(c_mat)[:, :, :, head_group]
+    a = -torch.exp(a_log.float())                         # (H,)
+    seg = torch.cumsum(dtf * a, dim=2)                    # (B,nc,L,H)
+    last = seg[:, :, -1:]                                 # (B,nc,1,H)
+    es, tail = torch.exp(seg), torch.exp(last - seg)
+
+    # 1. the states entering and the cotangents leaving each chunk
+    hs, dhs = [], [None] * nc
+    state = xf.new_zeros((bsz, h, p, n))
+    for c in range(nc):
+        hs.append(state)
+        state = torch.exp(last[:, c, 0])[..., None, None] * state \
+            + torch.einsum("blh,blhp,blhn->bhpn", tail[:, c] * dtf[:, c],
+                           xf[:, c], bf[:, c])
+    dh = xf.new_zeros((bsz, h, p, n)) if dstate is None else dstate.float()
+    for c in reversed(range(nc)):
+        dhs[c] = dh
+        dh = torch.exp(last[:, c, 0])[..., None, None] * dh \
+            + torch.einsum("blh,blhp,blhn->bhpn", es[:, c], dyf[:, c],
+                           cf[:, c])
+    hprev, dhc = torch.stack(hs, 1), torch.stack(dhs, 1)  # (B,nc,H,P,N)
+
+    # 2. every chunk's gradients
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    segt = seg.transpose(2, 3)                            # (B,nc,H,L)
+    e = torch.exp((segt[..., :, None] - segt[..., None, :])
+                  .masked_fill(~tri, -torch.inf))         # (B,nc,H,L,L)
+    cb = torch.einsum("bcihn,bcjhn->bchij", cf, bf)
+    dyu = torch.einsum("bcihp,bcjhp->bchij", dyf, xf) \
+        * dtf.transpose(2, 3)[..., None, :]
+    k_mat, w_mat = cb * e, e * dyu
+    gmat = cb * w_mat
+    dseg = (gmat.sum(-1) - gmat.sum(-2)).transpose(2, 3)  # (B,nc,L,H)
+    du_inter = tail[..., None] * torch.einsum("bcjhn,bchpn->bcjhp", bf, dhc)
+    s_j = dtf * (xf * du_inter).sum(-1)                   # (B,nc,L,H)
+    du = du_inter + torch.einsum("bchij,bcihp->bcjhp", k_mat, dyf)
+    dx = dtf[..., None] * du
+    ddt = (xf * du).sum(-1)
+    dc_h = es[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyf, hprev)
+    dseg = dseg + (cf * dc_h).sum(-1) - s_j
+    dc_h = dc_h + torch.einsum("bchij,bcjhn->bcihn", w_mat, bf)
+    db_h = (tail * dtf)[..., None] * torch.einsum(
+        "bcjhp,bchpn->bcjhn", xf, dhc) \
+        + torch.einsum("bchij,bcihn->bcjhn", w_mat, cf)
+    at_last = s_j.sum(2) + torch.exp(last[:, :, 0]) * (dhc * hprev).sum(
+        (-1, -2))                                         # (B,nc,H)
+    dseg = torch.cat([dseg[:, :, :-1], dseg[:, :, -1:] + at_last[:, :, None]],
+                     dim=2)
+    d_a = torch.flip(torch.cumsum(torch.flip(dseg, [2]), 2), [2])
+    ddt = ddt + a * d_a
+    da_log = a * (dtf * d_a).sum((0, 1, 2))
+
+    # 3. dB and dC over the heads of each group
+    def unpad(t):
+        return t.reshape((bsz, nc * chunk) + t.shape[3:])[:, :s]
+
+    db = unpad(db_h.reshape(bsz, nc, chunk, g, r, n).sum(4))
+    dc = unpad(dc_h.reshape(bsz, nc, chunk, g, r, n).sum(4))
+    return (unpad(dx).to(x.dtype), unpad(ddt).to(dt.dtype),
+            da_log.to(a_log.dtype), db.to(b_mat.dtype), dc.to(c_mat.dtype))
 
 
 def row_matches(tokens: torch.Tensor, pattern) -> torch.Tensor:

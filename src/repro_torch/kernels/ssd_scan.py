@@ -27,6 +27,17 @@ whose other strides are not positive multiples of 16 bytes is copied once
 follow).  y has x's memory layout (``torch.empty_like``) where that allows
 16-byte stores.  The kernels pick
 their own chunk length (64 rows); ``chunk`` shapes only the CPU path.
+
+Gradients.  Under grad mode, with an input that requires grad, the call
+goes through ``SsdScan``, a ``torch.autograd.Function``: its forward is the
+route above; its backward sends a CPU tensor to
+``ref.ssd_chunked_bwd_ref`` (autograd of the plain chunked version) and a
+CUDA tensor to ``ssd_scan_bwd_cuda``, the hand-written backward in
+``csrc/ssd_scan_bwd.cu`` (three device kernels a call, ``BWD_DEVICE_KERNELS``,
+float32 only, no atomics: two calls give the same bits), counted in
+``LAUNCHES["ssd_scan_bwd"]``.  It recomputes the chunk-entry states, so
+the forward writes nothing more for it.  Without grad the call is the
+serving path as it was.
 """
 from __future__ import annotations
 
@@ -36,27 +47,32 @@ import torch
 
 from repro_torch.kernels import _build
 # the 16-byte copy rule the flash kernels follow holds for cp.async here too
-from repro_torch.kernels.flash_attention import (prepare, refuse_grad,
-                                                 tma_ready)
-from repro_torch.kernels.ref import SSD_CHUNK, SSD_P_SLICE, ssd_chunked_ref
+from repro_torch.kernels.flash_attention import prepare, tma_ready
+from repro_torch.kernels.ref import (SSD_CHUNK, SSD_P_SLICE,
+                                     ssd_chunked_bwd_ref, ssd_chunked_ref)
 
-__all__ = ["LAUNCHES", "SIZES", "DEVICE_KERNELS", "reset_launches",
-           "p_slice", "n_chunks", "scratch_shape", "ctas", "fmas",
-           "smem_bytes", "occupancy", "ssd_scan_cuda"]
+__all__ = ["LAUNCHES", "SIZES", "DEVICE_KERNELS", "BWD_DEVICE_KERNELS",
+           "reset_launches", "p_slice", "n_chunks", "scratch_shape", "ctas",
+           "fmas", "smem_bytes", "occupancy", "bwd_scratch_bytes",
+           "bwd_fmas", "bwd_occupancy", "SsdScan", "ssd_scan_cuda",
+           "ssd_scan_bwd_cuda"]
 
 SOURCE = "ssd_scan.cu"
+BWD_SOURCE = "ssd_scan_bwd.cu"
 SIZES = (8, 16, 32, 64, 128)
-DEVICE_KERNELS = 2   # C B^T, then the scan
+DEVICE_KERNELS = 2       # C B^T, then the scan
+BWD_DEVICE_KERNELS = 3   # the states, the chunks' gradients, the reductions
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA may have on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches; chip_smoke.py zeroes it before the serving path and reads
-# it after
-LAUNCHES = {"ssd_scan": 0}
+# kernel launches; chip_smoke.py zeroes them before a path and reads them
+# after
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["ssd_scan"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def p_slice(p: int) -> int:
@@ -188,18 +204,13 @@ def _launch(lib, x, dt, a_log, b_mat, c_mat, y, state, cb) -> int:
         *[v for st in strides for v in st], stream)
 
 
-def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-                  b_mat: torch.Tensor, c_mat: torch.Tensor, *,
-                  chunk: int = 256, final_state: bool = False):
-    """x (B,S,H,P), dt (B,S,H), a_log (H,), b/c (B,S,G,N) -> y (B,S,H,P) in
-    x's dtype, or (y, state (B,H,P,N) float32) when ``final_state``.  A
-    call under grad on an input that requires grad is refused
-    (``refuse_grad``): the kernels have no backward."""
-    _check(x, dt, a_log, b_mat, c_mat)
-    refuse_grad("ssd_scan", x, dt, a_log, b_mat, c_mat)
+def _scan(x, dt, a_log, b_mat, c_mat, chunk: int,
+          final_state: bool = True) -> tuple:
+    """(y, final state) of inputs that satisfy ``_check``: the plain
+    chunked version on a CPU tensor, the CUDA kernels on a CUDA tensor
+    (which write the state only when ``final_state``; else it is None)."""
     if x.device.type == "cpu":
-        y, state = ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, chunk=chunk)
-        return (y, state) if final_state else y
+        return ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, chunk=chunk)
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     x, b_mat, c_mat = prepare(x), prepare(b_mat), prepare(c_mat)
@@ -222,4 +233,164 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             msg = lib.ssd_scan_error_string(err).decode()
             raise RuntimeError(f"ssd_scan CUDA launch failed: {msg} ({err})")
         LAUNCHES["ssd_scan"] += 1
+    return y, state
+
+
+class SsdScan(torch.autograd.Function):
+    """(y, final state) of the SSD scan, with its backward: on a CPU tensor
+    autograd of the plain chunked version, on a CUDA tensor the backward
+    kernels.  A gradient that is None (y or the state unused) is zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b_mat, c_mat, chunk: int):
+        ctx.save_for_backward(x, dt, a_log, b_mat, c_mat)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _scan(x, dt, a_log, b_mat, c_mat, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a_log, b_mat, c_mat = ctx.saved_tensors
+        if x.device.type == "cpu":
+            grads = ssd_chunked_bwd_ref(x, dt, a_log, b_mat, c_mat, dy,
+                                        dstate, chunk=ctx.chunk)
+        else:
+            grads = ssd_scan_bwd_cuda(x, dt, a_log, b_mat, c_mat, dy, dstate)
+        return (*grads, None)
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                  b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                  chunk: int = 256, final_state: bool = False):
+    """x (B,S,H,P), dt (B,S,H), a_log (H,), b/c (B,S,G,N) -> y (B,S,H,P) in
+    x's dtype, or (y, state (B,H,P,N) float32) when ``final_state``.  Under
+    grad mode with an input that requires grad it runs through ``SsdScan``,
+    whose backward is ``ssd_scan_bwd_cuda`` on the card."""
+    _check(x, dt, a_log, b_mat, c_mat)
+    ins = (x, dt, a_log, b_mat, c_mat)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        y, state = SsdScan.apply(*ins, chunk)
+    else:
+        y, state = _scan(*ins, chunk, final_state)
     return (y, state) if final_state else y
+
+
+# ------------------------------------------------------------- backward --
+
+def bwd_scratch_bytes(bsz: int, s: int, h: int, p: int, n: int) -> int:
+    """Bytes of float32 scratch one backward call allocates: the states
+    entering and the cotangents leaving each chunk (B, H, nc, P, N), each
+    head's dB and dC (B, S, H, N), and each chunk's share of da_log."""
+    nc = n_chunks(s)
+    return 4 * (2 * bsz * h * nc * p * n + 2 * bsz * s * h * n
+                + bsz * nc * h)
+
+
+def bwd_fmas(bsz: int, s: int, h: int, p: int, n: int) -> int:
+    """Float32 FMAs the backward kernels do: per (64-row chunk, head) 64 *
+    64 * (N + P) for C B^T and dy x^T, 64 * 64 * P for du, 2 * 64 * 64 * N
+    for dB and dC, 3 * 64 * P * N for the state terms in the chunk kernel
+    and 2 * 64 * P * N in the states kernel, and P * N for <dh, h>."""
+    rows = SSD_CHUNK
+    per = (rows * rows * (n + p) + rows * rows * p + 2 * rows * rows * n
+           + 5 * rows * p * n + p * n)
+    return n_chunks(s) * bsz * h * per
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    if lib.ssd_scan_bwd_launch.argtypes is None:
+        lib.ssd_scan_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
+        lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+        lib.ssd_scan_bwd_occupancy.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.ssd_scan_bwd_occupancy.restype = ctypes.c_int
+        lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bwd_occupancy(p: int, n: int) -> dict:
+    """Dynamic shared memory (bytes) a CTA of the states kernel and of the
+    chunk kernel asks for, and CTAs an SM of the chunk kernel, as the CUDA
+    runtime sees them on the current card."""
+    lib = _bwd_library()
+    out = (ctypes.c_int * 3)()
+    err = lib.ssd_scan_bwd_occupancy(int(p), int(n), out)
+    if err != 0:
+        msg = lib.ssd_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan_bwd occupancy query failed: {msg} "
+                           f"({err})")
+    return dict(zip(("states_smem_bytes", "chunk_smem_bytes",
+                     "chunk_ctas_per_sm"), out))
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                      b_mat: torch.Tensor, c_mat: torch.Tensor, dy,
+                      dstate=None) -> tuple:
+    """The backward kernels on CUDA tensors: the gradients (dx, ddt, da_log,
+    dB, dC) of ``ssd_scan_cuda``'s (y, final state) for the cotangents
+    ``dy`` (B,S,H,P) and ``dstate`` (B,H,P,N) (None for either means zero),
+    float32 and contiguous.  Float32 inputs only: a bfloat16 backward is
+    refused (ROADMAP Queue 1 item 15, its SSD bfloat16 part)."""
+    _check(x, dt, a_log, b_mat, c_mat)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd_cuda takes CUDA tensors, got "
+                         f"{x.device}; the CPU route is "
+                         "ref.ssd_chunked_bwd_ref")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the ssd_scan backward kernel takes float32, got {x.dtype} "
+            "(a bfloat16 backward is ROADMAP Queue 1 item 15, its SSD "
+            "bfloat16 part)")
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    dev = x.device
+    run = bool(bsz and s and h) and (dy is not None or dstate is not None)
+    # the kernels write every entry of a launched call's gradients
+    grads = tuple((torch.empty if run else torch.zeros)(
+        t.shape, dtype=torch.float32, device=dev)
+        for t in (x, dt, a_log, b_mat, c_mat))
+    if not run:
+        return grads
+    if dy is None:
+        dy = torch.zeros((1, 1, 1, 1), dtype=torch.float32,
+                         device=dev).expand(bsz, s, h, p)
+    for name, t, shape in (("dy", dy, (bsz, s, h, p)),
+                           ("dstate", dstate, (bsz, h, p, n))):
+        if t is not None and (tuple(t.shape) != shape
+                              or t.dtype != torch.float32
+                              or t.device != dev):
+            raise ValueError(f"{name} must be float32 {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    x, dy, b_mat, c_mat = (prepare(t) for t in (x, dy, b_mat, c_mat))
+    if dstate is not None:   # read 16 bytes at a time, contiguous
+        dstate = dstate.contiguous()
+        if dstate.data_ptr() % 16:
+            dstate = dstate.clone()
+    nc = n_chunks(s)
+    states = torch.empty((2, bsz, h, nc, p, n), dtype=torch.float32,
+                         device=dev)
+    heads = torch.empty((2, bsz, s, h, n), dtype=torch.float32, device=dev)
+    part = torch.empty((bsz, nc, h), dtype=torch.float32, device=dev)
+    dx, ddt, da_log, db, dc = grads
+    lib = _bwd_library()
+    strides = [t.stride()[:3] for t in (x, dt, b_mat, c_mat, dy)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), a_log.contiguous().data_ptr(),
+            b_mat.data_ptr(), c_mat.data_ptr(), dy.data_ptr(),
+            dstate.data_ptr() if dstate is not None else None,
+            dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), states[0].data_ptr(), states[1].data_ptr(),
+            heads[0].data_ptr(), heads[1].data_ptr(), part.data_ptr(),
+            bsz, s, h, g, p, n, nc, *[v for st in strides for v in st],
+            stream)
+    if err != 0:
+        msg = lib.ssd_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan_bwd CUDA launch failed: {msg} ({err})")
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return grads

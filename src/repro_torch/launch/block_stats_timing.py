@@ -51,6 +51,23 @@ def event_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
     return float(np.median(ts))
 
 
+def traced(run):
+    """A torch.profiler session over ``run()`` on the card, after a warm-up
+    step that runs ``run()`` once more and whose events the profiler drops:
+    sessions have missed the first kernels launched in them, and the
+    warm-up step is the profiler's own means to leave out the start of
+    tracing.  Read it with ``events()`` or ``key_averages()``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def kernel_ms(fn, flush: torch.Tensor, reps: int = 10) -> float:
     """Median ms that torch.profiler records on the card for the kernel
     named ``block_stats_kernel`` in calls of ``fn``, each after evicting the

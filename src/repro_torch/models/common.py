@@ -155,8 +155,10 @@ def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
     def chunk_loss(h_c, l_c):
         if norm_params is not None:
             h_c = apply_norm(norm_kind, norm_params, h_c)
-        # a vocab-sharded DTensor is gathered whole: the target's gather
-        # and the logsumexp read every vocab entry of a row
+        # a vocab-sharded DTensor is gathered whole, and partial sums (a
+        # hidden state that a row-parallel product left unreduced) summed:
+        # the target's gather and the logsumexp read every vocab entry of a
+        # row
         logits = gather_dim((h_c @ lm_head).float(), -1)           # (B, c, V)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.take_along_dim(

@@ -9,9 +9,10 @@ mixers with dense-MLP, MoE or no FFNs are ported.  An MoE layer runs
 ``apply_moe`` once over the whole (B·S, d) batch, as the reference does:
 the capacity, and so which slots are dropped, depends on the number of
 tokens dispatched together.  ``forward`` and ``loss_fn`` are differentiable
-by autograd, except through the CUDA kernels, which have no backward and
-refuse a call that needs one: training goes through ``attn_impl_train``
-"dense", "chunked" or "wedge", and not through a Mamba layer.
+by autograd: a Mamba layer through the ``ssd_scan`` autograd Function
+(its backward kernels on the card), attention through ``attn_impl_train``
+"dense", "chunked" or "wedge" (the flash kernel has no backward and
+refuses a call that needs one).
 
 Every function also runs on DTensors: parameters laid out by
 ``parallel.param_specs`` and a batch by ``parallel.batch_specs``

@@ -15,7 +15,7 @@ every helper is the identity, or calls the function as it is.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, \
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, \
     distribute_tensor
 from torch.distributed.tensor.experimental import local_map
 
@@ -80,11 +80,24 @@ def on_shards(fn, mesh, args: tuple, in_placements: tuple,
     its outputs made DTensors laid out as ``out_placements`` says: a tuple
     with one entry an output (``(pl,)`` for a single output; None for a
     function that returns None).  Without a DTensor among ``args`` it is
-    ``fn(*args)``."""
+    ``fn(*args)``.
+
+    Gradients: where some input is sharded over a mesh dim, the ranks along
+    it run ``fn`` on different shards, so the gradient of an input that is
+    replicated there (a weight, or B/C read by every head) holds only this
+    rank's share: it is taken as partial sums over that mesh dim."""
     if mesh is None:
         return fn(*args)
+    split = [any(pl is not None and isinstance(pl[m], Shard)
+                 for pl in in_placements) for m in range(mesh.ndim)]
+    grad_placements = tuple(
+        None if pl is None else tuple(
+            Partial() if split[m] and isinstance(p, Replicate) else p
+            for m, p in enumerate(pl))
+        for pl in in_placements)
     return local_map(fn, out_placements=out_placements,
-                     in_placements=in_placements, device_mesh=mesh,
+                     in_placements=in_placements,
+                     in_grad_placements=grad_placements, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
 
 
@@ -120,10 +133,12 @@ def match(t, ref):
 
 def gather_dim(t, dim: int):
     """``t`` whole along ``dim`` on every rank (all-gathered where a mesh dim
-    shards it), its other placements kept, when it is a DTensor."""
+    shards it, summed where it holds partial sums), its other placements
+    kept, when it is a DTensor."""
     if not isinstance(t, DTensor):
         return t
     dim %= t.dim()
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+    pl = [Replicate() if p.is_partial()
+          or (isinstance(p, Shard) and p.dim == dim) else p
           for p in t.placements]
     return t.redistribute(t.device_mesh, pl)

@@ -6,9 +6,14 @@ interpret mode (the Pallas kernel's body run on the CPU) and against the
 naive recurrence, on the reference's own sweep (``tests/test_kernels.py``)
 at its tolerances, 5e-4 float32 and 5e-2 bfloat16.  The block's functions
 take the reference's weights (``params_from_numpy``) and the same seeded
-NumPy inputs, and agree at 1e-5 in float32 (sums in another order).  The
-kernel has no backward, so a call that needs one is refused on the CPU as
-on the card, and with it ``loss_fn`` of a model with a Mamba layer.
+NumPy inputs, and agree at 1e-5 in float32 (sums in another order).
+Gradients: under grad the wrapper runs through its autograd Function, whose
+CPU backward is autograd of the plain chunked version; its five gradients
+(and the block's six, D-skip included) agree with ``jax.vjp`` of the
+reference's ``_ssd_chunked`` within 1e-5 of each gradient's largest
+magnitude (float32 sums in another order; up to 7e-7 on the CPU), and so
+does ``ref.ssd_split_bwd_ref``, the split the CUDA backward makes (up to
+3e-6 on the CPU, on da_log, a sum over every token).
 """
 import jax
 import jax.numpy as jnp
@@ -106,33 +111,6 @@ def test_ssd_scan_refuses_what_it_cannot_take(case):
             ops.ssd_scan(x, dt, a_log, bm, bm, chunk=16, device="cpu")
 
 
-def test_ssd_scan_refuses_a_call_that_needs_its_backward():
-    x, dt, a_log, bm, cm, _ = (torch.from_numpy(a) for a in _ssd_inputs(
-        np.random.default_rng(5), 1, 16, 2, 8, 1, 8))
-    ins = (x, dt, a_log, bm, cm)
-    for i in range(len(ins)):
-        args = [t.clone().requires_grad_(j == i) for j, t in enumerate(ins)]
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            ss.ssd_scan_cuda(*args, chunk=8)
-    with torch.no_grad():
-        y = ss.ssd_scan_cuda(*(t.clone().requires_grad_() for t in ins),
-                             chunk=8)
-    assert y.grad_fn is None
-    torch.testing.assert_close(y, ss.ssd_scan_cuda(*ins, chunk=8))
-
-
-def test_loss_fn_through_a_mamba_layer_names_the_roadmap_item():
-    cfg = tcfg.smoke_config("mamba2-1.3b")
-    leaves = tree_map(lambda t: t.requires_grad_(), TT.init_params(
-        cfg, torch.Generator().manual_seed(0), device="cpu"))
-    toks = torch.ones((2, 32), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        TT.loss_fn(leaves, cfg, {"tokens": toks, "labels": toks})
-    with torch.no_grad():
-        loss, _ = TT.loss_fn(leaves, cfg, {"tokens": toks, "labels": toks})
-    assert torch.isfinite(loss)
-
-
 def test_ssd_scan_op_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     z = np.zeros((1, 16, 8), np.float32)
@@ -167,6 +145,124 @@ def test_ssd_chunked_matches_reference(s, chunk):
     ty, th = TM._ssd_chunked(*(torch.from_numpy(a) for a in args), tc)
     _close(ty, jy)
     _close(th, jh)
+
+
+def _cotangents(rng, bsz, s, h, p, n, with_state):
+    dy = rng.normal(0, 1, (bsz, s, h, p)).astype(np.float32)
+    dstate = rng.normal(0, 1, (bsz, h, p, n)).astype(np.float32) \
+        if with_state else np.zeros((bsz, h, p, n), np.float32)
+    return dy, dstate
+
+
+def _grad_close(got, want, tol=TOL):
+    """Within ``tol`` of the gradient's largest reference magnitude."""
+    want = np.asarray(want, np.float32)
+    assert tuple(got.shape) == want.shape and np.isfinite(want).all()
+    np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=0,
+                               atol=tol * max(np.abs(want).max(), 1e-6))
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["y", "y+state"])
+@pytest.mark.parametrize("s,chunk", [(32, 8), (30, 8)])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssd_scan_grads_match_reference(groups, s, chunk, with_state):
+    """The Function's five gradients on the CPU against ``jax.vjp`` of the
+    reference's ``_ssd_chunked`` with D = 0 (its D-skip term is added
+    outside the kernel), for cotangents of y and, when ``with_state``, of
+    the final state; S = 30 steps the chunk down to 6 on both sides."""
+    rng = np.random.default_rng(10 * s + groups)
+    bsz, h, p, n = 2, 4, 8, 16
+    args = _ssd_inputs(rng, bsz, s, h, p, groups, n)[:5]
+    dy, dstate = _cotangents(rng, bsz, s, h, p, n, with_state)
+    jc = JM.SSMConfig(d_model=16, d_state=n, head_dim=p, n_groups=groups,
+                      chunk=chunk)
+    _, vjp = jax.vjp(lambda *a: JM._ssd_chunked(*a, jnp.zeros(h), jc),
+                     *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dstate)))
+    ins = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, state = ss.ssd_scan_cuda(*ins, chunk=chunk, final_state=True)
+    assert y.grad_fn is not None and state.grad_fn is not None
+    outs, cots = [y], [torch.from_numpy(dy)]
+    if with_state:
+        outs.append(state)
+        cots.append(torch.from_numpy(dstate))
+    got = torch.autograd.grad(outs, ins, cots)
+    for g, w in zip(got, want):
+        _grad_close(g, w)
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (30, 8), (40, 64)])
+def test_ssd_chunked_grads_match_reference(s, chunk):
+    """The block's scan, D-skip included (``_ssd_chunked``), differentiated
+    for cotangents of y and the final state: six gradients against the
+    reference's."""
+    rng = np.random.default_rng(s + 7)
+    bsz, h, p, g, n = 2, 4, 8, 2, 16
+    args = _ssd_inputs(rng, bsz, s, h, p, g, n)
+    dy, dstate = _cotangents(rng, bsz, s, h, p, n, True)
+    jc = JM.SSMConfig(d_model=16, d_state=n, head_dim=p, n_groups=g,
+                      chunk=chunk)
+    tc = TM.SSMConfig(d_model=16, d_state=n, head_dim=p, n_groups=g,
+                      chunk=chunk)
+    _, vjp = jax.vjp(lambda *a: JM._ssd_chunked(*a, jc),
+                     *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dstate)))
+    ins = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, state = TM._ssd_chunked(*ins, tc)
+    got = torch.autograd.grad([y, state], ins, [torch.from_numpy(dy),
+                                                torch.from_numpy(dstate)])
+    for g_, w in zip(got, want):
+        _grad_close(g_, w)
+
+
+@pytest.mark.parametrize("bsz,s,h,g,p,n,with_state", [
+    (2, 128, 4, 2, 8, 16, True),      # two whole chunks, grouped B/C
+    (2, 130, 4, 1, 16, 16, True),     # a last chunk of two rows
+    (1, 40, 2, 1, 64, 128, False),    # mamba2's head shape, under a chunk
+    (1, 100, 2, 1, 128, 32, True),    # jamba's head dim, two column slices
+    (1, 70, 6, 3, 32, 8, False),      # three groups of two heads
+])
+def test_ssd_split_bwd_matches_chunked_bwd(bsz, s, h, g, p, n, with_state):
+    """The CUDA backward's split, in plain PyTorch, against autograd of the
+    plain chunked version (whose chunk is the whole sequence here), on
+    strided views as the model passes them."""
+    rng = np.random.default_rng(s + p)
+    x, dt, a_log, bm, cm, _ = (torch.from_numpy(a) for a in _ssd_inputs(
+        rng, bsz, s, h, p, g, 2 * n))
+    b_mat, c_mat = bm[..., :n], cm[..., n:]
+    dy, dstate = (torch.from_numpy(a) for a in _cotangents(
+        rng, bsz, s, h, p, n, with_state))
+    dstate = dstate if with_state else None
+    want = ref.ssd_chunked_bwd_ref(x, dt, a_log, b_mat, c_mat, dy, dstate,
+                                   chunk=s)
+    got = ref.ssd_split_bwd_ref(x, dt, a_log, b_mat, c_mat, dy, dstate)
+    for a, w in zip(got, want):
+        _grad_close(a, w.numpy())
+
+
+def test_ssd_scan_takes_the_function_only_under_grad():
+    """Without grad the call is the serving path, with no ``grad_fn`` and
+    the same values; an unused output's gradient is zero, and with no
+    cotangent at all every gradient is zero."""
+    x, dt, a_log, bm, cm, _ = (torch.from_numpy(a) for a in _ssd_inputs(
+        np.random.default_rng(5), 1, 16, 2, 8, 1, 8))
+    ins = (x, dt, a_log, bm, cm)
+    with torch.no_grad():
+        y = ss.ssd_scan_cuda(*(t.clone().requires_grad_() for t in ins),
+                             chunk=8)
+    assert y.grad_fn is None
+    torch.testing.assert_close(y, ss.ssd_scan_cuda(*ins, chunk=8),
+                               rtol=0, atol=0)
+    for i in range(len(ins)):
+        args = [t.clone().requires_grad_(j == i) for j, t in enumerate(ins)]
+        y, state = ss.ssd_scan_cuda(*args, chunk=8, final_state=True)
+        assert type(y.grad_fn).__name__ == "SsdScanBackward"
+        (g,) = torch.autograd.grad(state.sum(), [args[i]])
+        want = ref.ssd_chunked_bwd_ref(*ins, None, torch.ones_like(state),
+                                       chunk=8)[i]
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+    zeros = ref.ssd_chunked_bwd_ref(*ins, None, None, chunk=8)
+    assert all(not z.any() for z in zeros)
 
 
 def _block(seed=0, **kw):

@@ -17,8 +17,8 @@
   ``scale / 64`` of the mean over the data-parallel shards (int8 across
   pods; float within 1e-6), the int8 all-reduce within its analytic bound,
   expert-parallel MoE equal to plain, and sharded smoke olmo-1b (train
-  step, prefill, decode) and mamba2-1.3b (prefill) against the unsharded
-  port.
+  step, prefill, decode) and mamba2-1.3b (prefill, decode and a train
+  step) against the unsharded port.
 """
 import dataclasses
 import json
@@ -433,6 +433,28 @@ def test_mamba_sharded_prefill_matches_unsharded(gloo_results):
         assert r["ssm_global"] == [1, 2, 8, 16, 16]
         assert r["ssm_local"] == [1, 2, 4, 16, 16]
         assert r["ssm_storage"] == [1 * 2 * 4 * 16 * 16 * 4] * 2
+
+
+@pytest.mark.parametrize("layout", ["tp", "dp_tp"])
+def test_mamba_sharded_train_step_matches_unsharded(gloo_results, layout):
+    """One train step of smoke mamba2-1.3b, each rank taking the SSD's
+    backward of its four of the eight heads under ``local_map``: on (data
+    1, model 2) ("tp", ranks 0 and 1) and on (data 2, model 2) with the
+    batch over 'data' ("dp_tp").  Loss and grad norm within 1e-5 relative
+    and the new weights within 1e-5 of the unsharded step (the tolerance of
+    the olmo step above); the step moves the weights by about the lr, so a
+    lost share of a gradient shows (B/C, read by every head, and the conv
+    weights, read by every batch row, take theirs from every rank)."""
+    results = _ok([r[layout] for r in _ok(gloo_results["mamba_train"])])
+    if layout == "tp":
+        assert results[2] == results[3] == {}      # not in the mesh
+        results = results[:2]
+    for r in results:
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(*r[key], rtol=1e-5)
+        assert r["update"] >= 5e-4, r["update"]
+        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+        assert r["a_log_local"] == [1, 4]        # (repeats, local heads)
 
 
 def test_gqa_heads_sharded_per_rank_match_unsharded(gloo_results):

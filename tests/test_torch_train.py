@@ -6,12 +6,13 @@ across (``params_from_numpy``, or the reference's own checkpoint).
 Tolerances, all float32 sums in another order:
 
 * ``pack_tokens``: bit for bit (a NumPy copy);
-* ``loss_fn`` on the smoke config of every arch without a Mamba layer,
-  remat on and off: the loss and its NLL and aux terms within 1e-6
+* ``loss_fn`` on the smoke config of every arch (a Mamba layer's SSD
+  through the ``ssd_scan`` autograd Function), remat on and off: the loss and its NLL and aux terms within 1e-6
   relative, every gradient leaf within 1e-5 of that leaf's largest
   reference magnitude (measured: 5e-7 and 1.5e-6);
-* ``make_train_step``, 1 and 2 microbatches, 3 steps: loss, grad norm and
-  lr within 1e-5 relative, parameters within 1e-5;
+* ``make_train_step`` of olmo-1b and of mamba2-1.3b, 1 and 2
+  microbatches, 3 steps: loss, grad norm and lr within 1e-5 relative,
+  parameters within 1e-5;
 * the ``Trainer``, 12 steps from the reference's step-0 checkpoint: every
   step's loss within 1e-5 relative and the final parameters within 1e-5
   (measured: 1.6e-7 and 7.6e-8).
@@ -51,7 +52,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 LOSS_ARCHS = ("olmo-1b", "yi-6b", "minitron-8b", "qwen1.5-32b",
               "pixtral-12b", "musicgen-large", "mixtral-8x7b",
-              "qwen2-moe-a2.7b")
+              "qwen2-moe-a2.7b", "mamba2-1.3b", "jamba-1.5-large-398b")
 B, S = 2, 64
 
 
@@ -171,6 +172,30 @@ def test_train_step_matches_reference(micro):
     assert int(ts["step"]) == int(js["step"]) == 3
     _assert_tree_close(tp, jp, 1e-5)
     _assert_tree_close(ts["m"], js["m"], 1e-5)
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_mamba_train_step_matches_reference(micro):
+    """Smoke mamba2-1.3b, its SSD differentiated through the ``ssd_scan``
+    autograd Function: three steps against the reference's, at the olmo
+    step's tolerances."""
+    jc, tc, jp, tp = _both("mamba2-1.3b", 8)
+    jo, to = JAdamWConfig(lr=1e-3), AdamWConfig(lr=1e-3)
+    jstep = jax.jit(j_make_train_step(jc, jo, num_microbatches=micro))
+    tstep = make_train_step(tc, to, num_microbatches=micro)
+    js, ts = j_adamw_init(jp, jo), adamw_init(tp, to)
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        batch = _batch(jc, rng, b=4, s=32)
+        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tp, ts, tm = tstep(tp, ts, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+        for key in jm:
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=1e-5, err_msg=key)
+    _assert_tree_close(tp, jp, 1e-5)
+    _assert_tree_close(ts["v"], js["v"], 1e-5)
 
 
 # ---------------------------------------------------------------- trainer --

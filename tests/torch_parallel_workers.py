@@ -260,6 +260,42 @@ def check_mamba(rank: int) -> dict:
             "ssm_global": list(ssm.shape), "ssm_storage": _storage(ssm)}
 
 
+def _mamba_step(mesh, **kw) -> dict:
+    """One train step of smoke mamba2-1.3b on ``mesh`` against the
+    unsharded step on the same weights."""
+    cfg, msd, params, dparams = _lm("mamba2-1.3b", mesh, **kw)
+    batch = {"tokens": _tokens(cfg, 4, 32, 6),
+             "labels": _tokens(cfg, 4, 32, 7)}
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(cfg, opt_cfg)
+    want_p, _, want_m = step(params, adamw_init(params, opt_cfg), batch)
+    specs = param_specs(cfg, params, msd)
+    dopt = distribute_tree(adamw_init(params, opt_cfg),
+                           {"m": specs, "v": specs, "step": P()}, mesh)
+    got_p, _, got_m = step(dparams, dopt, distribute_tree(
+        batch, batch_specs(cfg, batch, msd), mesh))
+    a_log = dparams["blocks"][0]["mamba"]["a_log"]
+    return {"loss": [float(_full(got_m["loss"])), float(want_m["loss"])],
+            "grad_norm": [float(_full(got_m["grad_norm"])),
+                          float(want_m["grad_norm"])],
+            "update": _tree_err(want_p, params)["err"],
+            "params": _tree_err(got_p, want_p),
+            "a_log_local": list(a_log.to_local().shape)}
+
+
+def check_mamba_train(rank: int) -> dict:
+    """One train step of smoke mamba2-1.3b against the unsharded step on
+    the same weights: on (data 1, model 2) over ranks 0 and 1, the SSD's
+    backward on each rank's heads under ``local_map``; then on (data 2,
+    model 2), batch over 'data', over all four."""
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                      mesh_dim_names=("data", "model"))
+    out = {"tp": _mamba_step(mesh) if rank < 2 else {}}
+    out["dp_tp"] = _mamba_step(make_mesh({"data": 2, "model": 2}, "cpu"),
+                               batch_axes=("data",))
+    return out
+
+
 class _Largest(TorchDispatchMode):
     """Records the bytes of the largest plain tensor, off the meta device,
     that an op makes while the mode is on."""
@@ -331,7 +367,8 @@ def check_gqa(rank: int) -> dict:
 
 CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "moe": check_moe, "moe_batch": check_moe_batch, "olmo": check_olmo, "mamba": check_mamba,
-          "gqa": check_gqa, "cache_alloc": check_cache_alloc}
+          "mamba_train": check_mamba_train, "gqa": check_gqa,
+          "cache_alloc": check_cache_alloc}
 
 
 def run(rank: int, init_file: str, out_dir: str) -> None:
