@@ -46,7 +46,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      flight recorder, for their host cost), with host walls;
   6. the same path on a small dataset, card against CPU;
   7. the five apps on the card at the paper-figure block sizes, with the
-     paper's estimate -> plan -> simulate comparison against DVO;
+     paper's estimate -> plan -> simulate comparison against DVO at the
+     tight and firm slacks, through the port's
+     examples.paper_figs.run_app_comparison;
   8. the serving path at full width: olmo-1b (16 layers, d_model 2048,
      float32, random weights from a seed) serves 8 prompts of 1024 tokens
      through ServingEngine.generate (prefill through the flash kernel, then
@@ -84,7 +86,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      yardstick (torch.sum of the same tokens, not the same function);
  15. the examples of repro_torch.examples on the card, each through its
      entry point: cluster_sim, calibrate and quickstart at their defaults,
-     serve_batch on the H100's roofline, train_lm at its 100m preset's full
+     serve_batch on the H100's roofline, bigdata_apps at its defaults,
+     train_lm at its 100m preset's full
      width (163,577,856 parameters) for 30 steps, each one's printed
      numbers finite and its deadlines met where its text says so, with
      walls, and train_lm's steps timed by CUDA events;
@@ -129,7 +132,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      cotangents recorded, the backward kernels' five gradients held against
      autograd of the plain chunked version on the card; then the backward
      kernels timed at (8, 256) and (8, 1024) tokens beside their bound, the
-     plain version, registers and spills.
+     plain version, registers and spills;
+ 19. the dry run (launch/dryrun.py) of olmo-1b train_4k at its two
+     microbatches, mamba2-1.3b train_4k, qwen2-moe-a2.7b train_4k on the
+     512-rank mesh (one microbatch each), jamba long_500k and olmo-1b
+     long_500k (the reference's skip), each cell a child process on the
+     host (meta DTensors over a 256/512-rank fake process group, nothing
+     on the card), one after another after every phase that times the
+     host, with each record's trace wall, FLOPs, collective bytes by kind
+     and memory a device.
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
@@ -161,7 +172,7 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.apps import ALL_APPS, measure_block_seconds  # noqa: E402
+from repro_torch.apps import ALL_APPS  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.cluster import (ClusterReport, NodeReport,  # noqa: E402
                                  NodeSpec, assign_blocks, plan_cluster_arrays,
@@ -170,13 +181,15 @@ from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.core import (CPU_PAPER_POWER, BlockArrays,  # noqa: E402
                               BlockInfo, EstimateArrays,
                               FrequencyLadder, PowerModel, RooflineTimeModel,
-                              plan_dvfs, plan_dvo, plan_dvo_arrays, simulate,
+                              plan_dvo, plan_dvo_arrays, simulate,
                               variety_stats)
 from repro_torch.data import BlockDataset, pack_tokens  # noqa: E402
 from repro_torch.device import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
                                 H100, HBM_BYTES_PER_S)
 from repro_torch.examples import calibrate as ex_calibrate  # noqa: E402
+from repro_torch.examples import bigdata_apps as ex_bigdata_apps  # noqa: E402
 from repro_torch.examples import cluster_sim as ex_cluster_sim  # noqa: E402
+from repro_torch.examples import paper_figs  # noqa: E402
 from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
 from repro_torch.examples import serve_batch as ex_serve_batch  # noqa: E402
 from repro_torch.examples import train_lm as ex_train_lm  # noqa: E402
@@ -184,7 +197,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
-from repro_torch.launch import ssd_bwd_timing  # noqa: E402
+from repro_torch.launch import dryrun, ssd_bwd_timing  # noqa: E402
 from repro_torch.launch.block_stats_timing import (  # noqa: E402
     event_ms, traced)
 from repro_torch.launch.mesh import make_mesh, mesh_shape_dict  # noqa: E402
@@ -234,22 +247,6 @@ MAIN = dict(n_blocks=1024, records_per_block=2048, max_len=256, vocab=32768,
             variety_z=1.0, seed=0)
 CHUNK = 256
 FRACTION = 0.05
-
-# per-app block sizes of the paper figures (copied from
-# benchmarks/paper_figs.py:46-57), 12 blocks each
-APP_BLOCKS = {
-    "wordcount": dict(records_per_block=16384, max_len=128, with_tokens=True),
-    "grep": dict(records_per_block=32768, max_len=128, with_tokens=True),
-    "inverted_index": dict(records_per_block=1024, max_len=128,
-                           with_tokens=True),
-    "avg": dict(records_per_block=1 << 21, max_len=8, with_tokens=False),
-    "sum": dict(records_per_block=1 << 21, max_len=8, with_tokens=False),
-}
-APP_KEYS = {
-    "wordcount": ("tokens",), "grep": ("tokens",), "inverted_index": ("tokens",),
-    "avg": ("values", "group", "select"), "sum": ("values", "group", "select"),
-}
-APP_N_BLOCKS = 12
 
 KERNELS = {
     "block_stats_batched": "src/repro/kernels/block_stats.py:104",
@@ -1375,59 +1372,129 @@ def _app_outputs_agree(name, app, blk) -> None:
 
 
 def phase_apps() -> dict:
+    """The five apps at the reference's block sizes (12 blocks each),
+    through the port's ``examples.paper_figs``: each block and its 5%
+    slice timed on the card (``measure_app``), then ``run_app_comparison``
+    (affine calibration on 3 blocks, plan, simulate against DVO) from those
+    times for the paper planner at the tight and firm slacks."""
     rows = {}
-    for name, sizes in APP_BLOCKS.items():
-        kw = dict(sizes)
+    for name in ex_bigdata_apps.APPS:
+        kw = dict(paper_figs._APP_BLOCKS[name])
         with_tokens = kw.pop("with_tokens")
-        ds = BlockDataset(n_blocks=APP_N_BLOCKS, variety_z=1.0, seed=0, **kw)
-        app = ALL_APPS[name]()
-        rng = np.random.default_rng(0)
-        n = ds.records_per_block
-        k = max(64, int(round(FRACTION * n)))
-        times, t_sub = [], []
-        t_gen = 0.0
-        for i in range(ds.n_blocks):
-            t0 = time.perf_counter()
-            b = ds.block(i, with_tokens=with_tokens)
-            t_gen += time.perf_counter() - t0
-            blk = {key: b[key] for key in APP_KEYS[name]}
-            if i == 0:
-                _app_outputs_agree(name, app, blk)
-            times.append(measure_block_seconds(app, blk, device="cuda"))
-            rows_k = np.sort(rng.choice(n, size=k, replace=False))
-            sub = {key: v[rows_k] for key, v in blk.items()}
-            t_sub.append(measure_block_seconds(app, sub, device="cuda"))
-        times, t_sub = np.asarray(times), np.asarray(t_sub)
-        # benchmarks/paper_figs.py:run_app_comparison, inline: affine
-        # calibration on 3 blocks, paper planner, simulate against DVO
-        calib = [0, ds.n_blocks // 2, ds.n_blocks - 1]
-        x = np.stack([np.ones(len(calib)), t_sub[calib]], axis=1)
-        coef, *_ = np.linalg.lstsq(x, times[calib], rcond=None)
-        est = np.maximum(coef[0] + coef[1] * t_sub, 1e-9)
-        true_blocks = [BlockInfo(i, float(t)) for i, t in enumerate(times)]
-        est_blocks = [BlockInfo(i, float(e)) for i, e in enumerate(est)]
-        deadline = float(times.sum()) * SLACKS[-1]
-        rep = simulate(plan_dvfs(est_blocks, deadline, planner="paper",
-                                 power=POWER), true_blocks, power=POWER)
-        dvo = simulate(plan_dvo(true_blocks, deadline, power=POWER),
-                       true_blocks, power=POWER)
+        ds = BlockDataset(n_blocks=12, variety_z=1.0, seed=0, **kw)
+        b = ds.block(0, with_tokens=with_tokens)
+        _app_outputs_agree(name, ALL_APPS[name](),
+                           {key: b[key] for key in paper_figs._APP_KEYS[name]})
+        times, t_sub = paper_figs.measure_app(name, sample_fraction=FRACTION,
+                                              device="cuda")
+        check(bool(np.isfinite(times).all() and (times > 0).all()),
+              f"{name}: block times are not finite and positive")
+        by_slack = {}
+        for slack in SLACKS:
+            by_slack[slack] = paper_figs.run_app_comparison(
+                name, slack=slack, planner="paper", sample_fraction=FRACTION,
+                power=POWER, device="cuda")
+        firm = by_slack[SLACKS[-1]]
         row = {"ms_per_block": float(times.mean() * 1e3),
                "slice_ms": float(t_sub.mean() * 1e3),
                "cov": float(variety_stats(times).cov),
-               "est_mape": float(np.mean(np.abs(est - times) / times)),
-               "saving_vs_dvo": float(rep.improvement_vs(dvo)),
-               "deadline_met": bool(rep.deadline_met),
-               "generate_s": t_gen}
-        check(bool(np.isfinite(times).all() and (times > 0).all()),
-              f"{name}: block times are not finite and positive")
+               "est_mape": firm["est_mape"],
+               "saving_vs_dvo": firm["energy_improvement"],
+               "deadline_met": bool(firm["deadline_met"]),
+               "by_slack": by_slack}
         rows[name] = row
-        print(f"app {name}: {n} records a block, {row['ms_per_block']:.6f} ms "
+        print(f"app {name}: {ds.records_per_block} records a block, "
+              f"{row['ms_per_block']:.6f} ms "
               f"a block (5% slice {row['slice_ms']:.6f} ms), CoV "
               f"{row['cov']:.6f}, estimate MAPE {row['est_mape']:.6f}, "
               f"simulated saving vs DVO {100 * row['saving_vs_dvo']:+.4f}% "
-              f"(paper power model), deadline_met={row['deadline_met']}, "
-              f"host generation {t_gen:.3f} s")
+              f"(paper power model), deadline_met={row['deadline_met']}")
+        for slack, r in by_slack.items():
+            print(f"  {name} at slack {slack}: Δenergy "
+                  f"{-r['energy_improvement']:+.6%}, Δtime "
+                  f"{r['time_increase']:+.6%}, deadline_met="
+                  f"{r['deadline_met']}, estimate error {r['est_mape']:.6f}")
     return rows
+
+
+# the dry run's cells (arch, shape, multi-pod, microbatches or None for the
+# production count)
+DRYRUN_CELLS = (("olmo-1b", "train_4k", False, None),
+                ("mamba2-1.3b", "train_4k", False, 1),
+                ("qwen2-moe-a2.7b", "train_4k", True, 1),
+                ("jamba-1.5-large-398b", "long_500k", False, None),
+                ("olmo-1b", "long_500k", False, None))
+DRYRUN_TIMEOUT_S = 400
+
+
+def phase_dryrun() -> list:
+    """The dry run's records (``launch/dryrun.py``): olmo-1b train_4k on
+    the single pod at its production two microbatches (the 16-rank 'data'
+    axis split into microbatches), mamba2-1.3b train_4k (the SSD forward
+    and backward on meta) and qwen2-moe-a2.7b train_4k on the multi-pod
+    mesh at one microbatch, jamba long_500k, and olmo-1b long_500k, which
+    the reference skips.  One child process a cell, in turn, after every
+    phase that times the host: CPU work on meta tensors over a 256/512-rank
+    fake process group, which allocates nothing on the card.  Each record's
+    trace wall, FLOPs, collective bytes by kind and memory a device; every
+    cell ok or the reference's skip."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    records = []
+    try:
+        for arch, shape, mp, mb in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out", out_dir]
+            cmd += ["--multi-pod"] if mp else []
+            cmd += ["--microbatches", str(mb)] if mb else []
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                # on a timeout the child is killed before this raises
+                rc = subprocess.run(cmd, env=env, stdout=subprocess.DEVNULL,
+                                    stderr=subprocess.DEVNULL,
+                                    timeout=max(left, 1.0)).returncode
+            except subprocess.TimeoutExpired:
+                check(False, f"the dry run took over {DRYRUN_TIMEOUT_S} s")
+            tag = f"{'mp' if mp else 'sp'}_{arch}_{shape}"
+            path = os.path.join(out_dir, tag + ".json")
+            check(os.path.exists(path),
+                  f"dry run {tag} exited {rc} and wrote no record")
+            with open(path) as f:
+                rec = json.load(f)
+            records.append(rec)
+            check(rc == 0 and rec["status"] != "failed",
+                  f"dry run {tag} failed: {rec.get('error')}")
+            if rec["status"] == "skipped":
+                check(rec["reason"] == dryrun.SKIP_REASON,
+                      f"dry run {tag}: skip reason {rec['reason']!r}")
+                print(f"dryrun {tag}: skipped ({rec['reason']})")
+                continue
+            mem = rec["memory"]
+            coll = rec["collective_bytes_per_device"]
+            check(rec["flops_per_device"] > 0 and coll["total"] > 0
+                  and mem["argument_bytes"] > 0,
+                  f"dry run {tag}: an empty count")
+            print(f"dryrun {tag}: {rec['n_devices']} devices, "
+                  f"{rec['layout']} layout, {rec['microbatches']} "
+                  f"microbatch(es), trace {rec['trace_s']} s; a device: "
+                  f"{rec['flops_per_device']:.6e} FLOP, "
+                  f"{rec['bytes_accessed_per_device']:.6e} bytes accessed "
+                  f"(eager, unfused), collectives "
+                  + ", ".join(f"{k} {v} B ({rec['collective_counts'][k]})"
+                              for k, v in coll.items() if k != "total")
+                  + f", total {coll['total']} B; memory argument "
+                  f"{mem['argument_bytes']} B, output "
+                  f"{mem['output_bytes']} B, temp {mem['temp_bytes']} B "
+                  "(counts from shapes)")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"dry run: {len(records)} cells in "
+          f"{time.perf_counter() - t0:.3f} s of host wall (one process a "
+          "cell, after the card's phases)")
+    return records
 
 
 class TimedEngine(ServingEngine):
@@ -1995,7 +2062,11 @@ def run_example(name: str, fn) -> tuple:
 def phase_examples() -> None:
     """The port's examples on the card, each through its entry point:
     cluster_sim, calibrate and quickstart at their defaults, serve_batch at
-    its defaults on the H100's roofline, train_lm at its 100m preset's full
+    its defaults on the H100's roofline, bigdata_apps at its defaults (its
+    blocks timed on the card anew, not taken from ``phase_apps``'
+    measurement; its numbers finite, its deadlines reported as they are),
+    train_lm at its
+    100m preset's full
     width for 30 steps (its steps timed by CUDA events, apart from the
     checkpoint I/O).  Each one's deadlines are met where the reference's
     text says they are."""
@@ -2033,6 +2104,17 @@ def phase_examples() -> None:
     check(out["n_generated"] == 65 and out["energy"]["busy_j"]
           <= out["energy_dvo"]["busy_j"] * 1.001,
           "serve_batch generated the wrong count or saved nothing")
+
+    paper_figs.clear_measurements()
+    rows, walls["bigdata_apps"] = run_example(
+        "bigdata_apps", lambda: ex_bigdata_apps.main(["--device", "cuda"]))
+    for app, r in rows.items():
+        check(all(np.isfinite(r[k]) for k in (
+            "energy_improvement", "time_increase", "est_mape", "deadline_s",
+            "dvfs_time_s", "dvfs_energy_j")),
+              f"bigdata_apps: {app}'s numbers are not finite")
+    print("  bigdata_apps deadline_met (reported as it is): "
+          + ", ".join(f"{app} {r['deadline_met']}" for app, r in rows.items()))
 
     preset = TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--preset") + 1]
     n_steps = int(TRAIN_LM_ARGS[TRAIN_LM_ARGS.index("--steps") + 1])
@@ -3317,7 +3399,7 @@ def ssd_bound(b, s, h, g, p, n, dtype) -> tuple:
     read-out that every exact algorithm does, at the type's peak rate; x,
     dt, B and C read once and y and the final float32 state written once at
     the memory rate."""
-    flops = 4 * p * n * b * s * h
+    flops = ss.forward_flops(b, s, h, p, n)
     item = dtype.itemsize
     nbytes = (2 * b * s * h * p * item + b * s * h * 4 + h * 4
               + 2 * b * s * g * n * item + b * h * p * n * 4)
@@ -3472,6 +3554,7 @@ def main() -> int:
         "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
         "library_ms": None, "ptxas": mtrain["ptxas"],
         "per_shape": mtrain["per_shape"]})
+    phase_dryrun()
     print(f"total wall: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

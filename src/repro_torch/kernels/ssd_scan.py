@@ -38,6 +38,13 @@ float32 only, no atomics: two calls give the same bits), counted in
 ``LAUNCHES["ssd_scan_bwd"]``.  It recomputes the chunk-entry states, so
 the forward writes nothing more for it.  Without grad the call is the
 serving path as it was.
+
+Meta tensors (shapes only, as the dry run lays a model out) are a third
+route of their own: the forward gives y in x's type and the float32 final
+state, and ``SsdScan``'s backward the five float32 gradients the card's
+backward gives, all on ``meta``; nothing is launched and ``LAUNCHES`` does
+not move.  ``META_FLOPS`` adds up the operations of those calls by the
+count the kernels' bounds use (``forward_flops``, ``backward_flops``).
 """
 from __future__ import annotations
 
@@ -55,7 +62,8 @@ __all__ = ["LAUNCHES", "SIZES", "DEVICE_KERNELS", "BWD_DEVICE_KERNELS",
            "reset_launches", "p_slice", "n_chunks", "scratch_shape", "ctas",
            "fmas", "smem_bytes", "occupancy", "bwd_scratch_bytes",
            "bwd_fmas", "bwd_occupancy", "SsdScan", "ssd_scan_cuda",
-           "ssd_scan_bwd_cuda"]
+           "ssd_scan_bwd_cuda", "META_FLOPS", "reset_meta_flops",
+           "forward_flops", "flops_per_token_head", "backward_flops"]
 
 SOURCE = "ssd_scan.cu"
 BWD_SOURCE = "ssd_scan_bwd.cu"
@@ -70,9 +78,53 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
+# operations of the calls on meta tensors (no launch), by the bounds' count;
+# the dry run reads them
+META_FLOPS = {"ssd_scan": 0.0, "ssd_scan_bwd": 0.0}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def reset_meta_flops() -> None:
+    for name in META_FLOPS:
+        META_FLOPS[name] = 0.0
+
+
+def forward_flops(bsz: int, s: int, h: int, p: int, n: int) -> int:
+    """Operations of the forward's bound: 4 P N a (token, head), the
+    state's update and read-out that every exact algorithm does."""
+    return 4 * p * n * bsz * s * h
+
+
+def flops_per_token_head(s: int, p: int, n: int) -> tuple:
+    """(float32 operations a (token, head), chunk length L) of the least
+    exact backward we can argue, for a cotangent of y alone.
+
+    Every (token, head) takes five products the size of the state, 2 P N
+    operations each (P N FMAs): the state entering its chunk recomputed
+    (the sum of u_j B_j^T), the state's cotangent (the sum of dy_i C_i^T),
+    and the inter-chunk terms of dC (h_{c-1}^T dy_i), du (dh_c B_j) and dB
+    (dh_c^T u_j): 10 P N.  A chunk of L rows adds, once for each (chunk,
+    head), the decay of the state and of its cotangent (P N each) and d a's
+    state term <dh_c, h_{c-1}> (2 P N): 4 P N / L a token; and, over its
+    L (L + 1) / 2 causal pairs (i >= j), C_i.B_j (2 N), dy_i.u_j (2 P) and
+    the pair's shares of du (2 P), dC (2 N) and dB (2 N): (L + 1)(2 P + 3 N)
+    a token.  L is the one in 1..S that makes the sum least (8 at P = 64,
+    N = 128: 11.0625 P N).  Terms of order P or N alone (the exponential
+    scalings of B_j and C_i, d seg, the group sums) are left out, which only
+    lowers the count."""
+    return min((10 * p * n + 4 * p * n / L + (L + 1) * (2 * p + 3 * n), L)
+               for L in range(1, s + 1))
+
+
+
+def backward_flops(bsz: int, s: int, h: int, p: int, n: int) -> float:
+    """Operations of the backward's bound: ``flops_per_token_head`` for
+    each of the B S H (token, head)s (11.0625 P N at P = 64, N = 128)."""
+    return flops_per_token_head(s, p, n)[0] * bsz * s * h
 
 
 def p_slice(p: int) -> int:
@@ -155,7 +207,7 @@ def _check(x, dt, a_log, b_mat, c_mat) -> None:
     for name, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-        if t.device.type not in ("cpu", "cuda"):
+        if t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{name} on unsupported device {t.device}")
     for name, t, rank in (("x", x, 4), ("dt", dt, 3), ("a_log", a_log, 1),
                           ("b_mat", b_mat, 4), ("c_mat", c_mat, 4)):
@@ -208,9 +260,12 @@ def _scan(x, dt, a_log, b_mat, c_mat, chunk: int,
           final_state: bool = True) -> tuple:
     """(y, final state) of inputs that satisfy ``_check``: the plain
     chunked version on a CPU tensor, the CUDA kernels on a CUDA tensor
-    (which write the state only when ``final_state``; else it is None)."""
+    and shapes alone on a meta tensor (both of which give the state only
+    when ``final_state``; else it is None)."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, chunk=chunk)
+    if x.device.type == "meta":
+        return _meta_scan(x, b_mat, final_state)
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     x, b_mat, c_mat = prepare(x), prepare(b_mat), prepare(c_mat)
@@ -236,10 +291,31 @@ def _scan(x, dt, a_log, b_mat, c_mat, chunk: int,
     return y, state
 
 
+def _meta_scan(x, b_mat, final_state: bool) -> tuple:
+    """(y, final state or None) of meta inputs: shapes and types only."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    META_FLOPS["ssd_scan"] += forward_flops(bsz, s, h, p, n)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32,
+                        device="meta") if final_state else None
+    return torch.empty(x.shape, dtype=x.dtype, device="meta"), state
+
+
+def _meta_grads(x, dt, a_log, b_mat, c_mat) -> tuple:
+    """The backward's five gradients of meta inputs, float32 of each
+    input's shape as the backward kernels write them."""
+    bsz, s, h, p = x.shape
+    META_FLOPS["ssd_scan_bwd"] += backward_flops(bsz, s, h, p,
+                                                 b_mat.shape[3])
+    return tuple(torch.empty(t.shape, dtype=torch.float32, device="meta")
+                 for t in (x, dt, a_log, b_mat, c_mat))
+
+
 class SsdScan(torch.autograd.Function):
     """(y, final state) of the SSD scan, with its backward: on a CPU tensor
     autograd of the plain chunked version, on a CUDA tensor the backward
-    kernels.  A gradient that is None (y or the state unused) is zero."""
+    kernels, on a meta tensor the gradients' shapes and types.  A
+    gradient that is None (y or the state unused) is zero."""
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b_mat, c_mat, chunk: int):
@@ -254,6 +330,8 @@ class SsdScan(torch.autograd.Function):
         if x.device.type == "cpu":
             grads = ssd_chunked_bwd_ref(x, dt, a_log, b_mat, c_mat, dy,
                                         dstate, chunk=ctx.chunk)
+        elif x.device.type == "meta":
+            grads = _meta_grads(x, dt, a_log, b_mat, c_mat)
         else:
             grads = ssd_scan_bwd_cuda(x, dt, a_log, b_mat, c_mat, dy, dstate)
         return (*grads, None)

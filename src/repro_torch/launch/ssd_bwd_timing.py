@@ -53,34 +53,14 @@ def inputs(rng, b: int, s: int, dev) -> tuple:
             normal(b, s, h, p))
 
 
-def flops_per_token_head(s: int, p: int, n: int) -> tuple:
-    """(float32 operations a (token, head), chunk length L) of the least
-    exact backward we can argue, for a cotangent of y alone.
-
-    Every (token, head) takes five products the size of the state, 2 P N
-    operations each (P N FMAs): the state entering its chunk recomputed
-    (the sum of u_j B_j^T), the state's cotangent (the sum of dy_i C_i^T),
-    and the inter-chunk terms of dC (h_{c-1}^T dy_i), du (dh_c B_j) and dB
-    (dh_c^T u_j): 10 P N.  A chunk of L rows adds, once for each (chunk,
-    head), the decay of the state and of its cotangent (P N each) and d a's
-    state term <dh_c, h_{c-1}> (2 P N): 4 P N / L a token; and, over its
-    L (L + 1) / 2 causal pairs (i >= j), C_i.B_j (2 N), dy_i.u_j (2 P) and
-    the pair's shares of du (2 P), dC (2 N) and dB (2 N): (L + 1)(2 P + 3 N)
-    a token.  L is the one in 1..S that makes the sum least (8 at P = 64,
-    N = 128: 11.0625 P N).  Terms of order P or N alone (the exponential
-    scalings of B_j and C_i, d seg, the group sums) are left out, which only
-    lowers the count."""
-    return min((10 * p * n + 4 * p * n / L + (L + 1) * (2 * p + 3 * n), L)
-               for L in range(1, s + 1))
-
-
 def bound(b: int, s: int, h: int, g: int, p: int, n: int) -> dict:
     """The least time (ms) an H100 could take for the SSD backward at this
-    shape in float32, the larger of its operations (``flops_per_token_head``
-    for each of B S H (token, head)s) at the float32 rate and its bytes
+    shape in float32, the larger of its operations
+    (``ss.flops_per_token_head`` for each of B S H (token, head)s) at the
+    float32 rate and its bytes
     (x, dy, dt, B, C and a_log read once; dx, ddt, dB, dC and da_log
     written once) at the memory rate."""
-    per, chunk = flops_per_token_head(s, p, n)
+    per, chunk = ss.flops_per_token_head(s, p, n)
     flops = int(round(per * b * s * h))
     nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n
                   + 2 * h)

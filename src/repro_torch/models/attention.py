@@ -33,14 +33,14 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.common import apply_rope, normal
+from repro_torch.models.common import LeafShape, apply_rope, normal
 from repro_torch.parallel.shards import head_roles, layout, mesh_of, on_shards
 
 NEG_INF = -1e30
 
 __all__ = ["AttnDims", "init_attention", "attention_train",
-           "attention_decode", "init_attention_cache", "fill_attention_cache",
-           "attn_flops"]
+           "attention_decode", "attention_cache_shapes",
+           "init_attention_cache", "fill_attention_cache", "attn_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,29 +304,36 @@ def _wedge_causal(qg, k, v, swa_window, chunk):
 
 # ------------------------------------------------------------- decode -------
 
+def attention_cache_shapes(batch: int, max_len: int, dims: AttnDims, dtype,
+                           *, kv_quant: bool = False, swa_window=None
+                           ) -> dict:
+    """``init_attention_cache``'s leaves as ``LeafShape``s. SWA archs use a
+    ring buffer of size window."""
+    length = min(max_len, swa_window) if swa_window else max_len
+    kv = (batch, length, dims.n_kv_phys, dims.d_head)
+    if kv_quant:
+        scale = kv[:-1] + (1,)
+        cache = {"k_q": LeafShape(kv, torch.int8),
+                 "v_q": LeafShape(kv, torch.int8),
+                 "k_s": LeafShape(scale, torch.float32),
+                 "v_s": LeafShape(scale, torch.float32)}
+    else:
+        cache = {"k": LeafShape(kv, dtype), "v": LeafShape(kv, dtype)}
+    if swa_window:
+        cache["slot_pos"] = LeafShape((length,), torch.int32)
+    return cache
+
+
 def init_attention_cache(batch: int, max_len: int, dims: AttnDims, dtype,
                          *, kv_quant: bool = False, swa_window=None,
                          device="cuda") -> dict:
-    """Cache dict of tensors on ``device``. SWA archs use a ring buffer of
-    size window."""
-    length = min(max_len, swa_window) if swa_window else max_len
-    g, dh = dims.n_kv_phys, dims.d_head
-    z = dict(device=device)
-    if kv_quant:
-        cache = {"k_q": torch.zeros((batch, length, g, dh), dtype=torch.int8,
-                                    **z),
-                 "v_q": torch.zeros((batch, length, g, dh), dtype=torch.int8,
-                                    **z),
-                 "k_s": torch.zeros((batch, length, g, 1),
-                                    dtype=torch.float32, **z),
-                 "v_s": torch.zeros((batch, length, g, 1),
-                                    dtype=torch.float32, **z)}
-    else:
-        cache = {"k": torch.zeros((batch, length, g, dh), dtype=dtype, **z),
-                 "v": torch.zeros((batch, length, g, dh), dtype=dtype, **z)}
-    if swa_window:
-        cache["slot_pos"] = torch.full((length,), -1, dtype=torch.int32, **z)
-    return cache
+    """Cache dict of tensors on ``device``: zeros, but a ring buffer's slot
+    positions, -1."""
+    return {k: torch.full(s.shape, -1 if k == "slot_pos" else 0,
+                          dtype=s.dtype, device=device)
+            for k, s in attention_cache_shapes(
+                batch, max_len, dims, dtype, kv_quant=kv_quant,
+                swa_window=swa_window).items()}
 
 
 def _quantize_kv(x):

@@ -8,6 +8,7 @@ Initialisers draw from a ``torch.Generator`` on that device; the JAX package's
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -19,7 +20,17 @@ from repro_torch.parallel.shards import gather_dim, replicate_like
 __all__ = ["rms_norm", "layer_norm_nonparam", "make_norm", "init_norm",
            "apply_norm", "rope_frequencies", "apply_rope", "init_mlp",
            "apply_mlp", "mlp_flops", "chunked_cross_entropy",
-           "init_embedding", "embed_tokens", "normal", "MetaGenerator"]
+           "init_embedding", "embed_tokens", "normal", "MetaGenerator",
+           "LeafShape"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShape:
+    """A tensor's shape and dtype, allocating nothing: a leaf of a shape
+    tree (a tuple would be taken for a node of the tree)."""
+
+    shape: tuple
+    dtype: torch.dtype
 
 
 class MetaGenerator:

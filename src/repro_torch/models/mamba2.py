@@ -32,11 +32,12 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-from repro_torch.models.common import normal, rms_norm
+from repro_torch.models.common import LeafShape, normal, rms_norm
 from repro_torch.parallel.shards import head_roles, layout, mesh_of, on_shards
 
 __all__ = ["SSMConfig", "init_mamba", "mamba_train", "mamba_prefill",
-           "mamba_decode", "init_mamba_cache", "mamba_flops"]
+           "mamba_decode", "mamba_cache_shapes", "init_mamba_cache",
+           "mamba_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,17 +202,22 @@ def mamba_prefill(params, u, cfg: SSMConfig):
     return out, {"conv_x": cache_x, "conv_bc": cache_bc, "ssm": hlast}
 
 
+def mamba_cache_shapes(batch: int, cfg: SSMConfig, dtype=torch.float32
+                       ) -> dict:
+    """``init_mamba_cache``'s leaves as ``LeafShape``s."""
+    return {
+        "conv_x": LeafShape((batch, cfg.d_conv - 1, cfg.d_inner), dtype),
+        "conv_bc": LeafShape((batch, cfg.d_conv - 1, cfg.d_bc), dtype),
+        "ssm": LeafShape((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
+                         torch.float32),
+    }
+
+
 def init_mamba_cache(batch: int, cfg: SSMConfig, dtype=torch.float32,
                      device="cuda") -> dict:
     dev = resolve_device(device)
-    return {
-        "conv_x": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
-                              dtype=dtype, device=dev),
-        "conv_bc": torch.zeros((batch, cfg.d_conv - 1, cfg.d_bc),
-                               dtype=dtype, device=dev),
-        "ssm": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
-                           dtype=torch.float32, device=dev),
-    }
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+            for k, s in mamba_cache_shapes(batch, cfg, dtype).items()}
 
 
 def mamba_decode(params, u, cache: dict, cfg: SSMConfig):

@@ -36,13 +36,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
-from repro_torch.models.common import (MetaGenerator, apply_mlp,
+from repro_torch.models.common import (LeafShape, MetaGenerator, apply_mlp,
                                        apply_norm, chunked_cross_entropy,
                                        embed_tokens, init_embedding, init_mlp,
                                        init_norm, normal)
@@ -162,16 +163,18 @@ def _index(tree, i: int):
 
 # ---------------------------------------------------------------- forward ---
 
-def _pin_batch(cfg: ArchConfig, x):
+def _pin_batch(cfg: ArchConfig, x, batch: int | None = None):
     """Pin the batch dim of an activation DTensor to ``cfg.batch_axes``:
     dim 0 sharded over as many of them as divide it (``batch_specs``'s rule),
-    replicated over the other mesh dims.  A plain tensor lies on no mesh,
-    so there it is the identity: the values are the same either way."""
+    replicated over the other mesh dims.  ``batch``, for the (B·S, d) rows
+    of a (B, S, d) activation, is B: the rows are then sharded as the B
+    rows are.  A plain tensor lies on no mesh, so there it is the
+    identity: the values are the same either way."""
     if not cfg.batch_axes or not is_dtensor(x):
         return x
     mesh = x.device_mesh
     axes = tuple(cfg.batch_axes)
-    spec = _batch_dim_spec(x.shape, mesh_shape_dict(mesh),
+    spec = _batch_dim_spec((batch or x.shape[0],), mesh_shape_dict(mesh),
                            axes if len(axes) > 1 else axes[0])
     return x.redistribute(mesh, placements(spec, mesh))
 
@@ -198,8 +201,13 @@ def _ffn(cfg: ArchConfig, spec: LayerSpec, p: dict, x):
     if spec.ffn == "dense":
         return x + apply_mlp(p["mlp"], h, cfg.mlp_kind), None
     b, s, d = h.shape
-    out, aux = moe.apply_moe(p["moe"], h.reshape(b * s, d), cfg.moe)
-    return x + out.reshape(b, s, d), aux
+    # the B·S rows laid out as the B rows are, on both sides of the MoE, so
+    # that neither they nor their gradient reach the (B, S) split spread
+    # over more ranks than B rows divide (DTensor may spread them over all
+    # three mesh dims of a 512-rank mesh)
+    out, aux = moe.apply_moe(
+        p["moe"], _pin_batch(cfg, h.reshape(b * s, d), b), cfg.moe)
+    return x + _pin_batch(cfg, out, b).reshape(b, s, d), aux
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch) -> tuple:
@@ -282,54 +290,87 @@ def loss_fn(params, cfg: ArchConfig, batch):
 
 def _logits(params, cfg: ArchConfig, h):
     if cfg.n_codebooks:
-        return torch.einsum("bd,kdv->bkv", h, params["lm_head"])
+        # the reference's einsum "bd,kdv->bkv", one codebook's product at a
+        # time: einsum folds (k, v) into one dim, which DTensor (torch 2.11)
+        # refuses where the vocab is sharded
+        return torch.stack([h @ w for w in params["lm_head"].unbind(0)],
+                           dim=1)
     return h @ params["lm_head"]
 
 
 # ----------------------------------------------------------------- decode ---
+
+def cache_leaf_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype=torch.float32) -> dict:
+    """``init_cache``'s tree with ``LeafShape`` leaves: the shapes and
+    dtypes alone, allocating nothing."""
+    blocks = []
+    for spec in cfg.pattern:
+        if spec.mixer == "attn":
+            one = attn.attention_cache_shapes(
+                batch, max_len, _dims(cfg), dtype, kv_quant=cfg.kv_quant,
+                swa_window=cfg.swa_window)
+        else:
+            one = mamba2.mamba_cache_shapes(batch, cfg.ssm, dtype)
+        blocks.append({k: LeafShape((cfg.n_repeats,) + v.shape, v.dtype)
+                       for k, v in one.items()})
+    return {"blocks": tuple(blocks), "pos": 0}
+
+
+def _cache_fill(keys) -> int:
+    """A cache leaf's first value: zero, but a ring buffer's slot
+    positions, -1 (as ``attention.init_attention_cache`` fills them)."""
+    return -1 if keys[-1] == "slot_pos" else 0
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda", mesh=None):
     """Cache: tuple over pattern positions, leading dim = n_repeats; ``pos``
     is the next position, a Python int.
 
-    With ``mesh`` (a ``DeviceMesh`` of ``device``'s type) each leaf is a
-    DTensor laid out by ``parallel.cache_specs`` and allocated at its
-    shard's shape: no rank ever holds the whole cache."""
+    With ``mesh`` (a ``DeviceMesh`` of ``device``'s type, or any mesh for
+    ``device="meta"``) each leaf is a DTensor laid out by
+    ``parallel.cache_specs`` and allocated at its shard's shape: no rank
+    ever holds the whole cache."""
     dev = resolve_device(device)
     _check_ported(cfg)
+    shapes = cache_leaf_shapes(cfg, batch, max_len, dtype)
     if mesh is not None:
-        if mesh.device_type != dev.type:
+        if dev.type not in ("meta", mesh.device_type):
             raise ValueError(f"a {dev.type} cache on a {mesh.device_type} "
                              "mesh")
-        return _cache_shards(init_cache(cfg, batch, max_len, dtype, "meta"),
-                             cfg, mesh)
-    blocks = []
-    for spec in cfg.pattern:
-        if spec.mixer == "attn":
-            one = attn.init_attention_cache(
-                batch, max_len, _dims(cfg), dtype, kv_quant=cfg.kv_quant,
-                swa_window=cfg.swa_window, device=dev)
-        else:
-            one = mamba2.init_mamba_cache(batch, cfg.ssm, dtype, device=dev)
-        blocks.append({k: v.expand((cfg.n_repeats,) + v.shape).clone()
-                       for k, v in one.items()})
-    return {"blocks": tuple(blocks), "pos": 0}
+        return _cache_shards(shapes, cfg, mesh, dev)
+    return tree_map_with_keys(
+        lambda keys, s: torch.full(s.shape, _cache_fill(keys), dtype=s.dtype,
+                                   device=dev)
+        if isinstance(s, LeafShape) else s, shapes)
 
 
-def _cache_shards(shapes, cfg: ArchConfig, mesh):
-    """The cache of ``shapes`` (meta tensors) as DTensors on ``mesh``, each
-    rank allocating its own shard.  Every leaf starts as one value: zero,
-    but a ring buffer's slot positions, -1 (as
-    ``attention.init_attention_cache`` fills them)."""
+def _cache_shards(shapes, cfg: ArchConfig, mesh, dev: torch.device):
+    """The cache of ``shapes`` (``cache_leaf_shapes``) as DTensors on
+    ``mesh``, each rank allocating its own shard on ``dev`` (the mesh's
+    device, or meta), filled as ``_cache_fill`` says; a meta shard holds no
+    values."""
     specs = cache_specs(cfg, shapes, mesh_shape_dict(mesh))
 
     def alloc(keys, t, spec):
-        if not isinstance(t, torch.Tensor):
+        if not isinstance(t, LeafShape):
             return t                                   # ``pos``
+        pl = placements(spec, mesh)
+        if dev.type == "meta":
+            # the shard's shape, from a view of one element
+            one = torch.empty_strided(t.shape, (0,) * len(t.shape),
+                                      dtype=t.dtype, device="meta")
+            shard = distribute_tensor(one, mesh, pl, src_data_rank=None)
+            stride = tuple(int(np.prod(t.shape[i + 1:]))
+                           for i in range(len(t.shape)))
+            return DTensor.from_local(
+                torch.empty(shard.to_local().shape, dtype=t.dtype,
+                            device="meta"),
+                mesh, pl, run_check=False, shape=t.shape, stride=stride)
         return torch.distributed.tensor.full(
-            t.shape, -1 if keys[-1] == "slot_pos" else 0, dtype=t.dtype,
-            device_mesh=mesh, placements=placements(spec, mesh))
+            t.shape, _cache_fill(keys), dtype=t.dtype, device_mesh=mesh,
+            placements=pl)
 
     return tree_map_with_keys(alloc, shapes, specs)
 

@@ -33,7 +33,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, linear_warmup_cosine)
-from repro_torch.parallel.shards import is_dtensor, replicate_like
+from repro_torch.parallel.shards import (gather_dim, is_dtensor, match,
+                                         replicate_like)
 from repro_torch.train.dvfs_controller import (DVFSController, EnergyLedger,
                                                SimulatedActuator)
 from repro_torch.train.straggler import StragglerDetector
@@ -130,13 +131,26 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
             grads = pin_grads(grads)
         else:
             m = num_microbatches
+            for k, v in batch.items():
+                if v.shape[0] % m:
+                    # the reference's reshape to (m, B // m, ...) refuses it
+                    raise ValueError(
+                        f"batch leaf {k!r} has {v.shape[0]} rows, not "
+                        f"divisible into {m} microbatches")
             gsum = pin_grads(tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.float32), params))
             lsum = replicate_like(torch.zeros(
                 (), dtype=torch.float32, device=tree_leaves(params)[0].device),
                 tree_leaves(params)[0])
+            # microbatch i is the reference's rows [i B/m, (i+1) B/m),
+            # sliced from each leaf gathered along its rows (one all-gather
+            # a leaf a step) and laid out as the leaf was; a rank's own rows
+            # split m ways would be other rows, and another loss, once the
+            # batch is sharded over more ranks than m
+            whole = {k: gather_dim(v, 0) for k, v in batch.items()}
             for i in range(m):
-                mb = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])[i]
+                mb = {k: match(whole[k][i * (v.shape[0] // m):
+                                        (i + 1) * (v.shape[0] // m)], v)
                       for k, v in batch.items()}
                 l, g = value_and_grad(params, mb)
                 gsum = pin_grads(tree_map(lambda a, b: a + b.float(), gsum,

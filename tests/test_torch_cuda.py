@@ -352,6 +352,48 @@ def test_cuda_apps_match_cpu(cuda, name):
                                           cpu[key].numpy())
 
 
+def test_cuda_bigdata_apps_compares_grep_on_the_card(cuda, monkeypatch):
+    """``examples.paper_figs.run_app_comparison`` for grep with every block
+    timed on the card (CUDA events), on 12 blocks of 2048 records (the
+    reference's 32768 take long to generate): positive block times, finite
+    savings and times at both slacks, the estimates calibrated on three
+    blocks, and the same measurements for every slack and planner (the
+    reference's cache)."""
+    from repro_torch.examples import paper_figs
+    monkeypatch.setattr(paper_figs, "_MEASURE_CACHE", {})
+    monkeypatch.setitem(paper_figs._APP_BLOCKS, "grep", dict(
+        paper_figs._APP_BLOCKS["grep"], records_per_block=2048))
+    rows = [paper_figs.run_app_comparison("grep", planner=planner,
+                                          slack=slack, device=cuda)
+            for planner in ("paper", "global")
+            for slack in paper_figs.SLACK.values()]
+    (times, t_sub), = paper_figs._MEASURE_CACHE.values()
+    assert times.shape == t_sub.shape == (12,)
+    assert (times > 0).all() and (t_sub > 0).all()
+    for r in rows:
+        for key in ("energy_improvement", "time_increase", "est_mape",
+                    "dvfs_energy_j", "dvo_energy_j", "deadline_s"):
+            assert np.isfinite(r[key]), (key, r)
+        assert r["deadline_s"] == pytest.approx(times.sum() * r["slack"])
+        assert r["dvo_time_s"] == pytest.approx(times.sum())
+
+
+def test_cuda_bigdata_apps_example_prints_its_table(cuda, monkeypatch,
+                                                   capsys):
+    """``python -m repro_torch.examples.bigdata_apps`` on the card (blocks
+    cut as above for every app): one row an app, every number finite."""
+    from repro_torch.examples import bigdata_apps, paper_figs
+    monkeypatch.setattr(paper_figs, "_MEASURE_CACHE", {})
+    for app in bigdata_apps.APPS:
+        monkeypatch.setitem(paper_figs._APP_BLOCKS, app, dict(
+            paper_figs._APP_BLOCKS[app], records_per_block=2048))
+    rows = bigdata_apps.main(["--device", "cuda"])
+    text = capsys.readouterr().out
+    assert list(rows) == list(bigdata_apps.APPS)
+    assert all(f"\n{app} " in "\n" + text for app in bigdata_apps.APPS)
+    assert "nan" not in text.lower() and "inf " not in text.lower()
+
+
 # (dtype, B, Hq, Hkv, S, D, causal, window, layout): layout "view" is the
 # model's (B, H, S, D) view of a (B, S, H, D) tensor, "contig" a contiguous
 # tensor, "padded" a view of (B, S, H, D + 2) rows, whose S stride is no

@@ -15,7 +15,12 @@ with them the plans and the ledgers, are the same on both sides:
 * serving (``spec=V5E`` on both sides): the reference's greedy tokens,
   ledger step counts, window frequencies and saving, and its printed text.
 
-Asked for a card that is not there, each of the three raises before any
+``examples.paper_figs.run_app_comparison`` returns the reference's dict
+exactly for every app, planner and slack, and ``bigdata_apps`` prints the
+reference's text, when both packages time a block by one deterministic
+function of it (on smaller blocks of the same kinds).
+
+Asked for a card that is not there, each of the four raises before any
 work.  The launcher's roofline is the H100's unless a ``spec`` is given.
 """
 import dataclasses
@@ -38,8 +43,9 @@ import repro_torch.serve.engine as tserve
 import repro_torch.train.loop as tloop
 from repro_torch.core import V5E
 from repro_torch.device import F32_FLOPS, H100, HBM_BYTES_PER_S
-from repro_torch.examples import (calibrate, cluster_sim, quickstart,
-                                  serve_batch, train_lm)
+from repro_torch.examples import (bigdata_apps, calibrate, cluster_sim,
+                                  paper_figs, quickstart, serve_batch,
+                                  train_lm)
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
@@ -255,14 +261,92 @@ def test_the_card_roofline_is_the_h100s(capsys):
         assert terms.t_mem == 2 * p / H100.hbm_bw
 
 
+# ---------------------------------------------------------- bigdata_apps ---
+
+def _fake_block_seconds(app, block, **kw):
+    """A deterministic "measurement" of one block, the same in both
+    packages: 10 us plus 1 us a non-zero entry (tokens that are not
+    padding, selected rows, ...), so blocks differ as their data do."""
+    nonzero = sum(int(np.count_nonzero(np.asarray(v)))
+                  for v in block.values())
+    return 1e-5 + 1e-6 * nonzero
+
+
+@pytest.fixture
+def small_app_blocks(monkeypatch):
+    """Both packages' paper_figs with the deterministic clock above and the
+    same smaller blocks: the reference's sizes (up to 2**21 records a
+    block, 12 blocks an app) take minutes to generate on the host.  The
+    measurement caches start empty."""
+    import benchmarks.paper_figs as jfigs
+    sizes = {"wordcount": 1024, "grep": 2048, "inverted_index": 256,
+             "avg": 8192, "sum": 8192}
+    for mod in (jfigs, paper_figs):
+        monkeypatch.setattr(mod, "measure_block_seconds",
+                            _fake_block_seconds)
+        monkeypatch.setattr(mod, "_MEASURE_CACHE", {})
+        for app, n in sizes.items():
+            monkeypatch.setitem(mod._APP_BLOCKS, app, dict(
+                mod._APP_BLOCKS[app], records_per_block=n))
+    return jfigs
+
+
+def test_paper_figs_copies_the_reference_tables():
+    import benchmarks.paper_figs as jfigs
+    for name in ("SLACK", "_FEATURES", "_APP_BLOCKS", "_APP_KEYS"):
+        assert getattr(paper_figs, name) == getattr(jfigs, name), name
+
+
+@pytest.mark.parametrize("app", bigdata_apps.APPS)
+def test_run_app_comparison_equals_the_reference(app, small_app_blocks):
+    """Every planner and slack (tight and firm): the reference's dict,
+    exactly, on the same blocks, draws and calibration."""
+    for planner in ("paper", "global"):
+        for slack in paper_figs.SLACK.values():
+            want = small_app_blocks.run_app_comparison(
+                app, planner=planner, slack=slack)
+            got = paper_figs.run_app_comparison(
+                app, planner=planner, slack=slack, device="cpu")
+            assert got == want
+
+
+def test_measure_app_is_what_run_app_comparison_plans_from(small_app_blocks,
+                                                           monkeypatch):
+    """``measure_app`` with ``run_app_comparison``'s arguments gives the
+    times the comparison plans from (its DVO run takes their sum), measured
+    once; ``clear_measurements`` makes the next call measure anew."""
+    calls = []
+    monkeypatch.setattr(paper_figs, "measure_block_seconds",
+                        lambda *a, **kw: calls.append(1)
+                        or _fake_block_seconds(*a, **kw))
+    times, t_sub = paper_figs.measure_app("grep", device="cpu")
+    assert times.shape == t_sub.shape == (12,) and len(calls) == 24
+    r = paper_figs.run_app_comparison("grep", device="cpu")
+    assert r["dvo_time_s"] == pytest.approx(times.sum()) and len(calls) == 24
+    paper_figs.clear_measurements()
+    again, _ = paper_figs.measure_app("grep", device="cpu")
+    assert len(calls) == 48 and np.array_equal(again, times)
+
+
+def test_bigdata_apps_prints_the_reference_text(small_app_blocks,
+                                                monkeypatch, capsys):
+    for argv in ([], ["--planner", "global", "--slack", "1.08"]):
+        want = _reference("bigdata_apps", monkeypatch, capsys, *argv)
+        rows = bigdata_apps.main(argv + ["--device", "cpu"])
+        assert capsys.readouterr().out == want
+        assert list(rows) == list(bigdata_apps.APPS)
+
+
 # ------------------------------------------------------- device refusals ---
 
 @pytest.mark.parametrize("run", [
     lambda tmp: quickstart.main([]),
     lambda tmp: train_lm.main(["--steps", "2", "--ckpt-dir", str(tmp)]),
     lambda tmp: serve_batch.main([]),
-    lambda tmp: serve_batch.serve(device="cuda")],
-    ids=["quickstart", "train_lm", "serve_batch", "serve_batch.serve"])
+    lambda tmp: serve_batch.serve(device="cuda"),
+    lambda tmp: bigdata_apps.main([])],
+    ids=["quickstart", "train_lm", "serve_batch", "serve_batch.serve",
+         "bigdata_apps"])
 def test_example_refuses_a_missing_card(run, monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

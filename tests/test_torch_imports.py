@@ -1,5 +1,11 @@
 """The port imports neither JAX nor anything of the JAX package ``repro``.
 
+Every module of the JAX package has its counterpart in the port
+(``launch/hloparse.py``'s is ``launch/commcount.py``).  The dry run, its
+collective counter and the ``bigdata_apps`` example with its
+``paper_figs`` import no ``benchmarks`` either, and the dry run leaves
+``XLA_FLAGS`` alone.
+
 The source scan walks every node of each file, so an import inside a
 function (``from repro.serving import ...`` at any indentation) counts as
 much as one at the top, and so does a literal module name handed to
@@ -92,3 +98,42 @@ def test_scan_finds_imports_at_any_depth(source, found):
 def test_source_has_no_jax_or_repro_import(path):
     bad = _bad_imports(path.read_text(), str(path))
     assert not bad, f"{path}: imports {bad}"
+
+
+# the port's counterpart of a reference module that has another name
+RENAMED = {"launch/hloparse.py": "launch/commcount.py"}
+
+
+def test_every_reference_module_has_a_counterpart():
+    ref = ROOT / "src" / "repro"
+    missing = []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        if not (PORT / RENAMED.get(rel, rel)).exists():
+            missing.append(rel)
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.launch.commcount",
+                                    "repro_torch.examples.paper_figs",
+                                    "repro_torch.examples.bigdata_apps"])
+def test_module_imports_no_benchmarks_and_sets_no_xla_flags(module):
+    code = ("import importlib, os, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+            "print(bad, os.environ.get('XLA_FLAGS'))\n"
+            "sys.exit(1 if bad or 'XLA_FLAGS' in os.environ else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names] + [n.module for n in ast.walk(tree)
+                                  if isinstance(n, ast.ImportFrom)
+                                  and n.module]
+    assert not [n for n in names if n.split(".")[0] == "benchmarks"]

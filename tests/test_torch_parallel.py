@@ -13,7 +13,9 @@
   bytes are the shard arithmetic of ``tests/test_distribution.py:58-78``,
   under 8e9 bytes a device for every arch.
 * Gloo, four processes (``torch_parallel_workers.run``; store files under
-  the test's temporary directory): the hierarchical reduce within
+  the test's temporary directory): a two-microbatch train step over a
+  batch sharded on four 'data' ranks against the unsharded port and the
+  reference's step, the hierarchical reduce within
   ``scale / 64`` of the mean over the data-parallel shards (int8 across
   pods; float within 1e-6), the int8 all-reduce within its analytic bound,
   expert-parallel MoE equal to plain, and sharded smoke olmo-1b (train
@@ -25,6 +27,7 @@ import json
 import multiprocessing
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,6 +37,11 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.testing._internal.distributed.fake_pg import FakeStore
 
 import repro.parallel as JPAR
+from repro.configs import smoke_config as j_smoke_config
+from repro.models import transformer as JT
+from repro.optim import AdamWConfig as JAdamWConfig
+from repro.optim import adamw_init as j_adamw_init
+from repro.train import make_train_step as j_make_train_step
 from repro.configs import ARCH_IDS, SHAPES, cell_applicable
 from repro.launch import specs as JS
 from repro.launch.optconfig import build_cfg as j_build_cfg
@@ -45,8 +53,10 @@ from repro_torch.launch.mesh import (make_mesh, make_production_mesh,
                                      mesh_shape_dict)
 from repro_torch.launch.optconfig import build_cfg
 from repro_torch.parallel import int8_all_reduce
+from repro_torch.optim import adamw_init
 from repro_torch.parallel.sharding import P, PartitionSpec, _path_names
-from repro_torch.tree import tree_map_with_keys
+from repro_torch.train import make_train_step
+from repro_torch.tree import flatten, tree_leaves, tree_map_with_keys
 
 import torch_parallel_workers as W
 
@@ -290,10 +300,16 @@ def test_int8_all_reduce_one_rank_error_bound(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def gloo_results(tmp_path_factory):
+def gloo_dir(tmp_path_factory):
+    """Where the four gloo ranks write their results."""
+    return tmp_path_factory.mktemp("gloo")
+
+
+@pytest.fixture(scope="module")
+def gloo_results(gloo_dir):
     """Every check of ``torch_parallel_workers`` on four gloo ranks, spawned
     once; {check: [rank 0's numbers, ..., rank 3's]}."""
-    d = tmp_path_factory.mktemp("gloo")
+    d = gloo_dir
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=W.run, args=(r, str(d / "init"), str(d)))
              for r in range(W.WORLD)]
@@ -467,3 +483,46 @@ def test_gqa_heads_sharded_per_rank_match_unsharded(gloo_results):
         assert r["kv_local"] == [1, 2, 40, 1, 16]
         assert r["wq_local"] == [1, 64, 16]
         assert r["prefill"] <= 1e-5 and r["decode"] <= 1e-5, r
+
+
+def test_olmo_microbatches_of_a_data_sharded_batch(gloo_results, gloo_dir):
+    """Smoke olmo-1b on (data 4, model 1), a batch of 8 (two rows a rank)
+    in two microbatches: each microbatch holds the reference's rows (the
+    first four, then the last four), so the loss is the mean of their mean
+    losses.  The labels' -1 positions differ by row, so the rows each rank
+    would split locally ({0, 2, 4, 6} and {1, 3, 5, 7}) give another loss,
+    more than ten times the tolerance away (at random weights every
+    token's loss is near log V, so any grouping moves it little).  Loss and grad norm within 1e-5 relative of
+    the unsharded port and of the reference's ``make_train_step`` with two
+    microbatches on the same weights; the new weights within 1e-5 of both
+    (the tolerance of the olmo step above), at AdamW's eps of
+    ``W.MICROBATCH_OPT`` (see there why not the default)."""
+    cfg, params, batch = W.olmo_microbatch_inputs()
+    jc = j_smoke_config("olmo-1b", tp=1)
+    jparams = jax.tree.unflatten(
+        jax.tree.structure(JT.init_params(jc, jax.random.PRNGKey(0))),
+        [jnp.asarray(t.numpy()) for t in tree_leaves(params)])
+    jo = JAdamWConfig(lr=W.MICROBATCH_OPT.lr, eps=W.MICROBATCH_OPT.eps)
+    jnew, _, jm = jax.jit(j_make_train_step(jc, jo, num_microbatches=2))(
+        jparams, j_adamw_init(jparams, jo),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    local_rows = [0, 2, 4, 6, 1, 3, 5, 7]
+    step = make_train_step(cfg, W.MICROBATCH_OPT, num_microbatches=2)
+    _, _, wrong = step(params, adamw_init(params, W.MICROBATCH_OPT),
+                       {k: torch.from_numpy(v[local_rows])
+                        for k, v in batch.items()})
+    assert abs(float(wrong["loss"]) / float(jm["loss"]) - 1) > 1e-4
+    for r in _ok(gloo_results["olmo_microbatches"]):
+        assert r["tokens_local"] == [2, 32]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(*r[key], rtol=1e-5, err_msg=key)
+            np.testing.assert_allclose(r[key][0], float(jm[key]), rtol=1e-5,
+                                       err_msg=key)
+        assert r["update"] >= 5e-4, r["update"]
+        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+    got = np.load(gloo_dir / "olmo_microbatches.npz")
+    want = flatten(jax.tree.map(np.asarray, jnew))
+    assert sorted(got.files) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-5, atol=1e-5,
+                                   err_msg=k)

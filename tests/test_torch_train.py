@@ -174,6 +174,22 @@ def test_train_step_matches_reference(micro):
     _assert_tree_close(ts["m"], js["m"], 1e-5)
 
 
+def test_train_step_refuses_a_batch_indivisible_into_microbatches():
+    """The reference's split (a reshape to (m, B // m, ...)) raises for 5 rows
+    in 2 microbatches; the port raises too rather than drop the last row."""
+    jc, tc, jp, tp = _both("olmo-1b", 5)
+    batch = _batch(jc, np.random.default_rng(5), b=5, s=32)
+    jo, to = JAdamWConfig(lr=1e-3), AdamWConfig(lr=1e-3)
+    with pytest.raises(TypeError):
+        j_make_train_step(jc, jo, num_microbatches=2)(
+            jp, j_adamw_init(jp, jo),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    with pytest.raises(ValueError, match="not divisible into 2 microbatches"):
+        make_train_step(tc, to, num_microbatches=2)(
+            tp, adamw_init(tp, to),
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
 @pytest.mark.parametrize("micro", [1, 2])
 def test_mamba_train_step_matches_reference(micro):
     """Smoke mamba2-1.3b, its SSD differentiated through the ``ssd_scan``

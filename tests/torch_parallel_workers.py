@@ -236,6 +236,61 @@ def check_olmo(rank: int) -> dict:
     return out
 
 
+# Adam's first step moves a weight by lr g / (|g| + eps): where a gradient
+# is near eps, a rounding of g in its last bits changes the update by a
+# share of lr.  At the default eps (1e-8) one of the 8192 entries of
+# blocks.0.mlp.wo has g = 1.1e-8, whose float32 sums in the reference and
+# in the unsharded port already differ by 4%, and so do the two new weights
+# by 1.1e-5; eps 1e-6 keeps every update a smooth function of g.
+MICROBATCH_OPT = AdamWConfig(lr=1e-3, eps=1e-6)
+
+
+def olmo_microbatch_inputs():
+    """(config, initial weights, batch as NumPy) of the two-microbatch check
+    below: smoke olmo-1b, its weights from seed 0, 8 rows of 32 tokens whose
+    labels end in 1, 4, ..., 22 masked (-1) positions by row, so the rows of
+    the first microbatch (0-3) keep more tokens than those of the second
+    (4-7) and another grouping of the rows gives another loss."""
+    cfg = smoke_config("olmo-1b", tp=1, batch_axes=("data",))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32)
+    for r in range(8):
+        labels[r, 32 - (3 * r + 1):] = -1
+    return cfg, params, {"tokens": tokens, "labels": labels}
+
+
+def check_olmo_microbatches(rank: int) -> dict:
+    """Two microbatches of a batch of 8 sharded over 4 'data' ranks (two
+    rows a rank, fewer than the microbatches' four): the step against the
+    unsharded port; rank 0 also writes the new weights (whole) to
+    ``olmo_microbatches.npz`` beside its results, for the reference."""
+    mesh = make_mesh({"data": WORLD, "model": 1}, "cpu")
+    msd = mesh_shape_dict(mesh)
+    cfg, params, batch = olmo_microbatch_inputs()
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    opt_cfg = MICROBATCH_OPT
+    step = make_train_step(cfg, opt_cfg, num_microbatches=2)
+    want_p, _, want_m = step(params, adamw_init(params, opt_cfg), batch)
+    dparams = distribute_tree(params, param_specs(cfg, params, msd), mesh)
+    zs = zero1_specs(param_specs(cfg, params, msd), params, msd)
+    dopt = distribute_tree(adamw_init(params, opt_cfg),
+                           {"m": zs, "v": zs, "step": P()}, mesh)
+    dbatch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
+    got_p, _, got_m = step(dparams, dopt, dbatch)
+    full = {k: _full(v).detach().numpy() for k, v in flatten(got_p).items()}
+    if rank == 0:
+        np.savez(os.path.join(OUT_DIR, "olmo_microbatches.npz"), **full)
+    return {"loss": [float(_full(got_m["loss"])), float(want_m["loss"])],
+            "grad_norm": [float(_full(got_m["grad_norm"])),
+                          float(want_m["grad_norm"])],
+            "update": _tree_err(want_p, params)["err"],
+            "params": _tree_err(got_p, want_p),
+            "tokens_local": list(dbatch["tokens"].to_local().shape)}
+
+
 def check_mamba(rank: int) -> dict:
     """Smoke mamba2-1.3b prefill and one decode step on (data 1, model 2),
     over ranks 0 and 1 (ranks 2 and 3 are not in the mesh and skip it)."""
@@ -368,12 +423,19 @@ def check_gqa(rank: int) -> dict:
 CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "moe": check_moe, "moe_batch": check_moe_batch, "olmo": check_olmo, "mamba": check_mamba,
           "mamba_train": check_mamba_train, "gqa": check_gqa,
-          "cache_alloc": check_cache_alloc}
+          "cache_alloc": check_cache_alloc,
+          "olmo_microbatches": check_olmo_microbatches}
+
+# the directory ``run`` writes its results to (a check's larger outputs go
+# there too)
+OUT_DIR = ""
 
 
 def run(rank: int, init_file: str, out_dir: str) -> None:
     """Entry of a spawned rank: every check in turn, each one's numbers or
     traceback written to ``out_dir/rank<rank>.json``."""
+    global OUT_DIR
+    OUT_DIR = out_dir
     torch.manual_seed(0)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=WORLD,
