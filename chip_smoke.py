@@ -130,9 +130,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      tokens/s and memory peaks and the losses falling; then one more
      backward with the first and last layers' real SSD inputs and
      cotangents recorded, the backward kernels' five gradients held against
-     autograd of the plain chunked version on the card; then the backward
-     kernels timed at (8, 256) and (8, 1024) tokens beside their bound, the
-     plain version, registers and spills;
+     autograd of the plain chunked version on the card; then the model in
+     bfloat16, one loss_fn backward with its 48 bfloat16 backward launches,
+     layers 0 and 47's gradients against the plain version's bfloat16 ones
+     and its peak; then the backward kernels timed in float32 and bfloat16
+     at (8, 256) and (8, 1024) tokens beside their bound, the plain
+     version, and each kernel's registers, spills, shared memory and CTAs
+     an SM;
  19. the dry run (launch/dryrun.py) of olmo-1b train_4k at its two
      microbatches, mamba2-1.3b train_4k, qwen2-moe-a2.7b train_4k on the
      512-rank mesh (one microbatch each), jamba long_500k and olmo-1b
@@ -310,10 +314,12 @@ MAMBA_TRAIN = dict(arch="mamba2-1.3b", batch=8, seq_len=256, total_steps=6,
                    warmup=2)
 # the backward kernels against autograd of the plain chunked version, as a
 # share of each gradient's largest magnitude: both sum in float32, in other
-# orders (64-row chunks against the model's 256, dB and dC over 64 heads,
+# orders (32-row chunks against the model's 256, dB and dC over 64 heads,
 # da_log over every token of the batch); the kernel's split, run on the CPU
-# against the plain gradients, stays under 5e-6 of it
-SSD_BWD_TOL = 1e-4
+# against the plain gradients, stays under 5e-6 of it.  Bfloat16 (x, B, C
+# and dy; the flash kernels' tolerance): both sides sum in float32 and
+# round each gradient to bfloat16 once (2 x 3.9e-3), plus the sum orders
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # card against CPU at smoke size, float32 summed in other orders: the
 # gradients as a share of each leaf's largest (a_log's and dt_bias's are
 # sums over every token with cancellation: on smoke jamba's third layer the
@@ -2386,14 +2392,29 @@ class SsdGradRecorder:
 
 def grads_err(got, want) -> dict:
     """For each of (dx, ddt, da_log, dB, dC): max |got - want|, max |want|
-    and whether the first is within SSD_BWD_TOL of the second."""
+    and whether the first is within SSD_BWD_TOL (of x's dtype) of the
+    second, with each gradient in its input's dtype."""
+    tol = SSD_BWD_TOL[got[0].dtype]
     out = {}
     for name, a, w in zip(("dx", "ddt", "da_log", "dB", "dC"), got, want):
-        err, scale = _max_err(a, w), float(w.abs().max())
+        err, scale = _max_err(a, w), float(w.float().abs().max())
         out[name] = {"err": err, "scale": scale,
-                     "ok": bool(torch.isfinite(w).all())
-                     and err <= SSD_BWD_TOL * scale}
+                     "ok": bool(torch.isfinite(w.float()).all())
+                     and a.dtype == w.dtype and err <= tol * scale}
     return out
+
+
+def fold_errs(acc: dict, dtype, errs: dict) -> None:
+    """Fold ``grads_err``'s errors into ``acc`` under ``dtype``'s name: the
+    largest max |err|, and the largest max |err| as a share of its
+    gradient's max |grad|."""
+    a = acc.setdefault(str(dtype)[6:], {"max_abs_err": 0.0,
+                                        "max_rel_err": 0.0})
+    for e in errs.values():
+        a["max_abs_err"] = max(a["max_abs_err"], e["err"])
+        a["max_rel_err"] = max(a["max_rel_err"],
+                               e["err"] / e["scale"] if e["scale"]
+                               else e["err"])
 
 
 def phase_mamba_training() -> dict:
@@ -2401,8 +2422,9 @@ def phase_mamba_training() -> dict:
     calibration and plan, no checkpoint), each Mamba layer's SSD through the
     ``ssd_scan`` kernel and its backward kernels; then one more backward
     with the first and last layers' SSD inputs and cotangents recorded,
-    their five gradients held against the plain version's; then the
-    backward kernels timed."""
+    their five gradients held against the plain version's; then one
+    bfloat16 backward at full width (``mamba_bf16_backward``); then the
+    backward kernels timed in both dtypes."""
     free_device_memory()
     tr = MAMBA_TRAIN
     cfg = get_arch(tr["arch"])
@@ -2478,7 +2500,8 @@ def phase_mamba_training() -> dict:
     check(step_counts["ssd_scan"] == 2 * cfg.n_layers == rec.n
           and step_counts["ssd_scan_bwd"] == cfg.n_layers,
           f"one backward launched {step_counts}")
-    worst = fwd_worst = 0.0
+    fwd_worst = 0.0
+    by_dtype = {}
     layer_err = {}
     for i, call in sorted(rec.calls.items()):
         check("dy" in call, f"layer {i}'s SSD got no cotangent")
@@ -2500,86 +2523,169 @@ def phase_mamba_training() -> dict:
         got = ss.ssd_scan_bwd_cuda(*args, dy, None)
         want_g = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=call["chunk"])
         errs = layer_err[i] = grads_err(got, want_g)
-        worst = max([worst] + [e["err"] for e in errs.values()])
+        fold_errs(by_dtype, torch.float32, errs)
         print(f"  layer {i} SSD backward, kernel vs autograd of the plain "
               f"chunked version on its real inputs and cotangent: "
               + ", ".join(f"{k} {e['err']:.3g} of {e['scale']:.4g}"
                           for k, e in errs.items())
-              + f" (max |err| of max |grad|; tol {SSD_BWD_TOL} of it)")
+              + " (max |err| of max |grad|; tol "
+              f"{SSD_BWD_TOL[torch.float32]} of it)")
         check(all(e["ok"] for e in errs.values()),
               f"layer {i}: the backward kernels differ from the plain "
               f"gradients: {errs}")
     del rec, batch
     free_device_memory()
-    times = ssd_bwd_times(sc, worst)
+    bf16 = mamba_bf16_backward(cfg, tr)
+    for errs in bf16["layer_err"].values():
+        fold_errs(by_dtype, torch.bfloat16, errs)
+    free_device_memory()
+    times = ssd_bwd_times(sc, by_dtype)
     return {"launches": counts, "steps": n_steps, "per_step": step_counts,
             "losses": losses, "peak_gb": peak / 1e9, "run_s": run_s,
-            "layer_err": layer_err, "fwd_max_abs_err": fwd_worst, **times}
+            "layer_err": layer_err, "fwd_max_abs_err": fwd_worst,
+            "bf16": bf16, **times}
 
 
-def ssd_bwd_times(sc, worst: float) -> dict:
+def mamba_bf16_backward(cfg, tr) -> dict:
+    """mamba2-1.3b at full width in bfloat16 (``T.init_params(cfg,
+    dtype=torch.bfloat16)``, as the dry run's train cells lay it out): one
+    ``loss_fn`` backward on a training step's batch, each layer's SSD
+    backward through the bfloat16 kernels; layers 0 and 47's five gradients
+    against the plain version's bfloat16 gradients on the same inputs and
+    cotangent, its launches and peak."""
+    last = cfg.n_layers - 1
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           dtype=torch.bfloat16, device="cuda")
+    leaves = tree_map(lambda t: t.requires_grad_(), params)
+    batch = packed_batch(cfg, tr["batch"], tr["seq_len"])
+    rec = SsdGradRecorder((0, last))
+    M.ssd_scan_cuda = rec
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        (loss, _), fwd_s = sync_seconds(lambda: T.loss_fn(leaves, cfg, batch))
+        grads, bwd_s = sync_seconds(lambda: torch.autograd.grad(
+            loss, tree_leaves(leaves)))
+        counts = launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        M.ssd_scan_cuda = ss.ssd_scan_cuda
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    del grads, leaves, params
+    print(f"  bfloat16 mamba2-1.3b ({cfg.n_layers} layers, weights in "
+          f"bfloat16), one loss_fn backward on {tr['batch']} x "
+          f"{tr['seq_len']} tokens: loss {float(loss.detach()):.6f}, "
+          "forward "
+          f"{fwd_s:.3f} s, backward {bwd_s:.3f} s, launches "
+          f"{json.dumps(counts)}, peak device memory {peak / 1e9:.3f} GB, "
+          f"every gradient finite: {finite}")
+    check(finite and math.isfinite(float(loss.detach())),
+          "a bfloat16 gradient or the loss is not finite")
+    check(counts["ssd_scan_bwd"] == cfg.n_layers
+          and counts["ssd_scan"] == 2 * cfg.n_layers == rec.n,
+          f"the bfloat16 backward launched {counts}")
+    worst = 0.0
+    layer_err = {}
+    for i, call in sorted(rec.calls.items()):
+        check("dy" in call, f"layer {i}'s SSD got no cotangent")
+        args, dy = call["args"], call["dy"]
+        check(args[0].dtype == dy.dtype == torch.bfloat16,
+              f"layer {i}'s SSD ran in {args[0].dtype}, cotangent "
+              f"{dy.dtype}")
+        got = ss.ssd_scan_bwd_cuda(*args, dy, None)
+        want = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=call["chunk"])
+        errs = layer_err[i] = grads_err(got, want)
+        worst = max([worst] + [e["err"] for e in errs.values()])
+        print(f"  layer {i} bfloat16 SSD backward, kernel vs the plain "
+              "version's bfloat16 gradients on its real inputs and "
+              "cotangent: " + ", ".join(
+                  f"{k} {e['err']:.3g} of {e['scale']:.4g}"
+                  for k, e in errs.items())
+              + f" (tol {SSD_BWD_TOL[torch.bfloat16]} of it)")
+        check(all(e["ok"] for e in errs.values()),
+              f"layer {i}: the bfloat16 backward differs: {errs}")
+    return {"launches": counts, "peak_gb": peak / 1e9, "forward_s": fwd_s,
+            "backward_s": bwd_s, "layer_err": layer_err,
+            "max_abs_err": worst}
+
+
+def ssd_bwd_times(sc, by_dtype: dict) -> dict:
     """The backward kernels and autograd of the plain chunked version timed
     at mamba2-1.3b's heads for each of ``ssd_bwd_timing.SHAPES`` (a training
-    step's 8 x 256 tokens, and the serving prompts' 8 x 1024) on that
-    script's inputs, after an L2 evict, beside the bound; a cotangent of y
-    alone, as training brings."""
+    step's 8 x 256 tokens, and the serving prompts' 8 x 1024) in float32 and
+    bfloat16 on that script's inputs, after an L2 evict, beside the bound; a
+    cotangent of y alone, as training brings.  Each device kernel's time,
+    registers, spills, shared memory and CTAs an SM beside them.  Their
+    errors against the plain version are folded into ``by_dtype``
+    (``fold_errs``), which is returned as ``max_err``."""
     h, g, p, n = sc.n_heads, sc.n_groups, sc.head_dim, sc.d_state
     check(ssd_bwd_timing.HEADS == dict(h=h, g=g, p=p, n=n),
           "ssd_bwd_timing times other heads than mamba2-1.3b's")
     rng = np.random.default_rng(6)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     (built,) = _build.build(ss.BWD_SOURCE)
-    usage = {k: ptxas_usage(built.log, f"ssd_bwd_{k}_kernel")
-             for k in ("states", "chunk", "reduce")}
-    occ = ss.bwd_occupancy(p, n)
-    per_shape = []
-    for b, s in ssd_bwd_timing.SHAPES:
-        *args, dy = ssd_bwd_timing.inputs(rng, b, s, torch.device("cuda"))
-        got = ss.ssd_scan_bwd_cuda(*args, dy, None)
-        want = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=sc.chunk)
-        errs = grads_err(got, want)
-        check(all(e["ok"] for e in errs.values()),
-              f"ssd_scan_bwd at ({b}, {s}) differs: {errs}")
-        again = ss.ssd_scan_bwd_cuda(*args, dy, None)
-        check(all(torch.equal(a, c) for a, c in zip(got, again)),
-              "two backward calls gave different bits")
-        worst = max([worst] + [e["err"] for e in errs.values()])
-        del got, want, again
-        t = ssd_bwd_timing.time_shape(tuple(args), dy, flush)
-        ms = t["ms"]
-        plain_ms = event_ms(lambda: ref.ssd_chunked_bwd_ref(
-            *args, dy, None, chunk=sc.chunk), flush)
-        design = 2 * ss.bwd_fmas(b, s, h, p, n)
-        print(f"  ssd_scan_bwd float32 (B,S,H,G,P,N)=({b},{s},{h},{g},{p},"
-              f"{n}): kernels {ms:.6f} ms, autograd of the plain chunked "
-              f"version (chunk {sc.chunk}) {plain_ms:.6f} ms, bound "
-              f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {t['flops']} FLOP "
-              f"at the least chunk cost, L = {t['bound_chunk']}; "
-              f"{t['bytes']} bytes) = {100 * t['bound_ms'] / ms:.4f}% of the "
-              f"bound; design {design} FLOP of FMAs "
-              f"({design / t['flops']:.4f}x the bound's, "
-              f"{design / (ms * 1e-3) / 1e12:.3f} TFLOP/s); scratch "
-              f"{ss.bwd_scratch_bytes(b, s, h, p, n) / 1e6:.1f} MB; "
-              f"bit-identical twice; max |err| "
-              + ", ".join(f"{k} {e['err']:.3g}" for k, e in errs.items()))
-        print("    device time a call (torch.profiler, mean of 5): "
-              + ", ".join(f"{k} {us:.3f} us ({100 * us / (ms * 1e3):.1f}% "
-                          "of the event time)"
-                          for k, us in t["kernels_us"].items()))
-        per_shape.append({"shape": [b, s, h, g, p, n], "plain_ms": plain_ms,
-                          "library_ms": None, "design_flops": design,
-                          "share": t["bound_ms"] / ms, **t})
-        del args, dy
-    for k, u in usage.items():
-        print(f"    {k} kernel: {u['registers']} registers a thread, spills "
-              f"{u['spill_stores']} B stored / {u['spill_loads']} B loaded "
-              "(ptxas)")
-    print(f"    shared memory a CTA: states {occ['states_smem_bytes']} B, "
-          f"chunk {occ['chunk_smem_bytes']} B ({occ['chunk_ctas_per_sm']} "
-          f"CTA(s) an SM, occupancy API); {ss.BWD_DEVICE_KERNELS} device "
-          "kernels a call")
+    per_shape, usage, occ = [], {}, {}
+    for dtype in ssd_bwd_timing.DTYPES:
+        name = str(dtype)[6:]
+        suffix = "IfEEv" if dtype == torch.float32 else "I13__nv_bfloat16EEv"
+        usage[name] = {k: ptxas_usage(built.log, f"ssd_bwd_{k}_kernel"
+                                      + suffix)
+                       for k in ("states", "chunk", "reduce")}
+        occ[name] = ss.bwd_occupancy(p, n, dtype)
+        for b, s in ssd_bwd_timing.SHAPES:
+            *args, dy = ssd_bwd_timing.inputs(rng, b, s, torch.device("cuda"),
+                                              dtype)
+            got = ss.ssd_scan_bwd_cuda(*args, dy, None)
+            want = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=sc.chunk)
+            errs = grads_err(got, want)
+            check(all(e["ok"] for e in errs.values()),
+                  f"ssd_scan_bwd {name} at ({b}, {s}) differs: {errs}")
+            again = ss.ssd_scan_bwd_cuda(*args, dy, None)
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  "two backward calls gave different bits")
+            fold_errs(by_dtype, dtype, errs)
+            del got, want, again
+            t = ssd_bwd_timing.time_shape(tuple(args), dy, flush)
+            ms = t["ms"]
+            plain_ms = event_ms(lambda: ref.ssd_chunked_bwd_ref(
+                *args, dy, None, chunk=sc.chunk), flush)
+            design = 2 * ss.bwd_fmas(b, s, h, p, n)
+            print(f"  ssd_scan_bwd {name} (B,S,H,G,P,N)=({b},{s},{h},{g},{p},"
+                  f"{n}): kernels {ms:.6f} ms, autograd of the plain chunked "
+                  f"version (chunk {sc.chunk}) {plain_ms:.6f} ms, bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']}: {t['flops']} "
+                  f"FLOP at the least chunk cost, L = {t['bound_chunk']}; "
+                  f"{t['bytes']} bytes) = {100 * t['bound_ms'] / ms:.4f}% of "
+                  f"the bound; design {design} FLOP of FMAs "
+                  f"({design / t['flops']:.4f}x the bound's, "
+                  f"{design / (ms * 1e-3) / 1e12:.3f} TFLOP/s); scratch "
+                  f"{ss.bwd_scratch_bytes(b, s, h, g, p, n) / 1e6:.1f} MB; "
+                  f"clusters of {ss.bwd_cluster(h, g)} heads; bit-identical "
+                  "twice; max |err| "
+                  + ", ".join(f"{k} {e['err']:.3g}" for k, e in errs.items()))
+            for k, us in t["kernels_us"].items():
+                key = k.split("_")[2]
+                u = usage[name][key]
+                extra = ""
+                if key in ("states", "chunk"):
+                    extra = (f", {occ[name][key + '_smem_bytes']} B of "
+                             f"shared memory a CTA, "
+                             f"{occ[name][key + '_ctas_per_sm']} CTA(s) an "
+                             "SM (occupancy API)")
+                print(f"    {k}: {us:.3f} us a call (torch.profiler, mean "
+                      f"of 5; {100 * us / (ms * 1e3):.1f}% of the event "
+                      f"time), {u['registers']} registers a thread, spills "
+                      f"{u['spill_stores']} B stored / {u['spill_loads']} B "
+                      f"loaded (ptxas){extra}")
+            per_shape.append({"dtype": name, "shape": [b, s, h, g, p, n],
+                              "plain_ms": plain_ms, "library_ms": None,
+                              "design_flops": design,
+                              "share": t["bound_ms"] / ms, **t})
+            del args, dy
+    print(f"    {ss.BWD_DEVICE_KERNELS} device kernels a call")
     return {"per_shape": per_shape, "ptxas": usage, "occupancy": occ,
-            "max_abs_err": worst}
+            "max_err": by_dtype}
 
 
 def training_report(trainer, res, cfg, tokens, flops, n_params, run_s
@@ -3549,7 +3655,10 @@ def main() -> int:
         "launches": mtrain["launches"]["ssd_scan_bwd"],
         "launches_per_step": mtrain["per_step"]["ssd_scan_bwd"],
         "launches_sharded": sharded_launches["ssd_scan_bwd"],
-        "max_abs_err": mtrain["max_abs_err"],
+        # the float32 route's, which the main path trains through; each
+        # input type's beside it, also as a share of the largest gradient
+        "max_abs_err": mtrain["max_err"]["float32"]["max_abs_err"],
+        "max_err_by_dtype": mtrain["max_err"],
         "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
         "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
         "library_ms": None, "ptxas": mtrain["ptxas"],

@@ -11,10 +11,10 @@ same function split as that kernel splits it (64-row chunks, C B^T once per
 group, the head dim in slices), for the tests only.  ``ssd_chunked_bwd_ref``
 is autograd of ``ssd_chunked_ref``, the plain version of the ``ssd_scan``
 backward kernels, and ``ssd_split_bwd_ref`` the same gradients split as
-those kernels split them, for the tests only.  Counts and mass are
-summed as int64 and cast to float32 once, so mass is the exact sum rounded
-to float32; the reference sums mass in float32, which is inexact past
-2**24.
+those kernels split them (32-row chunks), for the tests only.  Counts and
+mass are summed as int64 and cast to float32 once, so mass is the exact
+sum rounded to float32; the reference sums mass in float32, which is
+inexact past 2**24.
 """
 from __future__ import annotations
 
@@ -24,12 +24,13 @@ import torch
 
 __all__ = ["flash_attention_ref", "ssd_scan_ref", "ssd_chunked_ref",
            "ssd_split_ref", "ssd_chunked_bwd_ref", "ssd_split_bwd_ref",
-           "SSD_CHUNK", "SSD_P_SLICE", "row_matches",
+           "SSD_CHUNK", "SSD_P_SLICE", "SSD_BWD_CHUNK", "row_matches",
            "row_stats", "block_stats_ref", "block_stats_batched_ref"]
 
 NEG_INF = -1e30
 SSD_CHUNK = 64      # rows of a chunk in the CUDA SSD kernel
 SSD_P_SLICE = 64    # head-dim columns of one CTA of the CUDA SSD kernel
+SSD_BWD_CHUNK = 32  # rows of a chunk in the CUDA SSD backward kernels
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -225,7 +226,7 @@ def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
 
 def ssd_split_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                       b_mat: torch.Tensor, c_mat: torch.Tensor, dy,
-                      dstate=None, *, chunk: int = SSD_CHUNK) -> tuple:
+                      dstate=None, *, chunk: int = SSD_BWD_CHUNK) -> tuple:
     """The gradients of ``ssd_chunked_bwd_ref`` computed as the CUDA
     backward (``csrc/ssd_scan_bwd.cu``) splits them, for the tests only.
 
@@ -245,7 +246,8 @@ def ssd_split_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
        dt du, and dt's direct share is x . du; d seg takes every
        exponent's cotangent, d a is its reverse cumsum in the chunk, and
        ddt += A d a, da_log = A sum dt d a;
-    3. dB and dC summed over the heads of their group.
+    3. dB and dC summed over the heads of their group (the kernels sum
+       each cluster's heads in shared memory, then the clusters).
     """
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]

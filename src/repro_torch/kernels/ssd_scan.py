@@ -33,18 +33,22 @@ goes through ``SsdScan``, a ``torch.autograd.Function``: its forward is the
 route above; its backward sends a CPU tensor to
 ``ref.ssd_chunked_bwd_ref`` (autograd of the plain chunked version) and a
 CUDA tensor to ``ssd_scan_bwd_cuda``, the hand-written backward in
-``csrc/ssd_scan_bwd.cu`` (three device kernels a call, ``BWD_DEVICE_KERNELS``,
-float32 only, no atomics: two calls give the same bits), counted in
-``LAUNCHES["ssd_scan_bwd"]``.  It recomputes the chunk-entry states, so
-the forward writes nothing more for it.  Without grad the call is the
-serving path as it was.
+``csrc/ssd_scan_bwd.cu`` (three device kernels a call, ``BWD_DEVICE_KERNELS``;
+float32 or bfloat16 inputs, every sum in float32, each gradient in its
+input's dtype; no atomics: two calls give the same bits), counted in
+``LAUNCHES["ssd_scan_bwd"]``.  It recomputes the chunk-entry states (at
+its own 32-row chunks, ``bwd_n_chunks``), so the forward writes nothing
+more for it, and sums dB and dC over each cluster of ``bwd_cluster(H, G)``
+heads in shared memory.  Without grad the call is the serving path as it
+was.
 
 Meta tensors (shapes only, as the dry run lays a model out) are a third
 route of their own: the forward gives y in x's type and the float32 final
-state, and ``SsdScan``'s backward the five float32 gradients the card's
-backward gives, all on ``meta``; nothing is launched and ``LAUNCHES`` does
-not move.  ``META_FLOPS`` adds up the operations of those calls by the
-count the kernels' bounds use (``forward_flops``, ``backward_flops``).
+state, and ``SsdScan``'s backward the five gradients in the card's
+backward's dtypes (each input's), all on ``meta``; nothing is launched and
+``LAUNCHES`` does not move.  ``META_FLOPS`` adds up the operations of
+those calls by the count the kernels' bounds use (``forward_flops``,
+``backward_flops``).
 """
 from __future__ import annotations
 
@@ -55,13 +59,14 @@ import torch
 from repro_torch.kernels import _build
 # the 16-byte copy rule the flash kernels follow holds for cp.async here too
 from repro_torch.kernels.flash_attention import prepare, tma_ready
-from repro_torch.kernels.ref import (SSD_CHUNK, SSD_P_SLICE,
+from repro_torch.kernels.ref import (SSD_BWD_CHUNK, SSD_CHUNK, SSD_P_SLICE,
                                      ssd_chunked_bwd_ref, ssd_chunked_ref)
 
 __all__ = ["LAUNCHES", "SIZES", "DEVICE_KERNELS", "BWD_DEVICE_KERNELS",
            "reset_launches", "p_slice", "n_chunks", "scratch_shape", "ctas",
-           "fmas", "smem_bytes", "occupancy", "bwd_scratch_bytes",
-           "bwd_fmas", "bwd_occupancy", "SsdScan", "ssd_scan_cuda",
+           "fmas", "smem_bytes", "occupancy", "bwd_n_chunks",
+           "bwd_cluster", "bwd_smem_bytes", "bwd_scratch_bytes", "bwd_fmas",
+           "bwd_occupancy", "SsdScan", "ssd_scan_cuda",
            "ssd_scan_bwd_cuda", "META_FLOPS", "reset_meta_flops",
            "forward_flops", "flops_per_token_head", "backward_flops"]
 
@@ -69,7 +74,7 @@ SOURCE = "ssd_scan.cu"
 BWD_SOURCE = "ssd_scan_bwd.cu"
 SIZES = (8, 16, 32, 64, 128)
 DEVICE_KERNELS = 2       # C B^T, then the scan
-BWD_DEVICE_KERNELS = 3   # the states, the chunks' gradients, the reductions
+BWD_DEVICE_KERNELS = 3   # the states, the chunks' gradients, the group sums
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA may have on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -302,12 +307,12 @@ def _meta_scan(x, b_mat, final_state: bool) -> tuple:
 
 
 def _meta_grads(x, dt, a_log, b_mat, c_mat) -> tuple:
-    """The backward's five gradients of meta inputs, float32 of each
-    input's shape as the backward kernels write them."""
+    """The backward's five gradients of meta inputs, each of its input's
+    shape and dtype, as the backward kernels write them."""
     bsz, s, h, p = x.shape
     META_FLOPS["ssd_scan_bwd"] += backward_flops(bsz, s, h, p,
                                                  b_mat.shape[3])
-    return tuple(torch.empty(t.shape, dtype=torch.float32, device="meta")
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
                  for t in (x, dt, a_log, b_mat, c_mat))
 
 
@@ -355,54 +360,94 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 # ------------------------------------------------------------- backward --
 
-def bwd_scratch_bytes(bsz: int, s: int, h: int, p: int, n: int) -> int:
+def bwd_n_chunks(s: int) -> int:
+    """32-row chunks of the backward kernels over S rows, the last one
+    maybe short."""
+    return -(-s // SSD_BWD_CHUNK)
+
+
+def bwd_cluster(h: int, g: int) -> int:
+    """CTAs (heads of one group) a cluster of the backward's chunk kernel
+    holds: the largest of 8, 4, 2 and 1 that divides H / G.  Their dB and
+    dC are summed in distributed shared memory."""
+    return next(c for c in (8, 4, 2, 1) if (h // g) % c == 0)
+
+
+BWD_RING = (8, 3)   # rows of h_{c-1} a ring stage holds, stages
+
+
+def bwd_smem_bytes(p: int, n: int) -> dict:
+    """Dynamic shared memory (bytes) a CTA of the backward's states and
+    chunk kernels asks for, as ``csrc/ssd_scan_bwd.cu`` computes it: the
+    states kernel's two stages of an x (or dy) slice, B (or C) and dt, and
+    the rows' weights; the chunk kernel's x, dy, B and C (rows padded by 4
+    floats), dh_c, the ring of h_{c-1}, K and W (rows of L + 4), and its
+    partial row sums."""
+    rows, ps = SSD_BWD_CHUNK, p_slice(p)
+    ring_rows, stages = BWD_RING
+    states = 2 * (rows * (ps + n) + rows) + rows + 4
+    chunk = (2 * rows * (p + 4) + 2 * rows * (n + 4) + p * n
+             + stages * ring_rows * n + 2 * rows * (rows + 4) + rows * 32
+             + rows * max(p // 4, rows // 2) + 7 * rows + 8)
+    return {"states": 4 * states, "chunk": 4 * chunk}
+
+
+def bwd_scratch_bytes(bsz: int, s: int, h: int, g: int, p: int, n: int
+                      ) -> int:
     """Bytes of float32 scratch one backward call allocates: the states
-    entering and the cotangents leaving each chunk (B, H, nc, P, N), each
-    head's dB and dC (B, S, H, N), and each chunk's share of da_log."""
-    nc = n_chunks(s)
-    return 4 * (2 * bsz * h * nc * p * n + 2 * bsz * s * h * n
-                + bsz * nc * h)
+    entering and the cotangents leaving each 32-row chunk (B, H, nc, P, N),
+    dB and dC summed over each cluster's heads (B, S, H / cs, N), and each
+    chunk's share of da_log."""
+    nc = bwd_n_chunks(s)
+    return 4 * (2 * bsz * h * nc * p * n
+                + 2 * bsz * s * (h // bwd_cluster(h, g)) * n + bsz * nc * h)
 
 
 def bwd_fmas(bsz: int, s: int, h: int, p: int, n: int) -> int:
-    """Float32 FMAs the backward kernels do: per (64-row chunk, head) 64 *
-    64 * (N + P) for C B^T and dy x^T, 64 * 64 * P for du, 2 * 64 * 64 * N
-    for dB and dC, 3 * 64 * P * N for the state terms in the chunk kernel
-    and 2 * 64 * P * N in the states kernel, and P * N for <dh, h>."""
-    rows = SSD_CHUNK
-    per = (rows * rows * (n + p) + rows * rows * p + 2 * rows * rows * n
-           + 5 * rows * p * n + p * n)
-    return n_chunks(s) * bsz * h * per
+    """Float32 FMAs the backward kernels do, loop by loop as they run: per
+    (32-row chunk, head) C B^T and dy x^T whole (L L (N + P)), du's state
+    term (L P N) and its causal part over i >= j in 4-row steps, dC's and
+    dB's state terms (2 L P N) and causal parts, <dh, h> (P N), and 2 L P N
+    in the states kernel."""
+    rows = SSD_BWD_CHUNK
+    du_pairs = sum(2 * p * (rows - (j0 & ~3)) for j0 in range(0, rows, 2))
+    dcb_pairs = sum(4 * n * ((i0 + 4) + (rows - i0))
+                    for i0 in range(0, rows, 4))
+    per = (rows * rows * (n + p) + rows * p * n + du_pairs + 2 * rows * p * n
+           + dcb_pairs + p * n + 2 * rows * p * n)
+    return bwd_n_chunks(s) * bsz * h * per
 
 
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
     if lib.ssd_scan_bwd_launch.argtypes is None:
         lib.ssd_scan_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
             + [ctypes.c_longlong] * 15 + [ctypes.c_void_p])
         lib.ssd_scan_bwd_launch.restype = ctypes.c_int
         lib.ssd_scan_bwd_occupancy.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
         lib.ssd_scan_bwd_occupancy.restype = ctypes.c_int
         lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def bwd_occupancy(p: int, n: int) -> dict:
+def bwd_occupancy(p: int, n: int, dtype: torch.dtype = torch.float32
+                  ) -> dict:
     """Dynamic shared memory (bytes) a CTA of the states kernel and of the
-    chunk kernel asks for, and CTAs an SM of the chunk kernel, as the CUDA
-    runtime sees them on the current card."""
+    chunk kernel asks for, and CTAs an SM of each, for inputs of ``dtype``,
+    as the CUDA runtime sees them on the current card."""
     lib = _bwd_library()
-    out = (ctypes.c_int * 3)()
-    err = lib.ssd_scan_bwd_occupancy(int(p), int(n), out)
+    out = (ctypes.c_int * 4)()
+    err = lib.ssd_scan_bwd_occupancy(_DTYPES[dtype], int(p), int(n), out)
     if err != 0:
         msg = lib.ssd_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"ssd_scan_bwd occupancy query failed: {msg} "
                            f"({err})")
     return dict(zip(("states_smem_bytes", "chunk_smem_bytes",
-                     "chunk_ctas_per_sm"), out))
+                     "chunk_ctas_per_sm", "states_ctas_per_sm"), out))
 
 
 def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -410,48 +455,45 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                       dstate=None) -> tuple:
     """The backward kernels on CUDA tensors: the gradients (dx, ddt, da_log,
     dB, dC) of ``ssd_scan_cuda``'s (y, final state) for the cotangents
-    ``dy`` (B,S,H,P) and ``dstate`` (B,H,P,N) (None for either means zero),
-    float32 and contiguous.  Float32 inputs only: a bfloat16 backward is
-    refused (ROADMAP Queue 1 item 15, its SSD bfloat16 part)."""
+    ``dy`` (B,S,H,P) in x's dtype and ``dstate`` (B,H,P,N) float32 (None
+    for either means zero).  x, B, C (and dy) float32 or bfloat16, dt and
+    a_log float32; every sum in float32, each gradient in its input's
+    dtype."""
     _check(x, dt, a_log, b_mat, c_mat)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd_cuda takes CUDA tensors, got "
                          f"{x.device}; the CPU route is "
                          "ref.ssd_chunked_bwd_ref")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the ssd_scan backward kernel takes float32, got {x.dtype} "
-            "(a bfloat16 backward is ROADMAP Queue 1 item 15, its SSD "
-            "bfloat16 part)")
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     dev = x.device
     run = bool(bsz and s and h) and (dy is not None or dstate is not None)
     # the kernels write every entry of a launched call's gradients
     grads = tuple((torch.empty if run else torch.zeros)(
-        t.shape, dtype=torch.float32, device=dev)
+        t.shape, dtype=t.dtype, device=dev)
         for t in (x, dt, a_log, b_mat, c_mat))
     if not run:
         return grads
     if dy is None:
-        dy = torch.zeros((1, 1, 1, 1), dtype=torch.float32,
+        dy = torch.zeros((1, 1, 1, 1), dtype=x.dtype,
                          device=dev).expand(bsz, s, h, p)
-    for name, t, shape in (("dy", dy, (bsz, s, h, p)),
-                           ("dstate", dstate, (bsz, h, p, n))):
-        if t is not None and (tuple(t.shape) != shape
-                              or t.dtype != torch.float32
+    for name, t, shape, dtype in (("dy", dy, (bsz, s, h, p), x.dtype),
+                                  ("dstate", dstate, (bsz, h, p, n),
+                                   torch.float32)):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype
                               or t.device != dev):
-            raise ValueError(f"{name} must be float32 {shape} on {dev}, got "
+            raise ValueError(f"{name} must be {dtype} {shape} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     x, dy, b_mat, c_mat = (prepare(t) for t in (x, dy, b_mat, c_mat))
     if dstate is not None:   # read 16 bytes at a time, contiguous
         dstate = dstate.contiguous()
         if dstate.data_ptr() % 16:
             dstate = dstate.clone()
-    nc = n_chunks(s)
+    nc, cs = bwd_n_chunks(s), bwd_cluster(h, g)
     states = torch.empty((2, bsz, h, nc, p, n), dtype=torch.float32,
                          device=dev)
-    heads = torch.empty((2, bsz, s, h, n), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, bsz, s, h // cs, n), dtype=torch.float32,
+                       device=dev)
     part = torch.empty((bsz, nc, h), dtype=torch.float32, device=dev)
     dx, ddt, da_log, db, dc = grads
     lib = _bwd_library()
@@ -464,9 +506,9 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             dstate.data_ptr() if dstate is not None else None,
             dx.data_ptr(), ddt.data_ptr(), da_log.data_ptr(), db.data_ptr(),
             dc.data_ptr(), states[0].data_ptr(), states[1].data_ptr(),
-            heads[0].data_ptr(), heads[1].data_ptr(), part.data_ptr(),
-            bsz, s, h, g, p, n, nc, *[v for st in strides for v in st],
-            stream)
+            sums[0].data_ptr(), sums[1].data_ptr(), part.data_ptr(),
+            _DTYPES[x.dtype], bsz, s, h, g, p, n, nc, cs,
+            *[v for st in strides for v in st], stream)
     if err != 0:
         msg = lib.ssd_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"ssd_scan_bwd CUDA launch failed: {msg} ({err})")

@@ -4,13 +4,14 @@
 
 For (B, S) = (8, 256) (a training step of 8 x 256 tokens) and (8, 1024),
 with mamba2-1.3b's 64 heads of 64 columns, one B/C group and d_state 128,
-makes seeded float32 inputs as ``chip_smoke.py`` does (x a reshape, B and C
-strided slices of one tensor) and a cotangent of y, and prints what
-``time_shape`` gives for them on the card: ``ssd_scan_bwd_cuda``'s time
-(``ms``: the median of 20 CUDA-event timings, each after evicting the L2 by
-reading 256 MiB), each of its three device kernels' (``kernels_us``: the
-profiler's mean device time of each over 5 calls) and the bound
-(``bound``), beside the card and the package it timed.  ``chip_smoke.py``
+makes seeded float32 and bfloat16 inputs as ``chip_smoke.py`` does (x a
+reshape, B and C strided slices of one tensor) and a cotangent of y in x's
+dtype, and prints what ``time_shape`` gives for them on the card:
+``ssd_scan_bwd_cuda``'s time (``ms``: the median of 20 CUDA-event timings,
+each after evicting the L2 by reading 256 MiB), each of its three device
+kernels' (``kernels_us``: the profiler's mean device time of each over 5
+calls) and the bound (``bound``), beside the card and the package it
+timed.  ``chip_smoke.py``
 times the backward through ``time_shape`` too.  To compare two checkouts on
 one card, run this file with ``PYTHONPATH`` set to each checkout's ``src``
 in turns (A, B, B, A).
@@ -30,17 +31,19 @@ from repro_torch.launch.block_stats_timing import event_ms, traced
 
 HEADS = dict(h=64, g=1, p=64, n=128)     # mamba2-1.3b
 SHAPES = ((8, 256), (8, 1024))
+DTYPES = (torch.float32, torch.bfloat16)
 KERNELS = ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
            "ssd_bwd_reduce_kernel")
 
 
-def inputs(rng, b: int, s: int, dev) -> tuple:
-    """x, dt, a_log, B, C and dy (float32) as the model hands them in."""
+def inputs(rng, b: int, s: int, dev, dtype=torch.float32) -> tuple:
+    """x, dt, a_log, B, C and dy as the model hands them in: x, B, C and
+    dy of ``dtype``, dt and a_log float32."""
     h, g, p, n = HEADS["h"], HEADS["g"], HEADS["p"], HEADS["n"]
 
     def normal(*shape):
         return torch.from_numpy(rng.normal(0, 1, shape).astype(
-            np.float32)).to(dev)
+            np.float32)).to(dev, dtype)
 
     bc = normal(b, s, 2 * g * n)
     return (normal(b, s, h * p).reshape(b, s, h, p),
@@ -53,17 +56,19 @@ def inputs(rng, b: int, s: int, dev) -> tuple:
             normal(b, s, h, p))
 
 
-def bound(b: int, s: int, h: int, g: int, p: int, n: int) -> dict:
+def bound(b: int, s: int, h: int, g: int, p: int, n: int,
+          dtype=torch.float32) -> dict:
     """The least time (ms) an H100 could take for the SSD backward at this
-    shape in float32, the larger of its operations
-    (``ss.flops_per_token_head`` for each of B S H (token, head)s) at the
-    float32 rate and its bytes
-    (x, dy, dt, B, C and a_log read once; dx, ddt, dB, dC and da_log
-    written once) at the memory rate."""
+    shape, the larger of its operations (``ss.flops_per_token_head`` for
+    each of B S H (token, head)s) at the float32 rate (the sums are float32
+    whatever the input type) and its bytes (x, dy, dt, B, C and a_log read
+    once; dx, ddt, dB, dC and da_log written once; x, dy, dx, B, C, dB and
+    dC of ``dtype``, the rest float32) at the memory rate."""
     per, chunk = ss.flops_per_token_head(s, p, n)
     flops = int(round(per * b * s * h))
-    nbytes = 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * g * n
-                  + 2 * h)
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = (item * (3 * b * s * h * p + 4 * b * s * g * n)
+              + 4 * (2 * b * s * h + 2 * h))
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -105,7 +110,7 @@ def time_shape(args: tuple, dy: torch.Tensor, flush: torch.Tensor) -> dict:
     def call():
         return ss.ssd_scan_bwd_cuda(*args, dy, None)
     return {"ms": event_ms(call, flush), "kernels_us": kernels_us(call),
-            **bound(b, s, h, g, p, n)}
+            **bound(b, s, h, g, p, n, x.dtype)}
 
 
 def main() -> None:
@@ -113,9 +118,11 @@ def main() -> None:
     rng = np.random.default_rng(6)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     out = {}
-    for b, s in SHAPES:
-        *args, dy = inputs(rng, b, s, dev)
-        out[f"{b}x{s}"] = time_shape(tuple(args), dy, flush)
+    for dtype in DTYPES:
+        for b, s in SHAPES:
+            *args, dy = inputs(rng, b, s, dev, dtype)
+            out[f"{str(dtype)[6:]} {b}x{s}"] = time_shape(tuple(args), dy,
+                                                          flush)
     print(f"ssd_scan_bwd on {torch.cuda.get_device_name(dev)} "
           f"({repro_torch.__file__}): {json.dumps(out)}")
 

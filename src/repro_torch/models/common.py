@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.shards import gather_dim, replicate_like
+from repro_torch.parallel.shards import gather_dim, gather_fsdp, \
+    replicate_like
 
 __all__ = ["rms_norm", "layer_norm_nonparam", "make_norm", "init_norm",
            "apply_norm", "rope_frequencies", "apply_rope", "init_mlp",
@@ -162,6 +163,9 @@ def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
     chunk = min(chunk, s)
     while s % chunk:
         chunk -= 1  # largest divisor <= requested
+    # an FSDP head gathered once for every chunk (its gradient
+    # reduce-scattered once)
+    lm_head = gather_fsdp(lm_head, hidden)
 
     def chunk_loss(h_c, l_c):
         if norm_params is not None:

@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import apply_mlp, init_mlp, normal
-from repro_torch.parallel.shards import layout, mesh_of, on_shards, roles
+from repro_torch.parallel.shards import (gather_fsdp, layout, mesh_of,
+                                        on_shards, roles)
 
 __all__ = ["MoEConfig", "init_moe", "apply_moe", "moe_flops"]
 
@@ -163,7 +164,8 @@ def apply_moe(params: dict, x, cfg: MoEConfig, *, capacity: int | None = None):
         out, auxs = _sharded(params, ffn_params, x.reshape(g, gs, d), cfg,
                              cap, mesh)
     if "shared" in params:
-        out = out + apply_mlp(params["shared"], x, cfg.mlp_kind)
+        out = out + apply_mlp(gather_fsdp(params["shared"], x), x,
+                              cfg.mlp_kind)
     return out, auxs.mean()
 
 
@@ -214,7 +216,8 @@ def _sharded(params, ffn_params, xg, cfg: MoEConfig, cap: int, mesh):
                                 "expert")
         both = tuple(e or r for e, r in zip(by_expert, by_group))
         buf = buf.redistribute(mesh, layout(both, expert=0, group=1))
-    h = apply_mlp(ffn_params, buf, cfg.mlp_kind)                 # (E, G·cap, d)
+    h = apply_mlp(gather_fsdp(ffn_params, buf), buf,
+                  cfg.mlp_kind)                                 # (E, G·cap, d)
     return on_shards(
         lambda hh, *mm: _combine(hh, mm, hh.shape[1] // cap, gs, cfg),
         mesh, (h, *meta), (rows,) + (meta_pl,) * 5, (meta_pl, meta_pl))

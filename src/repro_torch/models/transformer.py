@@ -49,8 +49,9 @@ from repro_torch.models.common import (LeafShape, MetaGenerator, apply_mlp,
                                        init_norm, normal)
 from repro_torch.parallel.sharding import (_batch_dim_spec, cache_specs,
                                            mesh_shape_dict, placements)
-from repro_torch.parallel.shards import (batch_like, is_dtensor, match,
-                                         mesh_of, replicate_like)
+from repro_torch.parallel.shards import (batch_like, gather_fsdp,
+                                         is_dtensor, match, mesh_of,
+                                         replicate_like)
 from repro_torch.tree import tree_map, tree_map_with_keys
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
@@ -179,6 +180,15 @@ def _pin_batch(cfg: ArchConfig, x, batch: int | None = None):
     return x.redistribute(mesh, placements(spec, mesh))
 
 
+def _gather_layer(p: dict, x) -> dict:
+    """Layer ``p``'s FSDP weights gathered over 'data' once, at the layer's
+    entry, for their products with the rows of ``x``
+    (``shards.gather_fsdp``), so that the layer's own functions see whole
+    matrices whatever the layout.  An MoE gathers its own weights: its
+    experts meet the rows of their dispatch, not the layer's."""
+    return {k: v if k == "moe" else gather_fsdp(v, x) for k, v in p.items()}
+
+
 def _mix(cfg: ArchConfig, spec: LayerSpec, p: dict, x, positions):
     """norm1 -> the mixer over the full sequence; returns (out, k, v), with
     k and v None for a Mamba layer."""
@@ -247,6 +257,7 @@ def forward(params, cfg: ArchConfig, batch):
         aux = replicate_like(torch.zeros((), dtype=torch.float32,
                                          device=h.device), h)
         for spec, p in zip(cfg.pattern, layer_params):
+            p = _gather_layer(p, h)
             out, _, _ = _mix(cfg, spec, p, h, positions)
             h, a = _ffn(cfg, spec, p, h + out)
             if a is not None:
@@ -388,7 +399,7 @@ def decode_step(params, cfg: ArchConfig, tokens, cache):
     for rep in range(cfg.n_repeats):
         x = _pin_batch(cfg, x)
         for j, spec in enumerate(cfg.pattern):
-            p = _index(params["blocks"][j], rep)
+            p = _gather_layer(_index(params["blocks"][j], rep), x)
             c = _index(cache["blocks"][j], rep)
             h = apply_norm(cfg.norm, p["norm1"], x)
             if spec.mixer == "attn":
@@ -418,7 +429,7 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
     for rep in range(cfg.n_repeats):
         x = _pin_batch(cfg, x)
         for j, spec in enumerate(cfg.pattern):
-            p = _index(params["blocks"][j], rep)
+            p = _gather_layer(_index(params["blocks"][j], rep), x)
             c = _index(cache["blocks"][j], rep)
             if spec.mixer == "attn":
                 out, k, v = _mix(cfg, spec, p, x, positions)

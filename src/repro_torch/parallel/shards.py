@@ -14,13 +14,18 @@ every helper is the identity, or calls the function as it is.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, \
     distribute_tensor
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.tree import tree_map
+
 __all__ = ["is_dtensor", "mesh_of", "roles", "head_roles", "layout",
-           "on_shards", "replicate_like", "batch_like", "match", "gather_dim"]
+           "on_shards", "replicate_like", "batch_like", "match", "gather_dim",
+           "gather_fsdp"]
 
 
 def is_dtensor(t) -> bool:
@@ -142,3 +147,41 @@ def gather_dim(t, dim: int):
           or (isinstance(p, Shard) and p.dim == dim) else p
           for p in t.placements]
     return t.redistribute(t.device_mesh, pl)
+
+
+def gather_fsdp(tree, x):
+    """The weights of ``tree`` for their products with the rows of ``x``:
+    each DTensor that the mesh dim 'data' splits on one of its two matrix
+    dims (FSDP; a leading expert dim split there stays split) is
+    all-gathered over 'data', its other placements kept.  This is FSDP's
+    gather before a layer, as the reference's layout intends (GSPMD
+    all-gathers per layer).  Without it DTensor may contract an activation
+    replicated over 'data' against the weight's shard there, leave the
+    product as partial sums and reduce-scatter them onto the sequence dim,
+    whose backward torch 2.11 refuses to flatten.  So under autograd every
+    such weight is gathered; without it (prefill, decode) only where that
+    moves fewer bytes than the partial sums would, when each of its
+    matrices meets at least as many rows of ``x`` as it has input dims: a
+    decode step's few rows keep the partial sums.  The gather's backward
+    reduce-scatters the gradient back onto the shard.  Every other leaf is
+    returned as it is."""
+    grad = torch.is_grad_enabled() and x.requires_grad
+
+    def one(w):
+        if not isinstance(w, DTensor) or w.dim() < 2:
+            return w
+        names = w.device_mesh.mesh_dim_names or ()
+        if "data" not in names:
+            return w
+        m = names.index("data")
+        p = w.placements[m]
+        if not isinstance(p, Shard) or p.dim < w.dim() - 2:
+            return w
+        rows = x.numel() // (x.shape[-1] * math.prod(w.shape[:-2]))
+        if not grad and rows < w.shape[-2]:
+            return w
+        pl = list(w.placements)
+        pl[m] = Replicate()
+        return w.redistribute(w.device_mesh, pl)
+
+    return tree_map(one, tree)

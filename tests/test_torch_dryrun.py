@@ -439,3 +439,142 @@ def test_moe_rows_follow_a_batch_the_batch_axes_do_not_all_divide():
             dparams, adamw_init(dparams, opt), dbatch)
     assert tuple(dbatch["tokens"].to_local().shape) == (1, 64)
     assert metrics["loss"].shape == ()
+
+
+def test_jamba_fsdp_projections_keep_the_sequence_whole(monkeypatch):
+    """Smoke jamba (FSDP: its big weights sharded over 'data' as well) on a
+    cuda-typed fake mesh (pod 2, data 2, model 1), a train step of two rows
+    that split over 'pod' alone (jamba train_4k's 16-row microbatches on
+    the 512-rank mesh).  Contracting an activation replicated over 'data'
+    against a weight's shard there leaves partial sums, which DTensor
+    reduce-scatters onto the sequence dim; torch 2.11 then refuses the
+    product's backward (ROADMAP Queue 3 #9).  With each layer's FSDP
+    weights gathered over 'data' at its entry, no Mamba projection's
+    output (nor the out-projection's) holds partial sums, and neither it
+    nor its gradient is sharded on the sequence dim."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import mamba2
+
+    seen = []
+
+    def record(name, t):
+        if isinstance(t, DTensor):
+            seen.append((name, "out", tuple(t.placements)))
+            if t.requires_grad:
+                t.register_hook(lambda g: seen.append(
+                    (name, "grad", tuple(g.placements))))
+
+    project, run_ssd = mamba2._project, mamba2._run_ssd
+
+    def project_rec(params, u, cfg):
+        outs = project(params, u, cfg)
+        for name, t in zip(("z", "x_raw", "bc_raw", "dt"), outs):
+            record(name, t)
+        return outs
+
+    def run_ssd_rec(*args, **kw):
+        out, state = run_ssd(*args, **kw)
+        record("out_proj", out)
+        return out, state
+
+    monkeypatch.setattr(mamba2, "_project", project_rec)
+    monkeypatch.setattr(mamba2, "_run_ssd", run_ssd_rec)
+    cfg = smoke_config("jamba-1.5-large-398b", tp=1,
+                       batch_axes=("pod", "data"))
+    assert cfg.fsdp
+    msd = {"pod": 2, "data": 2, "model": 1}
+    with dryrun.fake_world(4):
+        mesh = make_mesh(msd, "cuda")
+        params = T.init_params(cfg, device="meta")
+        dparams = distribute_tree(params, param_specs(cfg, params, msd),
+                                  mesh)
+        assert any(isinstance(p, Shard) for p in
+                   dparams["blocks"][0]["mamba"]["wx"].placements)
+        opt = AdamWConfig(moment_dtype=cfg.opt_dtype)
+        batch = {"tokens": _meta(2, 64, dtype=torch.int32),
+                 "labels": _meta(2, 64, dtype=torch.int32)}
+        dbatch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
+        _, _, metrics = make_train_step(cfg, opt)(
+            dparams, adamw_init(dparams, opt), dbatch)
+    assert tuple(dbatch["tokens"].to_local().shape) == (1, 64)
+    assert metrics["loss"].shape == ()
+    kinds = {(name, kind) for name, kind, _ in seen}
+    n_mamba = [s.mixer for s in cfg.pattern].count("mamba")
+    assert {(n, k) for n in ("z", "x_raw", "bc_raw", "dt", "out_proj")
+            for k in ("out", "grad")} <= kinds
+    assert len(seen) >= 10 * n_mamba
+    bad = [(name, kind, pl) for name, kind, pl in seen
+           if any(p.is_partial() or (isinstance(p, Shard) and p.dim == 1)
+                  for p in pl)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("chunks", [2, 4])
+def test_fsdp_head_gathered_once_for_every_loss_chunk(chunks):
+    """An FSDP head (its d_model rows sharded over 'data') is all-gathered
+    once for the whole loss, and its gradient reduce-scattered once, however
+    many chunks ``chunked_cross_entropy`` splits the sequence into: the same
+    collectives as one chunk, forward and backward, not one gather a chunk
+    and another in each chunk's recomputation."""
+    from repro_torch.models.common import chunked_cross_entropy
+
+    b, s, d, v = 4, 64, 32, 128
+
+    def counts(n_chunks):
+        with dryrun.fake_world(4):
+            mesh = make_mesh({"data": 4}, "cuda")
+            head = distribute_tensor(torch.empty(d, v, device="meta"), mesh,
+                                     [Shard(0)]).requires_grad_()
+            hidden = distribute_tensor(torch.empty(b, s, d, device="meta"),
+                                       mesh, [Shard(0)]).requires_grad_()
+            labels = distribute_tensor(
+                torch.zeros(b, s, dtype=torch.int32, device="meta"), mesh,
+                [Shard(0)])
+            with CollectiveCounter() as cc:
+                loss = chunked_cross_entropy(hidden, labels, head,
+                                             chunk=s // n_chunks)
+                torch.autograd.grad(loss, (hidden, head))
+        return cc.result()["counts"]
+
+    one, many = counts(1), counts(chunks)
+    assert one["all-gather"] >= 1 and one["reduce-scatter"] >= 1, one
+    for kind in ("all-gather", "reduce-scatter"):
+        assert many[kind] == one[kind], (kind, one, many)
+
+
+def test_gather_fsdp_gathers_where_the_layout_needs_it():
+    """``shards.gather_fsdp``'s rule, leaf by leaf, on (data 2, model 2): a
+    matrix whose rows (its input dim) are split over 'data' is gathered
+    there, keeping its 'model' split, under autograd always and without it
+    only when it meets at least as many rows of ``x`` as it has input dims;
+    an expert stack split over 'data' on its expert dim, a vector and a
+    matrix split over 'model' alone stay as they are; an expert stack split
+    on its input dim counts the rows each expert meets."""
+    from repro_torch.parallel.shards import gather_fsdp
+
+    d, f, e = 64, 32, 4
+    with dryrun.fake_world(4):
+        mesh = make_mesh({"data": 2, "model": 2}, "cuda")
+
+        def put(shape, pl):
+            return distribute_tensor(torch.empty(shape, device="meta"),
+                                     mesh, pl)
+
+        tree = {"w": put((d, f), [Shard(0), Shard(1)]),
+                "tp": put((d, f), [Replicate(), Shard(1)]),
+                "experts": put((e, d, f), [Shard(0), Replicate()]),
+                "stack": put((e, d, f), [Shard(1), Replicate()]),
+                "norm": put((d,), [Replicate(), Replicate()])}
+        few, many = _meta(2, 1, d), _meta(2, 64, d)   # 2 and 128 rows
+        for x, grad, gathered in ((few, False, ()), (many, False, ("w",)),
+                                  (_meta(2, 1, d).requires_grad_(), True,
+                                   ("w", "stack"))):
+            with torch.set_grad_enabled(grad):
+                out = gather_fsdp(tree, x)
+            for k, t in out.items():
+                want = [Replicate(), tree[k].placements[1]] \
+                    if k in gathered else list(tree[k].placements)
+                assert list(t.placements) == want, (k, grad, t.placements)
+        # 512 rows: 128 an expert, at least the stack's 64 input dims
+        out = gather_fsdp(tree, _meta(8, 64, d))
+        assert list(out["stack"].placements) == [Replicate(), Replicate()]

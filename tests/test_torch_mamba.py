@@ -191,6 +191,47 @@ def test_ssd_scan_grads_match_reference(groups, s, chunk, with_state):
         _grad_close(g, w)
 
 
+BF16_TOL = 5e-2   # the module's bfloat16 tolerance (DTYPES)
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["y", "y+state"])
+@pytest.mark.parametrize("s,chunk", [(32, 8), (30, 8), (40, 64)])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssd_scan_grads_match_reference_bf16(groups, s, chunk, with_state):
+    """The same five gradients with x, B, C and dy in bfloat16 (dt, a_log
+    and dstate float32), as the bfloat16 training cells differentiate a
+    layer: the CPU route (autograd of ``ref.ssd_chunked_ref``, which
+    upcasts to float32 inside) against ``jax.vjp`` of the reference's
+    ``_ssd_chunked``, which upcasts too; each gradient in its input's
+    dtype, within BF16_TOL of its largest magnitude (the two round the
+    bfloat16 outputs and gradients at other places)."""
+    rng = np.random.default_rng(20 * s + groups)
+    bsz, h, p, n = 2, 4, 8, 16
+    args = list(_ssd_inputs(rng, bsz, s, h, p, groups, n)[:5])
+    dy, dstate = _cotangents(rng, bsz, s, h, p, n, with_state)
+    low = (0, 3, 4)   # x, B, C
+    jargs = [jnp.asarray(a, jnp.bfloat16 if i in low else jnp.float32)
+             for i, a in enumerate(args)]
+    jc = JM.SSMConfig(d_model=16, d_state=n, head_dim=p, n_groups=groups,
+                      chunk=chunk)
+    _, vjp = jax.vjp(lambda *a: JM._ssd_chunked(*a, jnp.zeros(h), jc),
+                     *jargs)
+    want = vjp((jnp.asarray(dy, jnp.bfloat16), jnp.asarray(dstate)))
+    ins = [_to_torch(a, torch.bfloat16 if i in low else torch.float32)
+           .requires_grad_() for i, a in enumerate(jargs)]
+    y, state = ss.ssd_scan_cuda(*ins, chunk=chunk, final_state=True)
+    assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+    outs, cots = [y], [_to_torch(jnp.asarray(dy, jnp.bfloat16),
+                                 torch.bfloat16)]
+    if with_state:
+        outs.append(state)
+        cots.append(torch.from_numpy(dstate))
+    got = torch.autograd.grad(outs, ins, cots)
+    for g, w, t in zip(got, want, ins):
+        assert g.dtype == t.dtype
+        _grad_close(g, w, BF16_TOL)
+
+
 @pytest.mark.parametrize("s,chunk", [(32, 8), (30, 8), (40, 64)])
 def test_ssd_chunked_grads_match_reference(s, chunk):
     """The block's scan, D-skip included (``_ssd_chunked``), differentiated

@@ -473,6 +473,19 @@ def test_mamba_sharded_train_step_matches_unsharded(gloo_results, layout):
         assert r["a_log_local"] == [1, 4]        # (repeats, local heads)
 
 
+def test_jamba_fsdp_train_step_matches_unsharded(gloo_results):
+    """Smoke jamba with its FSDP layout on (pod 2, data 2, model 1), two
+    rows split over 'pod' alone: each layer's FSDP weights gathered over
+    'data' at its entry (``shards.gather_fsdp``), one train step against the
+    unsharded step on the same weights, at the olmo and mamba steps'
+    tolerances (loss and grad norm 1e-5 relative, weights 1e-5)."""
+    for r in _ok(gloo_results["jamba_fsdp_train"]):
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(*r[key], rtol=1e-5)
+        assert r["update"] >= 5e-4, r["update"]
+        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+
+
 def test_gqa_heads_sharded_per_rank_match_unsharded(gloo_results):
     """Smoke yi-6b (GQA: 4 q heads over 2 kv heads) on (data 1, model 4):
     ``AttnDims(tp=4)`` duplicates the kv heads to 4, so each rank holds one

@@ -258,3 +258,96 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     want_y, want_state = ref.ssd_chunked_ref(*args, chunk=8)
     assert torch.equal(y, want_y) and torch.equal(state, want_state)
     assert ss.LAUNCHES["ssd_scan"] == 0
+
+
+# ------------------------------------------------------------- backward --
+# The host side of ``csrc/ssd_scan_bwd.cu`` (its kernels run in
+# ``tests/test_torch_cuda.py``; its split, ``ref.ssd_split_bwd_ref``, in
+# ``tests/test_torch_mamba.py``).
+
+def test_bwd_source_constants_match_the_host():
+    text = (CSRC / ss.BWD_SOURCE).read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+    assert const("kL") == ref.SSD_BWD_CHUNK == 32
+    assert const("kPSlice") == ref.SSD_P_SLICE
+    assert (const("kRing"), const("kStages")) == ss.BWD_RING
+    assert const("kMaxN") == max(ss.SIZES)
+    assert const("kMaxCluster") == max(
+        ss.bwd_cluster(h, 1) for h in range(1, 65))
+
+
+@pytest.mark.parametrize("p", ss.SIZES)
+@pytest.mark.parametrize("n", ss.SIZES)
+def test_bwd_shared_memory_fits_a_cta(p, n):
+    smem = ss.bwd_smem_bytes(p, n)
+    assert 0 < smem["states"] <= ss.SMEM_LIMIT
+    assert 0 < smem["chunk"] <= ss.SMEM_LIMIT
+    assert smem["states"] % 16 == 0 and smem["chunk"] % 16 == 0
+
+
+def test_bwd_two_chunk_ctas_an_sm_at_the_training_shape():
+    """mamba2-1.3b's heads (P = 64, N = 128): two chunk CTAs share an SM's
+    233,472 bytes (the runtime keeps 1 KiB of each CTA's); a chunk kernel
+    of 64-row chunks holding three L x L matrices asked 184,096 bytes, one
+    an SM."""
+    smem = ss.bwd_smem_bytes(64, 128)
+    assert smem == {"states": 49552, "chunk": 112544}
+    assert 2 * (smem["chunk"] + 1024) <= 233472
+    assert 4 * (smem["states"] + 1024) <= 233472
+
+
+@pytest.mark.parametrize("h,g,cs", [(64, 1, 8), (8, 2, 4), (8, 4, 2),
+                                    (6, 2, 1), (5, 1, 1), (24, 1, 8),
+                                    (12, 1, 4), (2, 2, 1)])
+def test_bwd_cluster_divides_the_heads_of_a_group(h, g, cs):
+    assert ss.bwd_cluster(h, g) == cs
+    assert (h // g) % cs == 0
+
+
+@pytest.mark.parametrize("s,nc", [(1, 1), (5, 1), (32, 1), (33, 2),
+                                  (256, 8), (1000, 32), (1024, 32)])
+def test_bwd_chunks(s, nc):
+    assert ss.bwd_n_chunks(s) == nc
+
+
+def test_bwd_work_and_scratch_at_the_training_shape():
+    """8 x 256 tokens at mamba2-1.3b's heads: 1.172x the bound's
+    11.0625 P N FLOP a (token, head) (a design of 64-row chunks with whole
+    L x L products: 1.63x), and 285 MB of scratch: the states at 32-row
+    chunks take twice the 134 MB they take at 64-row chunks, dB and dC
+    over clusters of 8 heads an eighth of the 134 MB that per-head dB and
+    dC take."""
+    b, s, h, g, p, n = 8, 256, 64, 1, 64, 128
+    ratio = 2 * ss.bwd_fmas(b, s, h, p, n) / ss.backward_flops(b, s, h, p, n)
+    assert 1.17 < ratio < 1.18
+    assert ss.bwd_scratch_bytes(b, s, h, g, p, n) == 285229056
+    nc64 = -(-s // 64)
+    states, heads = 4 * 2 * b * h * nc64 * p * n, 4 * 2 * b * s * h * n
+    assert states == heads == 134217728
+    assert ss.bwd_scratch_bytes(b, s, h, g, p, n) == (
+        2 * states + heads // 8 + 4 * b * ss.bwd_n_chunks(s) * h)
+
+
+def test_bwd_source_sums_in_a_fixed_order_in_float32():
+    """No atomics (two calls give the same bits), no tensor-core route,
+    cp.async staging and the cluster's sums through distributed shared
+    memory; both input types instantiated."""
+    text = (CSRC / ss.BWD_SOURCE).read_text()
+    for needle in ("atomicAdd", "atomicCAS", "atom.", "red.global", ".tf32",
+                   "wgmma.", "mma.sync"):
+        assert needle not in text
+    for needle in ("__pipeline_memcpy_async", "map_shared_rank",
+                   "launch<float>", "launch<__nv_bfloat16>"):
+        assert needle in text
+
+
+def test_bwd_wrapper_takes_cuda_tensors_only():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (1, 40, 2, 8)).astype(np.float32))
+    dt = torch.full((1, 40, 2), 0.1)
+    a_log = torch.zeros(2)
+    bm = torch.from_numpy(rng.normal(0, 1, (1, 40, 1, 8)).astype(np.float32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ss.ssd_scan_bwd_cuda(x, dt, a_log, bm, bm, x)

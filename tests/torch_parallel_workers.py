@@ -315,12 +315,13 @@ def check_mamba(rank: int) -> dict:
             "ssm_global": list(ssm.shape), "ssm_storage": _storage(ssm)}
 
 
-def _mamba_step(mesh, **kw) -> dict:
-    """One train step of smoke mamba2-1.3b on ``mesh`` against the
-    unsharded step on the same weights."""
-    cfg, msd, params, dparams = _lm("mamba2-1.3b", mesh, **kw)
-    batch = {"tokens": _tokens(cfg, 4, 32, 6),
-             "labels": _tokens(cfg, 4, 32, 7)}
+def _mamba_step(mesh, arch: str = "mamba2-1.3b", rows: int = 4,
+                **kw) -> dict:
+    """One train step of smoke ``arch`` on ``mesh`` (``rows`` rows of 32
+    tokens) against the unsharded step on the same weights."""
+    cfg, msd, params, dparams = _lm(arch, mesh, **kw)
+    batch = {"tokens": _tokens(cfg, rows, 32, 6),
+             "labels": _tokens(cfg, rows, 32, 7)}
     opt_cfg = AdamWConfig(lr=1e-3)
     step = make_train_step(cfg, opt_cfg)
     want_p, _, want_m = step(params, adamw_init(params, opt_cfg), batch)
@@ -349,6 +350,17 @@ def check_mamba_train(rank: int) -> dict:
     out["dp_tp"] = _mamba_step(make_mesh({"data": 2, "model": 2}, "cpu"),
                                batch_axes=("data",))
     return out
+
+
+def check_jamba_fsdp_train(rank: int) -> dict:
+    """One train step of smoke jamba (FSDP: the big weights sharded over
+    'data' too) on (pod 2, data 2, model 1) with two rows, which split over
+    'pod' alone (``batch_axes`` pod and data, as jamba train_4k's 16-row
+    microbatches on the 512-rank mesh), against the unsharded step: each
+    layer's FSDP weights are gathered over 'data' at its entry."""
+    mesh = make_mesh({"pod": 2, "data": 2, "model": 1}, "cpu")
+    return _mamba_step(mesh, "jamba-1.5-large-398b", rows=2,
+                       batch_axes=("pod", "data"))
 
 
 class _Largest(TorchDispatchMode):
@@ -424,7 +436,8 @@ CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "moe": check_moe, "moe_batch": check_moe_batch, "olmo": check_olmo, "mamba": check_mamba,
           "mamba_train": check_mamba_train, "gqa": check_gqa,
           "cache_alloc": check_cache_alloc,
-          "olmo_microbatches": check_olmo_microbatches}
+          "olmo_microbatches": check_olmo_microbatches,
+          "jamba_fsdp_train": check_jamba_fsdp_train}
 
 # the directory ``run`` writes its results to (a check's larger outputs go
 # there too)
