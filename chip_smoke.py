@@ -1429,8 +1429,71 @@ DRYRUN_CELLS = (("olmo-1b", "train_4k", False, None),
                 ("mamba2-1.3b", "train_4k", False, 1),
                 ("qwen2-moe-a2.7b", "train_4k", True, 1),
                 ("jamba-1.5-large-398b", "long_500k", False, None),
-                ("olmo-1b", "long_500k", False, None))
+                ("olmo-1b", "long_500k", False, None),
+                ("olmo-1b", "prefill_32k", True, None))
 DRYRUN_TIMEOUT_S = 400
+# olmo-1b prefill_32k multi-pod: 1,493,827,584 B when the cache is made at
+# its shard; a shape helper once added a whole-batch K/V copy, (16, 16,
+# 32768, 16, 128) bfloat16, 34.36 GB, and a partly sharded one would pass
+# any limit far above the shard's
+DRYRUN_TEMP_LIMIT = {("olmo-1b", "prefill_32k", "multi_pod"): 4e9}
+# mamba2-1.3b train_4k: a device's FLOPs over benchmarks/counts.py's (B/C
+# replicated over 'model', as in the reference, puts it above 1)
+DRYRUN_FLOP_RATIO = {("mamba2-1.3b", "train_4k", "single_pod"): 1.2}
+# (global shape, placements on a (pod 2, data 2, model 2) mesh): uneven
+# splits, a dim split by two mesh dims, replicated dims
+LOCAL_SHAPE_CASES = (((5, 7, 3), ("S0", "S0", "S1")),
+                     ((3, 9), ("S1", "R", "S0")),
+                     ((6, 4), ("R", "R", "R")),
+                     ((1, 5, 2), ("S0", "S1", "S1")),
+                     ((16, 3, 32, 4), ("S0", "S0", "S2")))
+
+
+def check_local_shape() -> int:
+    """``parallel.shards.local_shape`` (a shard's shape from shapes alone,
+    which the dry run's meta cache uses) against DTensor's own
+    ``distribute_tensor(...).to_local()`` on this torch, over a fake
+    8-rank (pod 2, data 2, model 2) group as ranks 0, 3 and 6; returns the
+    cases checked."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.parallel.shards import local_shape
+
+    check(not dist.is_initialized(), "a process group is still running")
+    n = 0
+    for rank in (0, 3, 6):
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=8)
+        try:
+            mesh = make_mesh({"pod": 2, "data": 2, "model": 2}, "cpu")
+            for shape, names in LOCAL_SHAPE_CASES:
+                pl = [Replicate() if p == "R" else Shard(int(p[1:]))
+                      for p in names]
+                want = tuple(distribute_tensor(
+                    torch.empty(shape, device="meta"), mesh, pl,
+                    src_data_rank=None).to_local().shape)
+                got = local_shape(shape, mesh, pl)
+                check(got == want, f"local_shape{shape, names} on rank "
+                      f"{rank}: {got}, DTensor {want}")
+                n += 1
+        finally:
+            dist.destroy_process_group()
+    return n
+
+
+def counts_flops(arch: str, shape: str, multi_pod: bool,
+                 n_devices: int) -> float:
+    """``benchmarks/counts.py``'s FLOPs a device of a dry-run cell, by
+    ``tools/dryrun_breakdown.py:counts_terms`` (its formulas without the
+    reference's imports)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from dryrun_breakdown import counts_terms
+    from repro_torch.configs import SHAPES
+
+    msd = ({"pod": 2} if multi_pod else {}) | {"data": 16, "model": 16}
+    cell = SHAPES[shape]
+    return sum(counts_terms(build_cfg(arch, msd, kind=cell.kind), cell,
+                            n_devices).values())
 
 
 def phase_dryrun() -> list:
@@ -1438,12 +1501,21 @@ def phase_dryrun() -> list:
     the single pod at its production two microbatches (the 16-rank 'data'
     axis split into microbatches), mamba2-1.3b train_4k (the SSD forward
     and backward on meta) and qwen2-moe-a2.7b train_4k on the multi-pod
-    mesh at one microbatch, jamba long_500k, and olmo-1b long_500k, which
-    the reference skips.  One child process a cell, in turn, after every
-    phase that times the host: CPU work on meta tensors over a 256/512-rank
-    fake process group, which allocates nothing on the card.  Each record's
+    mesh at one microbatch, jamba long_500k, olmo-1b long_500k, which the
+    reference skips, and olmo-1b prefill_32k on the multi-pod mesh, after
+    ``check_local_shape`` on this torch.  One child process a cell, in
+    turn, after every phase that times the host: CPU work on meta tensors
+    over a 256/512-rank fake process group, which allocates nothing on the
+    card.  Each record's
     trace wall, FLOPs, collective bytes by kind and memory a device; every
-    cell ok or the reference's skip."""
+    cell ok or the reference's skip; the olmo-1b prefill's temp below one
+    whole-batch K or V copy (the cache counted at its shard), and
+    mamba2-1.3b's FLOPs at most 1.2x counts.py's (every tensor-parallel
+    product at its shard)."""
+    n = check_local_shape()
+    print(f"dry run: local_shape agrees with DTensor's distribute_tensor in "
+          f"{n} cases (ranks 0, 3, 6 of a fake 8-rank group), torch "
+          f"{torch.__version__}")
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     src = str(Path(__file__).resolve().parent / "src")
     env = dict(os.environ, PYTHONPATH=src + os.pathsep
@@ -1495,6 +1567,19 @@ def phase_dryrun() -> list:
                   f"{mem['argument_bytes']} B, output "
                   f"{mem['output_bytes']} B, temp {mem['temp_bytes']} B "
                   "(counts from shapes)")
+            key = (arch, shape, rec["mesh"])
+            if key in DRYRUN_TEMP_LIMIT:
+                check(mem["temp_bytes"] < DRYRUN_TEMP_LIMIT[key],
+                      f"dry run {tag}: temp {mem['temp_bytes']} B, not "
+                      f"below {DRYRUN_TEMP_LIMIT[key]:.4g}")
+            if key in DRYRUN_FLOP_RATIO:
+                ratio = rec["flops_per_device"] / counts_flops(
+                    arch, shape, mp, rec["n_devices"])
+                print(f"dryrun {tag}: {ratio:.6f}x benchmarks/counts.py's "
+                      "FLOPs a device")
+                check(ratio <= DRYRUN_FLOP_RATIO[key],
+                      f"dry run {tag}: {ratio:.4f}x counts.py's FLOPs, "
+                      f"above {DRYRUN_FLOP_RATIO[key]}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print(f"dry run: {len(records)} cells in "

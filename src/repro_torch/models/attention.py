@@ -15,14 +15,15 @@ Caches are updated in place (the reference returns new arrays): decode and
 prefill write into the tensors of the cache dict they are given.
 
 On DTensors (a tensor-parallel layout, ``parallel.param_specs``) the
-projections are DTensor products, and RoPE, the attention itself and the
-cache writes run on each rank's (batch, head) shard under ``local_map``
-(``parallel.shards.on_shards``): attention never mixes heads or sequences,
-so the core needs no collective, and the flash kernel runs on each rank's
-local heads.  A rank's q heads are contiguous, as are its kv heads, and
-with ``AttnDims``'s padding and duplication both counts split evenly
-whenever the kv heads do, so local q head j reads local kv head j // R,
-the same logical head as in the unsharded layout.
+projections run on the weights' shards (``parallel.shards.tp_matmul``: q,
+k and v by columns over 'model', ``wo`` by rows), and RoPE, the attention
+itself and the cache writes run on each rank's (batch, head) shard under
+``local_map`` (``parallel.shards.on_shards``): attention never mixes heads
+or sequences, so the core needs no collective, and the flash kernel runs on
+each rank's local heads.  A rank's q heads are contiguous, as are its kv
+heads, and with ``AttnDims``'s padding and duplication both counts split
+evenly whenever the kv heads do, so local q head j reads local kv head
+j // R, the same logical head as in the unsharded layout.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import LeafShape, apply_rope, normal
-from repro_torch.parallel.shards import head_roles, layout, mesh_of, on_shards
+from repro_torch.parallel.shards import (head_roles, layout, mesh_of,
+                                         on_shards, tp_matmul)
 
 NEG_INF = -1e30
 
@@ -125,9 +127,9 @@ def _project_qkv(params, x, dims: AttnDims):
     """q (B,S,Hq,dh), k and v (B,S,G,dh), before RoPE."""
     b, s, _ = x.shape
     dh = dims.d_head
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = tp_matmul(x, params["wq"])
+    k = tp_matmul(x, params["wk"])
+    v = tp_matmul(x, params["wv"])
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(b, s, dims.n_q_phys, dh)
@@ -195,7 +197,7 @@ def attention_train(params, x, dims: AttnDims, *, positions=None,
         out_pl = (qpl, qpl, qpl)
     out, k, v = on_shards(core, mesh, (q, k, v, positions), in_pl, out_pl)
     out = out.reshape(b, s, dims.n_q_phys * dims.d_head)
-    return out @ params["wo"], k, v
+    return tp_matmul(out, params["wo"]), k, v
 
 
 def _train_core(q, k, v, positions, *, swa_window, rope_theta, impl,
@@ -408,7 +410,7 @@ def attention_decode(params, x, cache: dict, pos: int, dims: AttnDims, *,
                              swa_window=swa_window, rope_theta=rope_theta)
     out = _cache_call(core, cache, (q, k_new, v_new), returns=True)
     out = out.reshape(b, 1, dims.n_q_phys * dims.d_head)
-    return out @ params["wo"], cache
+    return tp_matmul(out, params["wo"]), cache
 
 
 def _decode_core(q, k_new, v_new, cache: dict, *, pos: int, swa_window,

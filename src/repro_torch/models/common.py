@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.parallel.shards import gather_dim, gather_fsdp, \
-    replicate_like
+    replicate_like, tp_matmul
 
 __all__ = ["rms_norm", "layer_norm_nonparam", "make_norm", "init_norm",
            "apply_norm", "rope_frequencies", "apply_rope", "init_mlp",
@@ -134,12 +134,14 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, kind: str,
 
 
 def apply_mlp(params: dict, x, kind: str):
+    """The MLP of ``x``; on DTensors its hidden dim split over 'model' (the
+    reference's layout), ``wo``'s partial sums reduced at its output."""
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
-        h = act(x @ params["wg"]) * (x @ params["wi"])
+        h = act(tp_matmul(x, params["wg"])) * tp_matmul(x, params["wi"])
     else:
-        h = _act(kind)(x @ params["wi"])
-    return h @ params["wo"]
+        h = _act(kind)(tp_matmul(x, params["wi"]))
+    return tp_matmul(h, params["wo"])
 
 
 def mlp_flops(d: int, ff: int, kind: str, tokens: int) -> float:
@@ -170,11 +172,9 @@ def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
     def chunk_loss(h_c, l_c):
         if norm_params is not None:
             h_c = apply_norm(norm_kind, norm_params, h_c)
-        # a vocab-sharded DTensor is gathered whole, and partial sums (a
-        # hidden state that a row-parallel product left unreduced) summed:
-        # the target's gather and the logsumexp read every vocab entry of a
-        # row
-        logits = gather_dim((h_c @ lm_head).float(), -1)           # (B, c, V)
+        # vocab-sharded logits are gathered whole: the target's gather and
+        # the logsumexp read every vocab entry of a row
+        logits = gather_dim(tp_matmul(h_c, lm_head).float(), -1)  # (B, c, V)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.take_along_dim(
             logits, torch.clamp(l_c, min=0).long()[..., None], dim=-1)[..., 0]

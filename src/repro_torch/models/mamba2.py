@@ -15,11 +15,13 @@ in place, as the port's attention caches are updated.
 
 On DTensors (``parallel.param_specs``: the head-aligned z/x/dt projections,
 conv-x, ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_scale`` over 'model',
-the B/C projections replicated) the projections, convolutions and the gated
-norm (whose mean crosses the sharded heads) are DTensor ops, and the SSD
-scan, and decode's recurrence, run on each rank's (batch, head) shard under
-``local_map``: a head's scan reads only its own x, dt and A and its group's
-B/C, so the ``ssd_scan`` kernel runs on each rank's heads.
+the B/C projections replicated) the projections run on the weights'
+shards (``parallel.shards.tp_matmul``), the convolutions on each rank's
+channels, the gated norm (whose mean crosses the sharded heads) is a
+DTensor op, and the SSD scan, and decode's recurrence, run on each rank's
+(batch, head) shard under ``local_map``: a head's scan reads only its own
+x, dt and A and its group's B/C, so the ``ssd_scan`` kernel runs on each
+rank's heads.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models.common import LeafShape, normal, rms_norm
-from repro_torch.parallel.shards import head_roles, layout, mesh_of, on_shards
+from repro_torch.parallel.shards import (head_roles, layout, mesh_of,
+                                         on_shards, tp_matmul)
 
 __all__ = ["SSMConfig", "init_mamba", "mamba_train", "mamba_prefill",
            "mamba_decode", "mamba_cache_shapes", "init_mamba_cache",
@@ -148,10 +151,12 @@ def _ssd_core(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int):
 def _project(params, u, cfg: SSMConfig):
     """u: (B,S,d) -> z (B,S,di), x_raw (B,S,di), bc_raw (B,S,2GN),
     dt (B,S,H)."""
-    z = u @ params["wz"]
-    x_raw = u @ params["wx"]
-    bc_raw = torch.cat([u @ params["wb"], u @ params["wc"]], dim=-1)
-    dt = u @ params["wdt"]
+    z = tp_matmul(u, params["wz"])
+    x_raw = tp_matmul(u, params["wx"])
+    # B/C: whole on every 'model' rank, as the reference replicates them
+    bc_raw = torch.cat([tp_matmul(u, params["wb"]),
+                        tp_matmul(u, params["wc"])], dim=-1)
+    dt = tp_matmul(u, params["wdt"])
     return z, x_raw, bc_raw, dt
 
 
@@ -166,7 +171,7 @@ def _run_ssd(params, z, x_conv, bc_conv, dt, cfg: SSMConfig):
                             params["d_skip"], cfg)
     y = y.reshape(bsz, s, cfg.d_inner)
     y = rms_norm(y * F.silu(z), params["norm_scale"])
-    return y @ params["out_proj"], hlast
+    return tp_matmul(y, params["out_proj"]), hlast
 
 
 def mamba_train(params, u, cfg: SSMConfig):
@@ -252,7 +257,7 @@ def mamba_decode(params, u, cache: dict, cfg: SSMConfig):
 
     y = on_shards(core, mesh, args, in_pl, out_pl)
     y = rms_norm(y.to(u.dtype) * F.silu(z), params["norm_scale"])
-    return (y @ params["out_proj"])[:, None, :], cache
+    return tp_matmul(y, params["out_proj"])[:, None, :], cache
 
 
 def _decode_core(params, x_raw, bc_raw, dt, cache: dict, cfg: SSMConfig):

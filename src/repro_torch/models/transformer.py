@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
@@ -45,13 +45,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.common import (LeafShape, MetaGenerator, apply_mlp,
                                        apply_norm, chunked_cross_entropy,
-                                       embed_tokens, init_embedding, init_mlp,
-                                       init_norm, normal)
+                                       embed_tokens, init_embedding,
+                                       init_mlp, init_norm, normal)
 from repro_torch.parallel.sharding import (_batch_dim_spec, cache_specs,
                                            mesh_shape_dict, placements)
 from repro_torch.parallel.shards import (batch_like, gather_fsdp,
-                                         is_dtensor, match, mesh_of,
-                                         replicate_like)
+                                         is_dtensor, local_shape, match,
+                                         mesh_of, replicate_like, tp_matmul)
 from repro_torch.tree import tree_map, tree_map_with_keys
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
@@ -224,7 +224,7 @@ def _embed_inputs(params, cfg: ArchConfig, batch) -> tuple:
     """Returns (x (B,S,d), positions (B,S)) handling frontends."""
     x = embed_tokens(params["embed"], batch["tokens"])
     if cfg.frontend == "patch":
-        patches = batch["patch_embeds"] @ params["patch_proj"]
+        patches = tp_matmul(batch["patch_embeds"], params["patch_proj"])
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     x = _pin_batch(cfg, x)
     b, s = x.shape[0], x.shape[1]
@@ -304,9 +304,9 @@ def _logits(params, cfg: ArchConfig, h):
         # the reference's einsum "bd,kdv->bkv", one codebook's product at a
         # time: einsum folds (k, v) into one dim, which DTensor (torch 2.11)
         # refuses where the vocab is sharded
-        return torch.stack([h @ w for w in params["lm_head"].unbind(0)],
-                           dim=1)
-    return h @ params["lm_head"]
+        return torch.stack([tp_matmul(h, w)
+                            for w in params["lm_head"].unbind(0)], dim=1)
+    return tp_matmul(h, params["lm_head"])
 
 
 # ----------------------------------------------------------------- decode ---
@@ -369,14 +369,12 @@ def _cache_shards(shapes, cfg: ArchConfig, mesh, dev: torch.device):
             return t                                   # ``pos``
         pl = placements(spec, mesh)
         if dev.type == "meta":
-            # the shard's shape, from a view of one element
-            one = torch.empty_strided(t.shape, (0,) * len(t.shape),
-                                      dtype=t.dtype, device="meta")
-            shard = distribute_tensor(one, mesh, pl, src_data_rank=None)
+            # the shard's shape from the global one: no tensor is made but
+            # the shard itself
             stride = tuple(int(np.prod(t.shape[i + 1:]))
                            for i in range(len(t.shape)))
             return DTensor.from_local(
-                torch.empty(shard.to_local().shape, dtype=t.dtype,
+                torch.empty(local_shape(t.shape, mesh, pl), dtype=t.dtype,
                             device="meta"),
                 mesh, pl, run_check=False, shape=t.shape, stride=stride)
         return torch.distributed.tensor.full(

@@ -9,8 +9,11 @@ placements of another tensor that has those roles at its own dims; and
 ``on_shards`` runs a function of plain tensors on each rank's shards through
 ``local_map``, for work that is independent across the sharded roles (the
 attention of one (batch, head), the SSD scan of one head, the dispatch of
-one group) and whose tensors are made from local shapes.  On plain tensors
-every helper is the identity, or calls the function as it is.
+one group) and whose tensors are made from local shapes.  ``tp_matmul`` is
+every dense product of an activation and a weight, run on the shards the
+reference's layout gives it, and ``local_shape`` a DTensor's shard shape
+from its global shape alone.  On plain tensors every helper is the
+identity, or calls the function as it is.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.tree import tree_map
 
 __all__ = ["is_dtensor", "mesh_of", "roles", "head_roles", "layout",
-           "on_shards", "replicate_like", "batch_like", "match", "gather_dim",
-           "gather_fsdp"]
+           "on_shards", "tp_matmul", "local_shape", "replicate_like",
+           "batch_like", "match", "gather_dim", "gather_fsdp"]
 
 
 def is_dtensor(t) -> bool:
@@ -104,6 +107,88 @@ def on_shards(fn, mesh, args: tuple, in_placements: tuple,
                      in_placements=in_placements,
                      in_grad_placements=grad_placements, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def tp_matmul(x, w):
+    """``x @ w`` for an activation ``x`` (..., rows, k) and a weight ``w``
+    (k, n), or a stack of them (E, k, n) against ``x`` (E, rows, k), on the
+    shards the weight's own placements give each rank, whatever torch's
+    DTensor would choose.  The parameter layout (``parallel.param_specs``,
+    the reference's ``src/repro/parallel/sharding.py``) decides which dim
+    the mesh dim 'model' splits: n (``wi``, ``wg``, ``wq``/``wk``/``wv``,
+    the Mamba in-projections, an lm head over its vocab) or k (``wo``,
+    ``out_proj``, an lm head over d); a weight it leaves whole is
+    multiplied whole, and one split over 'model' on a stack's leading dim
+    is refused.
+
+    Each mesh dim follows the weight's placement there, which is left as it
+    arrives ('data' as ``gather_fsdp`` leaves an FSDP weight): where it
+    splits n, x is whole there and each rank computes its columns; where it
+    splits k, each rank multiplies its slice of x's last dim and the
+    product holds partial sums, reduced at once onto x's rows as they
+    arrived (Megatron's all-reduce after a row-parallel product, a
+    reduce-scatter where the rows were split there); where it splits a
+    stack's leading dim, x is split there too; where it is replicated, x's
+    rows keep their split (the batch's, ``_pin_batch``'s rule) and anything
+    else of x there is gathered.  The gradients follow ``on_shards``' rule.
+    On plain tensors it is ``x @ w``."""
+    mesh = mesh_of(x, w)
+    if mesh is None:
+        return x @ w
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        raise ValueError("tp_matmul takes both operands as DTensors or "
+                         "neither")
+    xd, wd = x.dim(), w.dim()
+    k_x, k_w, n_w = xd - 1, wd - 2, wd - 1
+    stack = range(xd - wd, xd - 2)            # x's dims facing w's stack
+    names = mesh.mesh_dim_names or (None,) * mesh.ndim
+    x_in, out, final = [], [], []
+    for m, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        if wp.is_partial():
+            raise ValueError("a weight held as partial sums")
+        rows = xp if isinstance(xp, Shard) and xp.dim % xd < k_x \
+            and xp.dim % xd not in stack else Replicate()
+        if not isinstance(wp, Shard):
+            x_in.append(rows)
+            out.append(rows)
+        elif wp.dim % wd == k_w:
+            x_in.append(Shard(k_x))
+            out.append(Partial())
+        elif wp.dim % wd == n_w:
+            x_in.append(Replicate())
+            out.append(Shard(xd - 1))
+        elif names[m] == "model":
+            raise ValueError(f"'model' splits the stack dim {wp.dim} of a "
+                             f"{wd}-dim weight")
+        else:                                  # a stack's leading dim
+            x_in.append(Shard(wp.dim % wd + xd - wd))
+            out.append(x_in[-1])
+        final.append(rows if out[-1].is_partial() else out[-1])
+    y = on_shards(torch.matmul, mesh, (x, w),
+                  (tuple(x_in), tuple(w.placements)), (tuple(out),))
+    if final != out:
+        y = y.redistribute(mesh, final)
+    return y
+
+
+def local_shape(shape, mesh, placements) -> tuple:
+    """The shape of this rank's shard of a DTensor of global ``shape`` laid
+    out on ``mesh`` as ``placements`` say, made from shapes alone: DTensor's
+    own rule, each ``Shard`` splitting the dim as ``torch.chunk`` does (the
+    first ranks take ``ceil(size / n)`` rows, the last may take fewer or
+    none), mesh dims in order, so a dim split by two mesh dims is split
+    again within the first one's chunk.  A rank outside the mesh holds
+    nothing."""
+    out = list(shape)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return (0,) * len(out)
+    for m, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n, size = mesh.size(m), out[p.dim]
+            full = -(-size // n)
+            out[p.dim] = max(0, min(full, size - coord[m] * full))
+    return tuple(out)
 
 
 def replicate_like(t: torch.Tensor, ref):

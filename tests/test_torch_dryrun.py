@@ -578,3 +578,185 @@ def test_gather_fsdp_gathers_where_the_layout_needs_it():
         # 512 rows: 128 an expert, at least the stack's 64 input dims
         out = gather_fsdp(tree, _meta(8, 64, d))
         assert list(out["stack"].placements) == [Replicate(), Replicate()]
+
+
+# ------------------------------------------- the layout's share, pinned --
+
+class _ByProduct(dryrun._CellCost):
+    """``dryrun``'s counter, with each local ``aten.mm``'s FLOPs kept by its
+    operands' shapes."""
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.mm = {}
+
+    def local_op(self, func, args, kwargs, out) -> None:
+        before = self.flops
+        super().local_op(func, args, kwargs, out)
+        if str(func.overloadpacket) == "aten.mm":
+            key = tuple(tuple(a.shape) for a in args[:2])
+            self.mm[key] = self.mm.get(key, 0) + self.flops - before
+
+
+def _one_layer_cell(arch: str, shape: str, seq: int, microbatches: int = 1):
+    """One layer of ``arch`` at full width, ``shape`` cut to ``seq``,
+    traced on the 256-rank fake mesh: (cfg, cell, the product counter)."""
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cuda")
+        cell = dataclasses.replace(SHAPES[shape], seq_len=seq)
+        cfg = dryrun.dryrun_cfg(arch, mesh, kind=cell.kind).replace(
+            n_layers=1)
+        fn, args = dryrun._trace_cell(cfg, cell, mesh,
+                                      microbatches=microbatches)
+        ss.reset_meta_flops()
+        with _ByProduct(args) as cost:
+            fn(*args)
+    return cfg, cell, cost
+
+
+def test_olmo_layer_prefill_products_are_the_layouts_share():
+    """One olmo-1b layer, prefill of 32 rows of 8192 tokens on (data 16,
+    model 16): each device multiplies its 2 rows by the reference's shards
+    (q/k/v and the MLP's ff by columns, both out-projections by rows, the
+    lm head by vocab at the last position).  torch 2.13 had multiplied the
+    MLP's wi and wg whole (1.168e12 FLOP), because attention's output
+    reached them as partial sums over 'model'."""
+    cfg, cell, cost = _one_layer_cell("olmo-1b", "prefill_32k", 8192)
+    tp = 16
+    rows = cell.global_batch // 16 * cell.seq_len
+    d, dh, ff = cfg.d_model, cfg.d_head, cfg.d_ff
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    want = (2 * rows * d * (hq + 2 * hkv) * dh // tp        # q, k, v
+            + 2 * rows * hq * dh // tp * d                  # attention wo
+            + 3 * 2 * rows * d * ff // tp                   # wi, wg, wo
+            + 2 * (cell.global_batch // 16) * d * cfg.vocab // tp)  # head
+    assert sum(cost.mm.values()) == want, cost.mm
+
+
+def test_mamba_layer_train_products_are_the_layouts_share():
+    """One mamba2-1.3b layer, a train_4k step cut to 1024 tokens in 8
+    microbatches on (data 16, model 16): every product, forward (twice
+    under remat, and the loss's chunk recomputed), input gradient and
+    weight gradient, at the reference's shard: z, x and dt by columns of
+    d_inner (1/16), out_proj by rows, the lm head by d (its vocab of 50280
+    does not divide 16); B/C whole, as the reference replicates them.
+    torch 2.13 had computed the in-projections' weight gradients and the
+    lm head's whole."""
+    mb = 8
+    cfg, cell, cost = _one_layer_cell("mamba2-1.3b", "train_4k", 1024, mb)
+    tp, s = 16, cfg.ssm
+    rows = cell.global_batch // 16 // mb * cell.seq_len
+    d, v = cfg.d_model, cfg.vocab
+    # forward (again under remat), dx, dW; remat's recomputation stops at
+    # the last tensor a backward saved, out_proj's input, so out_proj's
+    # forward runs once; the loss recomputes each chunk's logits
+    passes = (2 if cfg.remat else 1) + 2
+    in_proj = 2 * rows * d * (2 * s.d_inner + s.n_heads) // tp
+    b_c = 2 * rows * d * s.d_bc
+    out_proj = 2 * rows * s.d_inner // tp * d
+    head = 2 * rows * d // tp * v
+    want = mb * (passes * (in_proj + b_c) + 3 * out_proj + 4 * head)
+    assert cost.mm[((d // tp, rows), (rows, v))] == mb * head  # head's dW
+    assert not [k for k in cost.mm if any(s.d_inner in a for a in k)], \
+        cost.mm                               # no product at all d_inner
+    assert sum(cost.mm.values()) == want, cost.mm
+
+
+def test_tp_matmul_places_each_product_by_the_weights_layout():
+    """``shards.tp_matmul`` on (data 2, model 2): a column split, a row
+    split (reduced at once onto the rows), an activation that arrives as
+    partial sums over 'model' (reduced before the column split, never the
+    weight gathered), an expert stack split over 'data', an FSDP weight
+    left split over 'data' (partial sums reduce-scattered onto the rows);
+    each split read from the weight's placements and each local product at
+    its share; a stack split over 'model' is refused; plain tensors
+    multiply as ``@``."""
+    from torch.distributed.tensor import Partial
+    from repro_torch.parallel.shards import tp_matmul
+
+    with dryrun.fake_world(4):
+        mesh = make_mesh({"data": 2, "model": 2}, "cuda")
+
+        def put(shape, pl):
+            return distribute_tensor(_meta(*shape), mesh, pl,
+                                     src_data_rank=None)
+
+        def run(x, w):
+            with dryrun._CellCost((x, w)) as cost:
+                y = tp_matmul(x, w)
+            return y, cost
+
+        cases = [
+            ((4, 8, 16), [Shard(0), Replicate()], (16, 32),
+             [Replicate(), Shard(1)], [Shard(0), Shard(2)],
+             2 * 2 * 8 * 16 * 16, {}),
+            ((4, 8, 32), [Shard(0), Shard(2)], (32, 16),
+             [Replicate(), Shard(0)], [Shard(0), Replicate()],
+             2 * 2 * 8 * 16 * 16, {"all-reduce": 1}),
+            ((4, 8, 16), [Shard(0), Partial()], (16, 32),
+             [Replicate(), Shard(1)], [Shard(0), Shard(2)],
+             2 * 2 * 8 * 16 * 16, {"all-reduce": 1}),
+            ((4, 6, 16), [Shard(0), Replicate()], (4, 16, 32),
+             [Shard(0), Shard(2)], [Shard(0), Shard(2)],
+             2 * 2 * 6 * 16 * 16, {}),
+            ((4, 8, 16), [Shard(0), Replicate()], (16, 32),
+             [Shard(0), Shard(1)], [Shard(0), Shard(2)],
+             2 * 4 * 8 * 8 * 16, {"all-to-all": 1, "reduce-scatter": 1}),
+        ]
+        for xs, xpl, ws, wpl, want_pl, flops, colls in cases:
+            y, cost = run(put(xs, xpl), put(ws, wpl))
+            assert list(y.placements) == want_pl, (xs, ws, y.placements)
+            assert tuple(y.shape) == xs[:-1] + ws[-1:]
+            assert cost.flops == flops, (xs, ws, cost.flops)
+            counts = {k: n for k, n in cost.result()["counts"].items() if n}
+            assert counts == colls, (xs, ws, counts)
+            assert not any(p.is_partial() for p in y.placements)
+        with pytest.raises(ValueError, match="stack dim"):
+            tp_matmul(put((4, 6, 16), [Shard(0), Replicate()]),
+                      put((4, 16, 32), [Replicate(), Shard(0)]))
+    x, w = torch.randn(3, 5, 4), torch.randn(4, 6)
+    assert torch.equal(tp_matmul(x, w), x @ w)
+
+
+@pytest.mark.parametrize("rank", [0, 3, 6])
+def test_local_shape_matches_distribute_tensor(rank):
+    """``shards.local_shape`` against ``distribute_tensor(...).to_local()``
+    on a fake (pod 2, data 2, model 2) mesh, as rank ``rank``: uneven sizes
+    (a last shard short, or empty), one dim split by two mesh dims, and
+    replicated dims."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.parallel.shards import local_shape
+
+    cases = [((5, 7, 3), [Shard(0), Shard(0), Shard(1)]),
+             ((3, 9), [Shard(1), Replicate(), Shard(0)]),
+             ((6, 4), [Replicate(), Replicate(), Replicate()]),
+             ((1, 5, 2), [Shard(0), Shard(1), Shard(1)]),
+             ((16, 3, 32, 4), [Shard(0), Shard(0), Shard(2)])]
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=8)
+    try:
+        mesh = make_mesh({"pod": 2, "data": 2, "model": 2}, "cuda")
+        for shape, pl in cases:
+            want = distribute_tensor(_meta(*shape), mesh, pl,
+                                     src_data_rank=None).to_local().shape
+            assert local_shape(shape, mesh, pl) == tuple(want), (shape, pl)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b"])
+def test_meta_cache_holds_only_its_shard(arch):
+    """``init_cache(..., device="meta", mesh=)`` with the batch over
+    ('pod', 'data') on (pod 2, data 2, model 2) makes nothing but each
+    leaf's shard: the dry run's peak is the cache's shard bytes (ROADMAP
+    Queue 3 #10: a shape helper's partly sharded copy had been counted,
+    114,692 / 51,460 / 130,820 B)."""
+    cfg = smoke_config(arch, tp=2, batch_axes=("pod", "data"))
+    with dryrun.fake_world(8):
+        mesh = make_mesh({"pod": 2, "data": 2, "model": 2}, "cuda")
+        with dryrun._CellCost(()) as cost:
+            cache = T.init_cache(cfg, 8, 64, device="meta", mesh=mesh)
+    shard = dryrun._nbytes(cache)
+    assert shard > 0
+    assert shard <= cost.peak <= shard + 16, (cost.peak, shard)

@@ -2,13 +2,16 @@
 ``benchmarks/counts.py``'s part.
 
     PYTHONPATH=src python tools/dryrun_breakdown.py ARCH SHAPE [--multi-pod]
-        [--microbatches M]
+        [--microbatches M] [--layers L] [--seq S]
 
 Traces the cell as ``python -m repro_torch.launch.dryrun`` does (meta
 DTensors on the 256- or 512-rank fake mesh) and prints, for every op that
 ``torch.utils.flop_counter`` counts, its FLOPs a device and its largest
 shapes (the local operands), the SSD's meta count, and the ops that are
-not counted, by the elements they write.  Then ``benchmarks/counts.py``'s
+not counted, by the elements they write, and the placements each
+product's DTensor operands arrive with (before DTensor redistributes
+them).  ``--layers`` and ``--seq`` cut the cell's depth and sequence
+length, to find a fault in a short trace.  Then ``benchmarks/counts.py``'s
 count of the same cell a device, term by term (``counts_terms``, its
 ``_fwd_flops_global`` split into terms; their sum is checked against
 ``cell_counts`` where ``benchmarks`` imports, as with ``PYTHONPATH=src:.``
@@ -18,10 +21,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import math
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import SHAPES
 from repro_torch.kernels import ssd_scan
@@ -40,6 +45,16 @@ class _ByOp(D._CellCost):
         self.by_op = collections.Counter()
         self.by_shape = collections.defaultdict(collections.Counter)
         self.uncounted = collections.Counter()
+        self.arrivals = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        if name in ("aten.mm", "aten.bmm") \
+                and any(issubclass(t, DTensor) for t in types):
+            self.arrivals[(name,) + tuple(
+                (tuple(a.shape), tuple(map(str, a.placements)))
+                for a in args if isinstance(a, DTensor))] += 1
+        return super().__torch_dispatch__(func, types, args, kwargs)
 
     def local_op(self, func, args, kwargs, out) -> None:
         before = self.flops
@@ -138,14 +153,22 @@ def main(argv=None) -> None:
     ap.add_argument("shape", choices=list(SHAPES))
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="cut the cell to this sequence length")
     args = ap.parse_args(argv)
     cell = SHAPES[args.shape]
+    if args.seq is not None:
+        cell = dataclasses.replace(cell, seq_len=args.seq)
     mb = args.microbatches if args.microbatches is not None else \
         microbatches_for(args.arch, cell.kind, False)
     with D.fake_world(512 if args.multi_pod else 256):
         mesh = make_production_mesh(multi_pod=args.multi_pod,
                                     device_type="cuda")
         cfg = D.dryrun_cfg(args.arch, mesh, kind=cell.kind)
+        if args.layers is not None:
+            cfg = cfg.replace(n_layers=args.layers)
         fn, fargs = D._trace_cell(cfg, cell, mesh, microbatches=mb)
         ssd_scan.reset_meta_flops()
         t0 = time.perf_counter()
@@ -164,6 +187,10 @@ def main(argv=None) -> None:
         print(f"  {name:24s} {flops:.6e} ({flops / total:.4f})")
         for shapes, f in cost.by_shape[name].most_common(8):
             print(f"      {shapes} {f:.6e}")
+    print("products' DTensor operands as they arrive (global shapes, "
+          "placements): calls")
+    for key, n in cost.arrivals.most_common(12):
+        print(f"  {key[0]} {key[1:]}: {n}")
     print("not counted (elements written):")
     for name, n in cost.uncounted.most_common(10):
         print(f"  {name:40s} {n:.3e}")
@@ -172,7 +199,8 @@ def main(argv=None) -> None:
     print(f"counts.py a device {ref:.6e} (ratio {total / ref:.4f}), by term:")
     for name, flops in sorted(terms.items(), key=lambda kv: -kv[1]):
         print(f"  {name:24s} {flops:.6e}")
-    _check_counts(args.arch, args.shape, mesh_shape, mb, ref)
+    if args.layers is None and args.seq is None:
+        _check_counts(args.arch, args.shape, mesh_shape, mb, ref)
 
 
 if __name__ == "__main__":
