@@ -1435,8 +1435,14 @@ DRYRUN_TIMEOUT_S = 400
 # olmo-1b prefill_32k multi-pod: 1,493,827,584 B when the cache is made at
 # its shard; a shape helper once added a whole-batch K/V copy, (16, 16,
 # 32768, 16, 128) bfloat16, 34.36 GB, and a partly sharded one would pass
-# any limit far above the shard's
-DRYRUN_TEMP_LIMIT = {("olmo-1b", "prefill_32k", "multi_pod"): 4e9}
+# any limit far above the shard's.  The two train cells: about 1.25x their
+# temp with the loss at each device's rows and vocab columns (olmo-1b
+# 6,895,304,728 B, qwen2-moe-a2.7b 10,306,670,740 B, on torch 2.11 and
+# 2.13); the loss's whole-microbatch logit gradient had made them
+# 66,471,067,672 and 252,629,004,308 B
+DRYRUN_TEMP_LIMIT = {("olmo-1b", "prefill_32k", "multi_pod"): 4e9,
+                     ("olmo-1b", "train_4k", "single_pod"): 8.6e9,
+                     ("qwen2-moe-a2.7b", "train_4k", "multi_pod"): 12.9e9}
 # mamba2-1.3b train_4k: a device's FLOPs over benchmarks/counts.py's (B/C
 # replicated over 'model', as in the reference, puts it above 1)
 DRYRUN_FLOP_RATIO = {("mamba2-1.3b", "train_4k", "single_pod"): 1.2}
@@ -1509,9 +1515,10 @@ def phase_dryrun() -> list:
     card.  Each record's
     trace wall, FLOPs, collective bytes by kind and memory a device; every
     cell ok or the reference's skip; the olmo-1b prefill's temp below one
-    whole-batch K or V copy (the cache counted at its shard), and
-    mamba2-1.3b's FLOPs at most 1.2x counts.py's (every tensor-parallel
-    product at its shard)."""
+    whole-batch K or V copy (the cache counted at its shard), the olmo-1b
+    and qwen2-moe-a2.7b trains' temp near their shards' (the loss on each
+    device's rows and vocab columns), and mamba2-1.3b's FLOPs at most 1.2x
+    counts.py's (every tensor-parallel product at its shard)."""
     n = check_local_shape()
     print(f"dry run: local_shape agrees with DTensor's distribute_tensor in "
           f"{n} cases (ranks 0, 3, 6 of a fake 8-rank group), torch "

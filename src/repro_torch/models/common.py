@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.shards import gather_dim, gather_fsdp, \
+from repro_torch.parallel.shards import gather_fsdp, nll_sum, \
     replicate_like, tp_matmul
 
 __all__ = ["rms_norm", "layer_norm_nonparam", "make_norm", "init_norm",
@@ -159,7 +159,11 @@ def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
     hidden: (B, S, d) pre-final-norm activations; lm_head: (d, V).  Each
     chunk's norm, logits, logsumexp and target are computed again in the
     backward pass (``torch.utils.checkpoint``, as the reference's
-    ``jax.checkpoint``), so only one chunk's logits are ever alive.
+    ``jax.checkpoint``), so only one chunk's logits are ever alive.  On
+    DTensors each rank holds only its rows of a chunk's logits, and only
+    its columns where the head splits the vocab (``shards.nll_sum``); a
+    head split on d gives logits whole over the vocab, and a replicated
+    head too.
     """
     b, s, d = hidden.shape
     chunk = min(chunk, s)
@@ -172,13 +176,7 @@ def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
     def chunk_loss(h_c, l_c):
         if norm_params is not None:
             h_c = apply_norm(norm_kind, norm_params, h_c)
-        # vocab-sharded logits are gathered whole: the target's gather and
-        # the logsumexp read every vocab entry of a row
-        logits = gather_dim(tp_matmul(h_c, lm_head).float(), -1)  # (B, c, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.take_along_dim(
-            logits, torch.clamp(l_c, min=0).long()[..., None], dim=-1)[..., 0]
-        return torch.where(l_c >= 0, lse - tgt, 0.0).sum()
+        return nll_sum(tp_matmul(h_c, lm_head).float(), l_c)  # (B, c, V)
 
     tot = replicate_like(torch.zeros((), dtype=torch.float32,
                                      device=hidden.device), hidden)

@@ -11,15 +11,17 @@ placements of another tensor that has those roles at its own dims; and
 attention of one (batch, head), the SSD scan of one head, the dispatch of
 one group) and whose tensors are made from local shapes.  ``tp_matmul`` is
 every dense product of an activation and a weight, run on the shards the
-reference's layout gives it, and ``local_shape`` a DTensor's shard shape
-from its global shape alone.  On plain tensors every helper is the
-identity, or calls the function as it is.
+reference's layout gives it, ``nll_sum`` the cross-entropy of each
+rank's rows of logits, whole or split over the vocab, and ``local_shape`` a
+DTensor's shard shape from its global shape alone.  On plain tensors every
+helper is the identity, or calls the function as it is.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, \
     distribute_tensor
 from torch.distributed.tensor.experimental import local_map
@@ -27,8 +29,9 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.tree import tree_map
 
 __all__ = ["is_dtensor", "mesh_of", "roles", "head_roles", "layout",
-           "on_shards", "tp_matmul", "local_shape", "replicate_like",
-           "batch_like", "match", "gather_dim", "gather_fsdp"]
+           "on_shards", "tp_matmul", "nll_sum", "local_shape",
+           "replicate_like", "batch_like", "match", "gather_dim",
+           "gather_fsdp"]
 
 
 def is_dtensor(t) -> bool:
@@ -171,24 +174,126 @@ def tp_matmul(x, w):
     return y
 
 
-def local_shape(shape, mesh, placements) -> tuple:
-    """The shape of this rank's shard of a DTensor of global ``shape`` laid
-    out on ``mesh`` as ``placements`` say, made from shapes alone: DTensor's
-    own rule, each ``Shard`` splitting the dim as ``torch.chunk`` does (the
-    first ranks take ``ceil(size / n)`` rows, the last may take fewer or
-    none), mesh dims in order, so a dim split by two mesh dims is split
-    again within the first one's chunk.  A rank outside the mesh holds
-    nothing."""
-    out = list(shape)
+def _plain_nll_sum(logits, labels):
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.take_along_dim(
+        logits, torch.clamp(labels, min=0).long()[..., None], dim=-1)[..., 0]
+    return torch.where(labels >= 0, lse - tgt, 0.0).sum()
+
+
+class _SplitNll(torch.autograd.Function):
+    """``_plain_nll_sum`` of rows whose vocab is split over the process
+    groups ``groups``: this rank holds the columns from ``offset`` on.  The
+    forward all-reduces each row's maximum (with max), then its
+    ``sum(exp(logit - max))`` and its target logit, which only the rank
+    holding the label's column contributes (with sum), so every rank of
+    the groups returns the same sum.  The backward needs no collective:
+    with the row's logsumexp whole after the forward, this rank's share of
+    the gradient is its columns' softmax less the label's one-hot, times
+    the mask.  A Function, not DTensor reductions under ``local_map``'s
+    gradient placements: its collectives are issued here, so they do not
+    depend on how a torch version's DTensor propagates a maximum or a
+    partial sum, and its backward makes one float32 copy of the shard."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset: int, groups: tuple):
+        n_cols = logits.shape[-1]
+        m = logits.amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
+        col = labels.long() - offset
+        hit = (col >= 0) & (col < n_cols)
+        col = col.clamp(0, n_cols - 1)
+        tgt = torch.take_along_dim(logits, col[..., None], dim=-1)[..., 0]
+        parts = torch.stack([(logits - m[..., None]).exp_().sum(dim=-1),
+                             torch.where(hit, tgt, 0.0)])
+        for g in groups:
+            dist.all_reduce(parts, dist.ReduceOp.SUM, group=g)
+        lse = m + torch.log(parts[0])
+        valid = labels >= 0
+        ctx.save_for_backward(logits, lse, col, hit & valid, valid)
+        return torch.where(valid, lse - parts[1], 0.0).sum()
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, col, hit, valid = ctx.saved_tensors
+        out = (logits - lse[..., None]).exp_()
+        out.scatter_add_(-1, col[..., None], -hit.to(out.dtype)[..., None])
+        out.mul_((grad * valid)[..., None])
+        return out, None, None, None
+
+
+def nll_sum(logits, labels):
+    """The summed cross-entropy of ``logits`` (..., V) against ``labels``
+    (...): ``logsumexp(row) - row[label]`` over the rows whose label is
+    >= 0.  On plain tensors: ``logsumexp``, ``take_along_dim`` and a
+    masked sum.
+
+    On DTensors each rank computes on its own rows (under ``on_shards``)
+    and the sum comes out as partial sums over the mesh dims that split the
+    rows, replicated elsewhere: no op, forward or backward, makes a tensor
+    of more rows than the rank's share (DTensor's ``take_along_dim``
+    backward makes a replicated, whole-batch zero tensor at the full
+    vocab).  Logits whole over the vocab (a replicated head, or one split
+    on d: ``tp_matmul`` has reduced its partial sums, and ``gather_dim``
+    reduces any that are left) take the plain computation on each rank's
+    rows.  Logits split over the vocab (a head split on V) stay split:
+    ``_SplitNll`` combines each row's maximum, exponential sum and target
+    over the mesh dims that split it.  A mesh dim of size 1 splits
+    nothing, so at world size 1 the result is the plain one, bit for
+    bit."""
+    mesh = mesh_of(logits)
+    if mesh is None:
+        return _plain_nll_sum(logits, labels)
+    last = logits.dim() - 1
+    split = {m: p.dim % logits.dim() for m, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and mesh.size(m) > 1}
+    vocab = [m for m, dim in split.items() if dim == last]
+    rows = [m for m, dim in split.items() if dim != last]
+    if not vocab:
+        logits = gather_dim(logits, -1)
+    pl = tuple(logits.placements)
+    lab_pl = tuple(pl[m] if m in rows else Replicate()
+                   for m in range(mesh.ndim))
+    out_pl = tuple(Partial() if m in rows else Replicate()
+                   for m in range(mesh.ndim))
+    if vocab:
+        offset = _shard_box(logits.shape, mesh, pl)[1][last]
+        groups = tuple(mesh.get_group(m) for m in vocab)
+
+        def fn(lg, lb):
+            return _SplitNll.apply(lg, lb, offset, groups)
+    else:
+        fn = _plain_nll_sum
+    return on_shards(fn, mesh, (logits, labels), (pl, lab_pl), (out_pl,))
+
+
+def _shard_box(shape, mesh, placements) -> tuple:
+    """(shape, offset): the shape of this rank's shard of a DTensor of
+    global ``shape`` laid out on ``mesh`` as ``placements`` say, and where
+    the shard starts in each dim.  DTensor's own rule, each ``Shard``
+    splitting the dim as ``torch.chunk`` does (the first ranks take
+    ``ceil(size / n)`` rows, the last may take fewer or none), mesh dims in
+    order, so a dim split by two mesh dims is split again within the first
+    one's chunk.  A rank outside the mesh holds nothing."""
+    out, start = list(shape), [0] * len(shape)
     coord = mesh.get_coordinate()
     if coord is None:
-        return (0,) * len(out)
+        return (0,) * len(out), tuple(start)
     for m, p in enumerate(placements):
         if isinstance(p, Shard):
             n, size = mesh.size(m), out[p.dim]
             full = -(-size // n)
+            start[p.dim] += min(size, coord[m] * full)
             out[p.dim] = max(0, min(full, size - coord[m] * full))
-    return tuple(out)
+    return tuple(out), tuple(start)
+
+
+def local_shape(shape, mesh, placements) -> tuple:
+    """The shape of this rank's shard of a DTensor of global ``shape`` laid
+    out on ``mesh`` as ``placements`` say, made from shapes alone
+    (``_shard_box``'s rule)."""
+    return _shard_box(shape, mesh, placements)[0]
 
 
 def replicate_like(t: torch.Tensor, ref):

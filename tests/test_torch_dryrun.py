@@ -22,6 +22,11 @@
   'data' axis.  Each one's ``argument_bytes`` is the shard arithmetic of
   the reference's specs over ``jax.eval_shape``
   (``tests/test_distribution.py:58-78``).
+* The loss at its shard: smoke olmo-1b's ``chunked_cross_entropy`` on a
+  fake 8-rank mesh makes no tensor of more rows than the device's share,
+  nor, with the head split over the vocab, of the whole vocab; one
+  olmo-1b train_4k layer's peak stays below six float32 copies of the
+  device's parameter shards.
 * Every arch's long_500k record: the reference's skip record, word for
   word, where the reference skips it.  ``repro.launch.dryrun`` is not
   imported (it sets ``XLA_FLAGS`` to 512 host devices when imported); its
@@ -29,6 +34,7 @@
 """
 import ast
 import dataclasses
+import math
 from pathlib import Path
 
 import jax
@@ -600,7 +606,8 @@ class _ByProduct(dryrun._CellCost):
 
 def _one_layer_cell(arch: str, shape: str, seq: int, microbatches: int = 1):
     """One layer of ``arch`` at full width, ``shape`` cut to ``seq``,
-    traced on the 256-rank fake mesh: (cfg, cell, the product counter)."""
+    traced on the 256-rank fake mesh: (cfg, cell, the product counter,
+    with the bytes of a device's parameter shards as ``param_bytes``)."""
     with dryrun.fake_world(256):
         mesh = make_production_mesh(device_type="cuda")
         cell = dataclasses.replace(SHAPES[shape], seq_len=seq)
@@ -611,6 +618,7 @@ def _one_layer_cell(arch: str, shape: str, seq: int, microbatches: int = 1):
         ss.reset_meta_flops()
         with _ByProduct(args) as cost:
             fn(*args)
+        cost.param_bytes = dryrun._nbytes(args[0])
     return cfg, cell, cost
 
 
@@ -760,3 +768,90 @@ def test_meta_cache_holds_only_its_shard(arch):
     shard = dryrun._nbytes(cache)
     assert shard > 0
     assert shard <= cost.peak <= shard + 16, (cost.peak, shard)
+
+
+# --------------------------------------------- the loss at its shard --
+
+class _Made(dryrun._CellCost):
+    """``dryrun``'s counter, with the shape of every tensor a local op
+    makes, views and collectives left out (an all-gather over a dim other
+    than the first stacks the ranks' pieces along the first dim of its
+    result buffer, which the next op rearranges)."""
+
+    def __init__(self, args):
+        super().__init__(args)
+        self.shapes = []
+
+    def local_op(self, func, args, kwargs, out) -> None:
+        super().local_op(func, args, kwargs, out)
+        name = str(func.overloadpacket)
+        if not getattr(func, "is_view", False) \
+                and not name.startswith("_c10d_functional."):
+            self.shapes += [tuple(t.shape) for t in tree_leaves(out)
+                            if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.parametrize("vocab", [512, 511])
+def test_loss_makes_only_its_rows(vocab):
+    """Smoke olmo-1b's ``chunked_cross_entropy``, forward and backward, on a
+    fake (pod 2, data 2, model 2) mesh: 16 rows of 64 tokens over ('pod',
+    'data'), 4 a device, in chunks of 32.  A vocab of 512 splits the head
+    over 'model' (256 columns a device); 511 does not divide, so the head
+    is split on d and the logits are whole over the vocab.  No tensor the
+    loss makes has more batch rows than the device's 4 (a 3-dim tensor's
+    first dim), nor, among those whose last dim is a vocab width (the
+    head's own (d, columns) shape left out), more token rows than its 4 x
+    32 of a chunk; with the vocab split, none has all 512 columns.
+    DTensor's ``take_along_dim`` backward had made a replicated (16, 32,
+    vocab) zero tensor, and the split vocab had been gathered whole."""
+    from repro_torch.models.common import chunked_cross_entropy
+
+    cfg = smoke_config("olmo-1b", tp=2, batch_axes=("pod", "data"),
+                       vocab=vocab)
+    msd = {"pod": 2, "data": 2, "model": 2}
+    b, s, d, rows = 16, 64, cfg.d_model, 4
+    with dryrun.fake_world(8):
+        mesh = make_mesh(msd, "cuda")
+        params = T.init_params(cfg, device="meta")
+        dparams = distribute_tree(params, param_specs(cfg, params, msd),
+                                  mesh)
+        head = dparams["lm_head"].requires_grad_()
+        batch = {"hidden": _meta(b, s, d), "labels": _meta(
+            b, s, dtype=torch.int32)}
+        dbatch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
+        hidden = dbatch["hidden"].requires_grad_()
+        with _Made((hidden, head, dbatch["labels"])) as made:
+            loss = chunked_cross_entropy(hidden, dbatch["labels"], head,
+                                         chunk=cfg.loss_chunk,
+                                         norm_kind=cfg.norm)
+            torch.autograd.grad(loss, (hidden, head))
+    split = vocab % 2 == 0
+    cols = vocab // 2 if split else vocab
+    head_local = tuple(head.to_local().shape)
+    assert head_local == ((d, cols) if split else (d // 2, vocab))
+    assert tuple(hidden.to_local().shape) == (rows, s, d)
+    assert (rows, cfg.loss_chunk, cols) in made.shapes  # a chunk's logits
+    widths = {vocab, cols}
+    bad = [t for t in made.shapes
+           if (len(t) >= 3 and t[0] > rows)
+           or (t and t[-1] in widths and t[:1] != head_local[:1]
+               and math.prod(t[:-1]) > rows * cfg.loss_chunk)
+           or (split and vocab in t)]
+    assert not bad, sorted(set(bad))
+
+
+def test_olmo_layer_train_peak_is_the_shards():
+    """One olmo-1b layer, a train_4k step cut to 512 tokens at its
+    production two microbatches on (data 16, model 16): 8 rows of 512 a
+    device in each, the head split over the vocab, 3,144 columns a device.
+    The step's peak is then the gradients' and AdamW's float32 temporaries
+    of the largest leaf (the replicated 50304 x 2048 embedding table): it
+    stays below six float32 copies of the device's parameter shards (2.73
+    GB; 1.96 GB counted).  The loss's own float32 storage, a few copies of
+    (8, 512, 3144), is far below that; the whole microbatch's (128, 512,
+    50304) gradient that DTensor's ``take_along_dim`` had made, 13.19 GB,
+    and its rows' logits gathered whole over the vocab, 0.82 GB a copy,
+    were not."""
+    _, _, cost = _one_layer_cell("olmo-1b", "train_4k", 512, 2)
+    bound = 6 * 2 * cost.param_bytes     # bfloat16 weights, float32 copies
+    assert cost.peak < bound, (cost.peak, bound)

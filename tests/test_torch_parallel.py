@@ -18,9 +18,10 @@
   reference's step, the hierarchical reduce within
   ``scale / 64`` of the mean over the data-parallel shards (int8 across
   pods; float within 1e-6), the int8 all-reduce within its analytic bound,
-  expert-parallel MoE equal to plain, and sharded smoke olmo-1b (train
+  expert-parallel MoE equal to plain, sharded smoke olmo-1b (train
   step, prefill, decode) and mamba2-1.3b (prefill, decode and a train
-  step) against the unsharded port.
+  step) against the unsharded port, and the sharded loss and its
+  gradients against plain for a vocab-split, a d-split and an FSDP head.
 """
 import dataclasses
 import json
@@ -484,6 +485,25 @@ def test_jamba_fsdp_train_step_matches_unsharded(gloo_results):
             np.testing.assert_allclose(*r[key], rtol=1e-5)
         assert r["update"] >= 5e-4, r["update"]
         assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+
+
+@pytest.mark.parametrize("head", sorted(W.LOSS_HEADS))
+def test_sharded_loss_matches_plain_for_each_head(gloo_results, head):
+    """``chunked_cross_entropy`` on (data 2, model 2), the rows over 'data',
+    against plain on the same inputs, for a head split over the vocab (each
+    rank's 256 columns combined by ``shards.nll_sum``), one split on d
+    (vocab 511) and an FSDP head: the loss within 1e-5 relative, the
+    gradients of the hidden state, the head and the final norm's scale
+    within 1e-5 of their largest value (the train steps' tolerance).
+    Labels -1, on each vocab shard's first and last column, and a chunk
+    all masked."""
+    for r in _ok(gloo_results["loss_heads"]):
+        r = r[head]
+        np.testing.assert_allclose(*r["loss"], rtol=1e-5)
+        for key in ("hidden", "head", "scale"):
+            assert r[key]["err"] <= 1e-5 * r[key]["scale"], (key, r[key])
+        assert r["head_local"] == {"vocab": [16, 256], "d": [8, 511],
+                                   "fsdp": [8, 256]}[head]
 
 
 def test_gqa_heads_sharded_per_rank_match_unsharded(gloo_results):

@@ -432,12 +432,76 @@ def check_gqa(rank: int) -> dict:
                              .to_local().shape)}
 
 
+# the loss's heads on (data 2, model 2): (vocab, head placements); the
+# vocab split over 'model' (256 columns a rank), a vocab of 511, which
+# 'model' does not divide, so the head is split on d (its logits whole
+# over the vocab), and the FSDP head, split on d over 'data' as well
+LOSS_HEADS = {"vocab": (512, "R,S1"), "d": (511, "R,S0"),
+              "fsdp": (512, "S0,S1")}
+
+
+def loss_inputs(vocab: int):
+    """(hidden (4, 32, 16), labels (4, 32), head (16, vocab), norm scale
+    (16,)) from seeds: labels -1 at random, on the first and last column
+    of each 256-column shard, and all -1 in positions 8-15 (one chunk of
+    8)."""
+    rng = np.random.default_rng(27)
+    hidden = rng.normal(0, 1, (4, 32, 16)).astype(np.float32)
+    labels = rng.integers(0, vocab, (4, 32))
+    labels[rng.random((4, 32)) < 0.2] = -1
+    labels[:, 8:16] = -1
+    labels[0, :4] = [0, 255, 256, vocab - 1]
+    labels[3, 28:] = [vocab - 1, 256, 255, 0]
+    head = rng.normal(0, 0.5, (16, vocab)).astype(np.float32)
+    scale = rng.normal(1, 0.1, (16,)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (hidden, labels.astype(np.int32),
+                                          head, scale)]
+
+
+def check_loss_heads(rank: int) -> dict:
+    """``chunked_cross_entropy`` (chunks of 8, an rms final norm) with the
+    hidden state's rows over 'data', for each head of ``LOSS_HEADS``,
+    against plain on the same inputs: the loss and the gradients of the
+    hidden state, the head and the norm's scale."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models.common import chunked_cross_entropy
+
+    mesh = make_mesh({"data": 2, "model": 2}, "cpu")
+    out = {}
+    for name, (vocab, head_pl) in LOSS_HEADS.items():
+        hidden, labels, head, scale = loss_inputs(vocab)
+
+        def loss_grads(h, lab, w, sc):
+            leaves = [t.requires_grad_() for t in (h, w, sc)]
+            loss = chunked_cross_entropy(h, lab, w, chunk=8,
+                                         norm_kind="rms",
+                                         norm_params={"scale": sc})
+            return loss, torch.autograd.grad(loss, leaves)
+
+        want, want_g = loss_grads(hidden, labels, head, scale)
+        rows = [Shard(0), Replicate()]
+        put = lambda t, pl: distribute_tensor(t, mesh, pl)  # noqa: E731
+        got, got_g = loss_grads(
+            put(hidden, rows), put(labels, rows),
+            put(head, [Replicate() if p == "R" else Shard(int(p[1]))
+                       for p in head_pl.split(",")]),
+            put(scale, [Replicate(), Replicate()]))
+        out[name] = {"loss": [float(_full(got).detach()),
+                              float(want.detach())],
+                     "head_local": list(got_g[1].to_local().shape)}
+        for key, g, w in zip(("hidden", "head", "scale"), got_g, want_g):
+            out[name][key] = {"err": _err(g, w),
+                              "scale": float(w.abs().max())}
+    return out
+
+
 CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "moe": check_moe, "moe_batch": check_moe_batch, "olmo": check_olmo, "mamba": check_mamba,
           "mamba_train": check_mamba_train, "gqa": check_gqa,
           "cache_alloc": check_cache_alloc,
           "olmo_microbatches": check_olmo_microbatches,
-          "jamba_fsdp_train": check_jamba_fsdp_train}
+          "jamba_fsdp_train": check_jamba_fsdp_train,
+          "loss_heads": check_loss_heads}
 
 # the directory ``run`` writes its results to (a check's larger outputs go
 # there too)
