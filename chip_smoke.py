@@ -21,7 +21,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      SSD scan against the naive recurrence and the plain chunked version
      (y, and the final state) on the reference's sweep, mamba2-1.3b's and
      jamba's head shapes, grouped B/C, a partial last chunk, P = 8 and a
-     sequence under one chunk, within 5e-4 and 5e-2;
+     sequence under one chunk, within 5e-4 and 5e-2; then each wrapper on
+     a batch of no rows (empty outputs and gradients, no launch);
   4. the DV-DVFS main path at full size: token blocks -> sampled estimates
      (one block_stats_batched launch a chunk) -> DV-DVFS plans -> simulated
      run against the full-block truth, then the same estimates planned over
@@ -139,12 +140,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      an SM;
  19. the dry run (launch/dryrun.py) of olmo-1b train_4k at its two
      microbatches, mamba2-1.3b train_4k, qwen2-moe-a2.7b train_4k on the
-     512-rank mesh (one microbatch each), jamba long_500k and olmo-1b
-     long_500k (the reference's skip), each cell a child process on the
-     host (meta DTensors over a 256/512-rank fake process group, nothing
-     on the card), one after another after every phase that times the
-     host, with each record's trace wall, FLOPs, collective bytes by kind
-     and memory a device.
+     512-rank mesh (one microbatch each), jamba long_500k, olmo-1b
+     long_500k (the reference's skip), olmo-1b prefill_32k on the 512-rank
+     mesh and olmo-1b train_4k there at 16 microbatches (16 rows over 32
+     batch ranks, one on rank 0), each cell a child process on the host
+     (meta DTensors over a 256/512-rank fake process group, nothing on
+     the card), four at a time after every phase that times the host,
+     with each record's trace wall, FLOPs, collective bytes by kind and
+     memory a device.
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
@@ -155,6 +158,7 @@ nothing here measures the card's energy.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -719,6 +723,56 @@ def phase_ssd_parity(worst: dict) -> None:
                   f"{p},{n}) {str(dtype)[6:]}: max |err| " + ", ".join(
                       f"{k} {v:.3g}" for k, v in errs.items())
                   + f" (tol {SSD_TOL[dtype]} abs + rel)")
+
+
+def phase_zero_rows() -> None:
+    """Each kernel wrapper on a batch of no rows (what a rank holds when a
+    sharded batch has fewer rows than the ranks that split it): empty
+    outputs of the right shapes and types, and empty gradients, with no
+    launch counted.  Flash attention in both dtypes; the SSD scan's
+    forward (y and the final state), through ``SsdScan`` with its
+    backward, and ``ssd_scan_bwd_cuda`` called directly; block statistics
+    on no blocks."""
+    dev = torch.device("cuda")
+    before = (dict(fa.LAUNCHES), dict(ss.LAUNCHES), dict(bs.LAUNCHES))
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((0, 4, 64, 64), dtype=dtype, device=dev)
+        k = torch.zeros((0, 2, 64, 64), dtype=dtype, device=dev)
+        out = fa.flash_attention_cuda(q, k, k)
+        check(out.shape == q.shape and out.dtype == dtype
+              and out.device.type == "cuda", f"flash {dtype} on 0 rows")
+        x = torch.zeros((0, 64, 4, 64), dtype=dtype, device=dev,
+                        requires_grad=True)
+        dt = torch.zeros((0, 64, 4), device=dev, requires_grad=True)
+        a_log = torch.zeros((4,), device=dev, requires_grad=True)
+        bm = torch.zeros((0, 64, 2, 128), dtype=dtype, device=dev,
+                         requires_grad=True)
+        cm = torch.zeros_like(bm, requires_grad=True)
+        ins = (x, dt, a_log, bm, cm)
+        y, state = ss.ssd_scan_cuda(*ins, final_state=True)
+        check(y.shape == x.shape and y.dtype == dtype
+              and state.shape == (0, 4, 64, 128), f"ssd {dtype} on 0 rows")
+        (y.float().sum() + state.sum()).backward()
+        direct = ss.ssd_scan_bwd_cuda(*(t.detach() for t in ins),
+                                      torch.zeros_like(y), None)
+        for t, g in zip(ins, direct):
+            for grad in (t.grad, g):
+                check(grad is not None and grad.shape == t.shape
+                      and grad.dtype == t.dtype and not bool(grad.any()),
+                      f"ssd backward {dtype} on 0 rows: gradient shape "
+                      f"{None if grad is None else tuple(grad.shape)}")
+        n += 4
+    z = bs.block_stats_batched_cuda(torch.zeros((0, 8, 8), dtype=torch.int32,
+                                                device=dev))
+    check(z.shape == (0, 3), "block statistics on no blocks")
+    torch.cuda.synchronize()
+    check((dict(fa.LAUNCHES), dict(ss.LAUNCHES), dict(bs.LAUNCHES))
+          == before, "a wrapper launched a kernel on 0 rows")
+    print(f"zero rows ok: {n + 1} wrapper calls (flash attention, the SSD "
+          "scan forward, its backward through SsdScan and directly, in "
+          "float32 and bfloat16; block statistics) return empty outputs "
+          "and gradients, launching nothing")
 
 
 def phase_main_path() -> dict:
@@ -1424,13 +1478,15 @@ def phase_apps() -> dict:
 
 
 # the dry run's cells (arch, shape, multi-pod, microbatches or None for the
-# production count)
-DRYRUN_CELLS = (("olmo-1b", "train_4k", False, None),
-                ("mamba2-1.3b", "train_4k", False, 1),
+# production count), the longest first: DRYRUN_JOBS children at a time
+DRYRUN_CELLS = (("olmo-1b", "train_4k", True, 16),
+                ("olmo-1b", "prefill_32k", True, None),
+                ("olmo-1b", "train_4k", False, None),
                 ("qwen2-moe-a2.7b", "train_4k", True, 1),
+                ("mamba2-1.3b", "train_4k", False, 1),
                 ("jamba-1.5-large-398b", "long_500k", False, None),
-                ("olmo-1b", "long_500k", False, None),
-                ("olmo-1b", "prefill_32k", True, None))
+                ("olmo-1b", "long_500k", False, None))
+DRYRUN_JOBS = 4
 DRYRUN_TIMEOUT_S = 400
 # olmo-1b prefill_32k multi-pod: 1,493,827,584 B when the cache is made at
 # its shard; a shape helper once added a whole-batch K/V copy, (16, 16,
@@ -1445,7 +1501,13 @@ DRYRUN_TEMP_LIMIT = {("olmo-1b", "prefill_32k", "multi_pod"): 4e9,
                      ("qwen2-moe-a2.7b", "train_4k", "multi_pod"): 12.9e9}
 # mamba2-1.3b train_4k: a device's FLOPs over benchmarks/counts.py's (B/C
 # replicated over 'model', as in the reference, puts it above 1)
-DRYRUN_FLOP_RATIO = {("mamba2-1.3b", "train_4k", "single_pod"): 1.2}
+DRYRUN_FLOP_RATIO = {("mamba2-1.3b", "train_4k", "single_pod"): 1.2,
+                     # 16 microbatches of 16 rows over the 32 batch ranks:
+                     # one row on rank 0 (the reference's padded share,
+                     # 16 of the 32 ranks holding a row, so about 1.9x);
+                     # a 16-row microbatch over 'pod' alone put 8 rows on
+                     # each device, about 15x
+                     ("olmo-1b", "train_4k", "multi_pod"): 2.1}
 # (global shape, placements on a (pod 2, data 2, model 2) mesh): uneven
 # splits, a dim split by two mesh dims, replicated dims
 LOCAL_SHAPE_CASES = (((5, 7, 3), ("S0", "S0", "S1")),
@@ -1508,17 +1570,22 @@ def phase_dryrun() -> list:
     axis split into microbatches), mamba2-1.3b train_4k (the SSD forward
     and backward on meta) and qwen2-moe-a2.7b train_4k on the multi-pod
     mesh at one microbatch, jamba long_500k, olmo-1b long_500k, which the
-    reference skips, and olmo-1b prefill_32k on the multi-pod mesh, after
-    ``check_local_shape`` on this torch.  One child process a cell, in
-    turn, after every phase that times the host: CPU work on meta tensors
-    over a 256/512-rank fake process group, which allocates nothing on the
-    card.  Each record's
-    trace wall, FLOPs, collective bytes by kind and memory a device; every
-    cell ok or the reference's skip; the olmo-1b prefill's temp below one
+    reference skips, olmo-1b prefill_32k on the multi-pod mesh and olmo-1b
+    train_4k there at 16 microbatches of 16 rows (fewer than the 32 batch
+    ranks, so the hidden stream splits unevenly, one row on rank 0), after
+    ``check_local_shape`` on this torch.  One child process a cell, after
+    every phase that times the host: CPU work on meta tensors over a
+    256/512-rank fake process group, which allocates nothing on the card.
+    Each record's trace wall, FLOPs, collective bytes by kind and memory
+    a device; every cell ok or the reference's skip; the olmo-1b
+    prefill's temp below one
     whole-batch K or V copy (the cache counted at its shard), the olmo-1b
     and qwen2-moe-a2.7b trains' temp near their shards' (the loss on each
-    device's rows and vocab columns), and mamba2-1.3b's FLOPs at most 1.2x
-    counts.py's (every tensor-parallel product at its shard)."""
+    device's rows and vocab columns), mamba2-1.3b's FLOPs at most 1.2x
+    counts.py's (every tensor-parallel product at its shard) and the
+    16-microbatch olmo-1b's at most 2.1x (a row a device).  The children
+    run ``DRYRUN_JOBS`` at a time: their trace walls share the host's
+    cores with each other, never with a timed phase."""
     n = check_local_shape()
     print(f"dry run: local_shape agrees with DTensor's distribute_tensor in "
           f"{n} cases (ranks 0, 3, 6 of a fake 8-rank group), torch "
@@ -1528,21 +1595,29 @@ def phase_dryrun() -> list:
     env = dict(os.environ, PYTHONPATH=src + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
+
+    def child(cell) -> int | None:
+        arch, shape, mp, mb = cell
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--out", out_dir]
+        cmd += ["--multi-pod"] if mp else []
+        cmd += ["--microbatches", str(mb)] if mb else []
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            # on a timeout the child is killed before this raises
+            return subprocess.run(cmd, env=env, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.DEVNULL,
+                                  timeout=max(left, 1.0)).returncode
+        except subprocess.TimeoutExpired:
+            return None
+
     records = []
     try:
-        for arch, shape, mp, mb in DRYRUN_CELLS:
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--out", out_dir]
-            cmd += ["--multi-pod"] if mp else []
-            cmd += ["--microbatches", str(mb)] if mb else []
-            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
-            try:
-                # on a timeout the child is killed before this raises
-                rc = subprocess.run(cmd, env=env, stdout=subprocess.DEVNULL,
-                                    stderr=subprocess.DEVNULL,
-                                    timeout=max(left, 1.0)).returncode
-            except subprocess.TimeoutExpired:
-                check(False, f"the dry run took over {DRYRUN_TIMEOUT_S} s")
+        with concurrent.futures.ThreadPoolExecutor(DRYRUN_JOBS) as pool:
+            rcs = list(pool.map(child, DRYRUN_CELLS))
+        for (arch, shape, mp, mb), rc in zip(DRYRUN_CELLS, rcs):
+            check(rc is not None,
+                  f"the dry run took over {DRYRUN_TIMEOUT_S} s")
             tag = f"{'mp' if mp else 'sp'}_{arch}_{shape}"
             path = os.path.join(out_dir, tag + ".json")
             check(os.path.exists(path),
@@ -1591,7 +1666,7 @@ def phase_dryrun() -> list:
         shutil.rmtree(out_dir, ignore_errors=True)
     print(f"dry run: {len(records)} cells in "
           f"{time.perf_counter() - t0:.3f} s of host wall (one process a "
-          "cell, after the card's phases)")
+          f"cell, {DRYRUN_JOBS} at a time, after the card's phases)")
     return records
 
 
@@ -3702,6 +3777,7 @@ def main() -> int:
     worst = phase_parity()
     phase_flash_parity(worst)
     phase_ssd_parity(worst)
+    phase_zero_rows()
     main_path = phase_main_path()
     phase_runtime(main_path)
     phase_small_path()

@@ -47,11 +47,14 @@ from repro_torch.models.common import (LeafShape, MetaGenerator, apply_mlp,
                                        apply_norm, chunked_cross_entropy,
                                        embed_tokens, init_embedding,
                                        init_mlp, init_norm, normal)
-from repro_torch.parallel.sharding import (_batch_dim_spec, cache_specs,
-                                           mesh_shape_dict, placements)
+from repro_torch.parallel.sharding import (P, _batch_dim_spec, cache_specs,
+                                           mesh_shape_dict, mesh_shape_size,
+                                           placements)
 from repro_torch.parallel.shards import (batch_like, gather_fsdp,
                                          is_dtensor, local_shape, match,
-                                         mesh_of, replicate_like, tp_matmul)
+                                         merge_rows, mergeable_rows, mesh_of,
+                                         replicate_like, split_rows,
+                                         tp_matmul)
 from repro_torch.tree import tree_map, tree_map_with_keys
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "prefill",
@@ -164,18 +167,43 @@ def _index(tree, i: int):
 
 # ---------------------------------------------------------------- forward ---
 
-def _pin_batch(cfg: ArchConfig, x, batch: int | None = None):
-    """Pin the batch dim of an activation DTensor to ``cfg.batch_axes``:
-    dim 0 sharded over as many of them as divide it (``batch_specs``'s rule),
-    replicated over the other mesh dims.  ``batch``, for the (B·S, d) rows
-    of a (B, S, d) activation, is B: the rows are then sharded as the B
-    rows are.  A plain tensor lies on no mesh, so there it is the
-    identity: the values are the same either way."""
+def _pin_batch(cfg: ArchConfig, x):
+    """Pin the batch dim of an activation DTensor to ``cfg.batch_axes``, as
+    the reference's ``_pin_batch`` does: dim 0 sharded over all of them
+    (unless they hold a single rank between them), replicated over the
+    other mesh dims.  Rows that the axes' ranks do not divide are split as
+    ``torch.chunk`` splits them, where the reference pads them: rank 0
+    holds ``ceil(rows / ranks)`` of them, the reference's padded share, and
+    some ranks hold none.  A plain tensor lies on no mesh, so there it is
+    the identity: the values are the same either way."""
     if not cfg.batch_axes or not is_dtensor(x):
         return x
     mesh = x.device_mesh
     axes = tuple(cfg.batch_axes)
-    spec = _batch_dim_spec((batch or x.shape[0],), mesh_shape_dict(mesh),
+    spec = P(axes if len(axes) > 1 else axes[0]) \
+        if _batch_ranks(cfg, x) > 1 else P()
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def _batch_ranks(cfg: ArchConfig, x) -> int:
+    """The ranks ``cfg.batch_axes`` hold between them on the mesh of the
+    DTensor ``x`` (1 for a plain tensor)."""
+    if not cfg.batch_axes or not is_dtensor(x):
+        return 1
+    return mesh_shape_size(tuple(cfg.batch_axes),
+                           mesh_shape_dict(x.device_mesh))
+
+
+def _pin_divisible(cfg: ArchConfig, x, rows: int | None = None):
+    """``x`` (a DTensor) with its dim 0 sharded over as many of
+    ``cfg.batch_axes`` as divide ``rows`` (dim 0's size by default):
+    ``batch_specs``' rule, the layout in which DTensor may merge dim 0 with
+    the next or split it, which it cannot do with an uneven split."""
+    if not cfg.batch_axes or not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    axes = tuple(cfg.batch_axes)
+    spec = _batch_dim_spec((rows or x.shape[0],), mesh_shape_dict(mesh),
                            axes if len(axes) > 1 else axes[0])
     return x.redistribute(mesh, placements(spec, mesh))
 
@@ -211,13 +239,26 @@ def _ffn(cfg: ArchConfig, spec: LayerSpec, p: dict, x):
     if spec.ffn == "dense":
         return x + apply_mlp(p["mlp"], h, cfg.mlp_kind), None
     b, s, d = h.shape
-    # the B·S rows laid out as the B rows are, on both sides of the MoE, so
-    # that neither they nor their gradient reach the (B, S) split spread
-    # over more ranks than B rows divide (DTensor may spread them over all
-    # three mesh dims of a 512-rank mesh)
-    out, aux = moe.apply_moe(
-        p["moe"], _pin_batch(cfg, h.reshape(b * s, d), b), cfg.moe)
-    return x + _pin_batch(cfg, out, b).reshape(b, s, d), aux
+    g = cfg.moe.dispatch_groups
+    g = g if (b * s) % g == 0 else 1           # apply_moe's groups
+    n = _batch_ranks(cfg, h)
+    hp = _pin_batch(cfg, h) if b % n and g % n == 0 else None
+    if hp is not None and mergeable_rows(hp):
+        # fewer B rows than batch ranks (jamba's 16 over 32): whole groups
+        # on every rank (32 groups of 2048 rows, one a rank, less than the
+        # one row of 4096 a device of the reference's padded layout
+        # holds), moved there from the pinned rows and back by one
+        # all-to-all each way
+        out, aux = moe.apply_moe(p["moe"], merge_rows(hp), cfg.moe)
+        return x + split_rows(out, hp), aux
+    # the B·S rows pinned on both sides of the MoE (left to DTensor, they
+    # and their gradient may spread over all three mesh dims of a 512-rank
+    # mesh), over the batch axes that divide its dispatch groups, merged
+    # from and split back into B rows in batch_specs' layout of them
+    rows = _pin_divisible(cfg, _pin_divisible(cfg, h).reshape(b * s, d), g)
+    out, aux = moe.apply_moe(p["moe"], rows, cfg.moe)
+    return x + _pin_batch(cfg, _pin_divisible(cfg, out, b).reshape(b, s, d)
+                          ), aux
 
 
 def _embed_inputs(params, cfg: ArchConfig, batch) -> tuple:

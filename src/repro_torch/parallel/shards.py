@@ -6,10 +6,11 @@ dim, its head dim (attention and Mamba heads under tensor parallelism), or
 its group or expert dim (the MoE's dispatch).  ``roles`` reads, for each
 mesh dim, which role a DTensor is sharded by; ``layout`` gives the
 placements of another tensor that has those roles at its own dims; and
-``on_shards`` runs a function of plain tensors on each rank's shards through
-``local_map``, for work that is independent across the sharded roles (the
-attention of one (batch, head), the SSD scan of one head, the dispatch of
-one group) and whose tensors are made from local shapes.  ``tp_matmul`` is
+``on_shards`` runs a function of plain tensors on each rank's shards (as
+``local_map`` does, uneven shards included), for work that is independent
+across the sharded roles (the attention of one (batch, head), the SSD scan
+of one head, the dispatch of one group) and whose tensors are made from
+local shapes.  ``tp_matmul`` is
 every dense product of an activation and a weight, run on the shards the
 reference's layout gives it, ``nll_sum`` the cross-entropy of each
 rank's rows of logits, whole or split over the vocab, and ``local_shape`` a
@@ -22,16 +23,18 @@ import math
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, \
     distribute_tensor
-from torch.distributed.tensor.experimental import local_map
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.tree import tree_map
 
 __all__ = ["is_dtensor", "mesh_of", "roles", "head_roles", "layout",
            "on_shards", "tp_matmul", "nll_sum", "local_shape",
-           "replicate_like", "batch_like", "match", "gather_dim",
-           "gather_fsdp"]
+           "mergeable_rows", "merge_rows", "split_rows", "replicate_like",
+           "batch_like", "match", "gather_dim", "gather_fsdp"]
 
 
 def is_dtensor(t) -> bool:
@@ -57,8 +60,10 @@ def roles(t: DTensor, **dims) -> tuple:
 def head_roles(t: DTensor, head_dim: int, n_heads: int,
                n_groups: int | None = None) -> tuple:
     """For each mesh dim, "batch" or "heads" where the DTensor ``t`` (the
-    batch at dim 0, the heads at ``head_dim``) is sharded by them and they
-    split evenly; None (replicated in the per-head work) elsewhere.
+    batch at dim 0, the heads at ``head_dim``) is sharded by them (the
+    heads only where they split evenly; the batch as it lies, evenly or
+    not, ``on_shards`` giving each rank its rows); None (replicated in the
+    per-head work) elsewhere.
     ``n_groups`` counts a second head-like dim whose tensors shard with the
     heads (attention's kv heads, Mamba's B/C groups), so the heads stay
     sharded only where it splits evenly too; None when every head reads
@@ -69,8 +74,6 @@ def head_roles(t: DTensor, head_dim: int, n_heads: int,
         n = mesh.size(m)
         if role == "heads" and (n_heads % n or (n_groups is not None
                                                 and n_groups % n)):
-            role = None
-        if role == "batch" and t.shape[0] % n:
             role = None
         out.append(role)
     return tuple(out)
@@ -93,6 +96,13 @@ def on_shards(fn, mesh, args: tuple, in_placements: tuple,
     function that returns None).  Without a DTensor among ``args`` it is
     ``fn(*args)``.
 
+    ``local_map``'s steps, but for the outputs' global shapes: a shard may
+    be uneven (a batch of fewer rows than the ranks that split it, as
+    ``torch.chunk`` splits it: some ranks hold no row), so an output's dim
+    takes the global size of an input's dim split over the same mesh dims
+    with the same local size (``_global_shape``), not its local size times
+    the ranks.
+
     Gradients: where some input is sharded over a mesh dim, the ranks along
     it run ``fn`` on different shards, so the gradient of an input that is
     replicated there (a weight, or B/C read by every head) holds only this
@@ -101,15 +111,88 @@ def on_shards(fn, mesh, args: tuple, in_placements: tuple,
         return fn(*args)
     split = [any(pl is not None and isinstance(pl[m], Shard)
                  for pl in in_placements) for m in range(mesh.ndim)]
-    grad_placements = tuple(
-        None if pl is None else tuple(
-            Partial() if split[m] and isinstance(p, Replicate) else p
-            for m, p in enumerate(pl))
-        for pl in in_placements)
-    return local_map(fn, out_placements=out_placements,
-                     in_placements=in_placements,
-                     in_grad_placements=grad_placements, device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+    local, boxes = [], []
+    for a, pl in zip(args, in_placements):
+        if not isinstance(a, DTensor):
+            local.append(a)
+            continue
+        pl = tuple(pl)
+        if tuple(a.placements) != pl:
+            a = a.redistribute(mesh, pl)
+        grad_pl = tuple(Partial() if split[m] and isinstance(p, Replicate)
+                        else p for m, p in enumerate(pl))
+        t = a.to_local(grad_placements=grad_pl)
+        if isinstance(t, AsyncCollectiveTensor):
+            t = t.wait()
+        boxes.append((tuple(a.shape), _split_by(pl, a.dim()), tuple(t.shape)))
+        local.append(t)
+    if not boxes:
+        return fn(*args)
+    out = fn(*local)
+    flat, spec = tree_flatten(out)
+    outs = out_placements if isinstance(out_placements, tuple) \
+        else (out_placements,)
+    if len(flat) != len(outs):
+        raise ValueError(f"{len(flat)} outputs for {len(outs)} "
+                         "out_placements")
+    wrapped = []
+    for t, pl in zip(flat, outs):
+        if not isinstance(t, torch.Tensor):
+            wrapped.append(t)
+            continue
+        pl = tuple(pl)
+        shape, even = _global_shape(t, pl, mesh, boxes)
+        wrapped.append(DTensor.from_local(t, mesh, pl, run_check=False)
+                       if even else DTensor.from_local(
+                           t, mesh, pl, run_check=False, shape=shape,
+                           stride=_contiguous_stride(t, shape)))
+    return tree_unflatten(wrapped, spec)
+
+
+def _split_by(pl: tuple, ndim: int) -> dict:
+    """Tensor dim -> the mesh dims (in order) whose ``Shard`` splits it."""
+    out: dict = {}
+    for m, p in enumerate(pl):
+        if isinstance(p, Shard):
+            out.setdefault(p.dim % ndim, []).append(m)
+    return {d: tuple(ms) for d, ms in out.items()}
+
+
+def _global_shape(t: torch.Tensor, pl: tuple, mesh, boxes: list) -> tuple:
+    """(global shape, whether it is the even one) of the output shard ``t``
+    laid out as ``pl``: each split dim takes the global size of the first
+    input dim (``boxes``: global shape, split dims, local shape) split over
+    the same mesh dims with the same local size, else its local size times
+    those dims' ranks (an even split, ``DTensor.from_local``'s own rule).
+    Refused where that shape's shard on this rank (``local_shape``) is not
+    ``t``'s."""
+    shape = list(t.shape)
+    for d, ms in _split_by(pl, t.dim()).items():
+        shape[d] = t.shape[d] * math.prod(mesh.size(m) for m in ms)
+    even = tuple(shape)
+    for d, ms in _split_by(pl, t.dim()).items():
+        for gshape, by, lshape in boxes:
+            hit = [d2 for d2, ms2 in by.items()
+                   if ms2 == ms and lshape[d2] == t.shape[d]]
+            if hit:
+                shape[d] = gshape[hit[0]]
+                break
+    shape = tuple(shape)
+    if local_shape(shape, mesh, pl) != tuple(t.shape):
+        raise ValueError(f"no global shape of a {tuple(t.shape)} shard laid "
+                         f"out as {pl} follows from the inputs")
+    return shape, shape == even
+
+
+def _contiguous_stride(t: torch.Tensor, shape: tuple) -> tuple:
+    """Strides of a tensor of ``shape`` whose dims lie in memory in the
+    order of ``t``'s (outermost first), without gaps."""
+    order = sorted(range(t.dim()), key=lambda i: (-t.stride(i), i))
+    stride, step = [0] * t.dim(), 1
+    for i in reversed(order):
+        stride[i] = step
+        step *= max(shape[i], 1)
+    return tuple(stride)
 
 
 def tp_matmul(x, w):
@@ -294,6 +377,89 @@ def local_shape(shape, mesh, placements) -> tuple:
     out on ``mesh`` as ``placements`` say, made from shapes alone
     (``_shard_box``'s rule)."""
     return _shard_box(shape, mesh, placements)[0]
+
+
+def _inner_split(x) -> tuple | None:
+    """(mesh dim, B rows of a block, the mesh dim's ranks) where the DTensor
+    ``x`` (B, S, ...) has dim 0 alone split, over mesh dims of which the
+    outer ones split B evenly into blocks and the last splits each block
+    as ``torch.chunk`` does (evenly or not); None for any other layout."""
+    by = _split_by(tuple(x.placements), x.dim())
+    if set(by) != {0}:
+        return None
+    mesh, dims = x.device_mesh, by[0]
+    outer = math.prod(mesh.size(m) for m in dims[:-1])
+    if x.shape[0] % outer:
+        return None
+    return dims[-1], x.shape[0] // outer, mesh.size(dims[-1])
+
+
+def mergeable_rows(x) -> bool:
+    """Whether ``merge_rows`` takes the DTensor ``x``: dim 0 alone split,
+    the outer mesh dims evenly, and each outer block's B·S rows dividing
+    by the last mesh dim's ranks."""
+    split = _inner_split(x)
+    return split is not None and split[1] * x.shape[1] % split[2] == 0
+
+
+def _row_exchange(local, mesh, dim: int, src: list, dst: list):
+    """``local``'s rows (``src`` of this rank, (start, length) by rank of
+    the mesh dim ``dim``) moved so that each of its ranks holds its ``dst``
+    rows: one all-to-all over that mesh dim, differentiable (its backward
+    is the reverse exchange)."""
+    me = mesh.get_coordinate()[dim]
+
+    def common(a, b):
+        return max(0, min(a[0] + a[1], b[0] + b[1]) - max(a[0], b[0]))
+
+    send = [common(src[me], d) for d in dst]
+    recv = [common(r, dst[me]) for r in src]
+    out = funcol.all_to_all_single_autograd(local, recv, send,
+                                            mesh.get_group(dim))
+    return out.wait() if isinstance(out, AsyncCollectiveTensor) else out
+
+
+def _blocks(block: int, s: int, n: int) -> tuple:
+    """(the last mesh dim's ranks' B·S rows within an outer block of
+    ``block`` B rows split as ``torch.chunk`` splits B, the same rows split
+    evenly)."""
+    full = -(-block // n)
+    uneven = [(min(block, c * full) * s,
+               max(0, min(full, block - c * full)) * s) for c in range(n)]
+    per = block * s // n
+    return uneven, [(c * per, per) for c in range(n)]
+
+
+def merge_rows(x):
+    """A DTensor ``x`` (B, S, ...) that ``mergeable_rows`` takes (a batch
+    pinned over mesh dims whose last splits it unevenly, as 16 rows over
+    (pod 2, data 16)) as its (B·S, ...) rows split evenly over the same
+    mesh dims: one all-to-all over the last of them gives every rank whole
+    rows' pieces, no rank more than its share."""
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    dim, block, n = _inner_split(x)
+    s, rest = x.shape[1], tuple(x.shape[2:])
+    local = x.to_local(grad_placements=pl)
+    local = local.reshape((local.shape[0] * s,) + rest)
+    out = _row_exchange(local, mesh, dim, *_blocks(block, s, n))
+    shape = (x.shape[0] * s,) + rest
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                              stride=_contiguous_stride(out, shape))
+
+
+def split_rows(y, like):
+    """``merge_rows``' inverse: the (B·S, ...) rows ``y`` as a (B, S, ...)
+    DTensor laid out as ``like`` (the DTensor that was merged)."""
+    mesh, pl = like.device_mesh, tuple(like.placements)
+    dim, block, n = _inner_split(like)
+    s, rest = like.shape[1], tuple(y.shape[1:])
+    local = y.redistribute(mesh, pl).to_local(grad_placements=pl)
+    uneven, even = _blocks(block, s, n)
+    out = _row_exchange(local, mesh, dim, even, uneven)
+    out = out.reshape((out.shape[0] // s, s) + rest)
+    shape = (like.shape[0], s) + rest
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                              stride=_contiguous_stride(out, shape))
 
 
 def replicate_like(t: torch.Tensor, ref):

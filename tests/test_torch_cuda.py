@@ -26,7 +26,9 @@ step, argued at the test).  The sharded path at world
 size 1 under NCCL (one rank a card): the int8 all-reduce within one
 quantization step, and a sharded smoke olmo-1b prefill launching the flash
 kernel once a layer on its local heads, its logits and next decode step
-equal to the plain path's on the card within 1e-5.
+equal to the plain path's on the card within 1e-5.  The flash and SSD
+wrappers (the backward too) on a batch of no rows, what a rank of an uneven
+batch split holds: empty outputs and gradients, no launch.
 """
 import dataclasses
 
@@ -1050,3 +1052,35 @@ def test_cuda_sharded_olmo_prefill_launches_flash_a_layer(cuda, tmp_path):
     want2 = T.decode_step(params, cfg, nxt["tokens"], wcache)[0]
     assert float((got - want).abs().max()) <= 1e-5
     assert float((got2 - want2).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_on_zero_rows_launch_nothing(cuda, dtype):
+    """What a rank holds when a sharded batch has fewer rows than its
+    ranks: flash attention, the SSD scan forward and its backward (through
+    ``SsdScan`` and called directly) on no rows give empty outputs and
+    gradients of their inputs' shapes and types, with no launch counted."""
+    before = (dict(fa.LAUNCHES), dict(ss.LAUNCHES))
+    q = torch.zeros((0, 4, 64, 64), dtype=dtype, device=cuda)
+    k = torch.zeros((0, 2, 64, 64), dtype=dtype, device=cuda)
+    out = fa.flash_attention_cuda(q, k, k)
+    assert out.shape == q.shape and out.dtype == dtype
+    ins = [torch.zeros((0, 64, 4, 64), dtype=dtype, device=cuda),
+           torch.zeros((0, 64, 4), device=cuda),
+           torch.zeros((4,), device=cuda),
+           torch.zeros((0, 64, 2, 128), dtype=dtype, device=cuda),
+           torch.zeros((0, 64, 2, 128), dtype=dtype, device=cuda)]
+    for t in ins:
+        t.requires_grad_()
+    y, state = ss.ssd_scan_cuda(*ins, final_state=True)
+    assert y.shape == ins[0].shape and y.dtype == dtype
+    assert state.shape == (0, 4, 64, 128)
+    (y.float().sum() + state.sum()).backward()
+    direct = ss.ssd_scan_bwd_cuda(*(t.detach() for t in ins),
+                                  torch.zeros_like(y), None)
+    for t, g in zip(ins, direct):
+        for grad in (t.grad, g):
+            assert grad.shape == t.shape and grad.dtype == t.dtype
+            assert not grad.any()
+    torch.cuda.synchronize()
+    assert (dict(fa.LAUNCHES), dict(ss.LAUNCHES)) == before

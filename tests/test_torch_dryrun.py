@@ -424,10 +424,13 @@ def test_moe_rows_keep_the_batch_layout():
 
 
 def test_moe_rows_follow_a_batch_the_batch_axes_do_not_all_divide():
-    """The same step on (pod 2, data 2, model 1) with two rows: the batch
-    splits over 'pod' only, while its 128 (B·S) rows would split over
-    'pod' and 'data'; the MoE's rows must follow the batch (jamba
-    train_4k's 16-row microbatches on the 512-rank mesh)."""
+    """The same step on (pod 2, data 2, model 1) with two rows: the input
+    batch splits over 'pod' only and the pinned hidden stream over 'pod'
+    and 'data' (one row on rank 0, none on some ranks), while the MoE's
+    128 (B·S) rows split over the batch axes that divide its two dispatch
+    groups; DTensor merges and splits them only through a divisible
+    layout of the B rows (jamba train_4k's 16-row microbatches on the
+    512-rank mesh)."""
     cfg = smoke_config("qwen2-moe-a2.7b", tp=1, batch_axes=("pod", "data"))
     cfg = cfg.replace(n_layers=len(cfg.pattern), remat=False,
                       moe=dataclasses.replace(cfg.moe, dispatch_groups=2))
@@ -450,9 +453,10 @@ def test_moe_rows_follow_a_batch_the_batch_axes_do_not_all_divide():
 def test_jamba_fsdp_projections_keep_the_sequence_whole(monkeypatch):
     """Smoke jamba (FSDP: its big weights sharded over 'data' as well) on a
     cuda-typed fake mesh (pod 2, data 2, model 1), a train step of two rows
-    that split over 'pod' alone (jamba train_4k's 16-row microbatches on
-    the 512-rank mesh).  Contracting an activation replicated over 'data'
-    against a weight's shard there leaves partial sums, which DTensor
+    (jamba train_4k's 16-row microbatches on the 512-rank mesh): the input
+    batch splits over 'pod' alone, the pinned hidden stream over 'pod' and
+    'data', one row on rank 0.  Contracting an activation replicated over
+    'data' against a weight's shard there leaves partial sums, which DTensor
     reduce-scatters onto the sequence dim; torch 2.11 then refuses the
     product's backward (ROADMAP Queue 3 #9).  With each layer's FSDP
     weights gathered over 'data' at its entry, no Mamba projection's

@@ -476,7 +476,8 @@ def test_mamba_sharded_train_step_matches_unsharded(gloo_results, layout):
 
 def test_jamba_fsdp_train_step_matches_unsharded(gloo_results):
     """Smoke jamba with its FSDP layout on (pod 2, data 2, model 1), two
-    rows split over 'pod' alone: each layer's FSDP weights gathered over
+    rows (the input batch split over 'pod' alone, the hidden stream over
+    both batch axes): each layer's FSDP weights gathered over
     'data' at its entry (``shards.gather_fsdp``), one train step against the
     unsharded step on the same weights, at the olmo and mamba steps'
     tolerances (loss and grad norm 1e-5 relative, weights 1e-5)."""
@@ -485,6 +486,43 @@ def test_jamba_fsdp_train_step_matches_unsharded(gloo_results):
             np.testing.assert_allclose(*r[key], rtol=1e-5)
         assert r["update"] >= 5e-4, r["update"]
         assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+
+
+def _uneven_results(gloo_results, case: str) -> list:
+    if case == "jamba":
+        return _ok(gloo_results["jamba_fsdp_train"])
+    return [r[case] for r in _ok(gloo_results["uneven_pin"])]
+
+
+@pytest.mark.parametrize("case", ["olmo", "moe", "jamba"])
+def test_uneven_pinned_rows_train_step_matches_unsharded(gloo_results,
+                                                         case):
+    """Microbatches of two rows on (pod 2, data 2, model 1), ``batch_axes``
+    pod and data: smoke olmo-1b and smoke qwen2-moe with four dispatch
+    groups (four rows in two microbatches), and smoke jamba (MoE, Mamba,
+    FSDP; one microbatch of two).  The hidden stream is pinned over both
+    batch axes, one row on the ranks of 'data' 0 and none on those of
+    'data' 1, as ``torch.chunk`` splits two rows over four ranks; one
+    train step against the unsharded step on the same weights (loss and
+    grad norm 1e-5 relative, weights 1e-5)."""
+    for rank, r in enumerate(_uneven_results(gloo_results, case)):
+        assert r["pinned_rows"] == [1 - rank % 2], (rank, r["pinned_rows"])
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(*r[key], rtol=1e-5)
+        assert r["update"] >= 5e-4, r["update"]
+        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+
+
+def test_merge_and_split_rows_of_an_uneven_batch(gloo_results):
+    """``shards.merge_rows`` on two rows of 8 over (pod 2, data 2) (1, 0,
+    1, 0 by rank): the 16 merged rows 4 a rank, equal to the plain
+    reshape; ``split_rows`` of them back in the input's layout; the
+    gradient through the exchange equal to plain autograd's (exact: the
+    rows only move)."""
+    for rank, r in enumerate(_ok(gloo_results["uneven_pin"])):
+        r = r["rows"]
+        assert r["rows_local"] == 4 and r["back_local"] == 1 - rank % 2
+        assert r["merged"] == r["split"] == r["grad"] == 0.0, r
 
 
 @pytest.mark.parametrize("head", sorted(W.LOSS_HEADS))

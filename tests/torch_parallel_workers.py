@@ -10,6 +10,7 @@ import it by name.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import json
 import os
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -167,9 +170,12 @@ def check_moe_batch(rank: int) -> dict:
     return out
 
 
-def _lm(arch: str, mesh, **kw):
+def _lm(arch: str, mesh, moe_dispatch_groups: int | None = None, **kw):
     msd = mesh_shape_dict(mesh)
     cfg = smoke_config(arch, tp=msd.get("model", 1), **kw)
+    if moe_dispatch_groups:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, dispatch_groups=moe_dispatch_groups))
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     dparams = distribute_tree(params, param_specs(cfg, params, msd), mesh)
@@ -316,27 +322,30 @@ def check_mamba(rank: int) -> dict:
 
 
 def _mamba_step(mesh, arch: str = "mamba2-1.3b", rows: int = 4,
-                **kw) -> dict:
+                microbatches: int = 1, **kw) -> dict:
     """One train step of smoke ``arch`` on ``mesh`` (``rows`` rows of 32
-    tokens) against the unsharded step on the same weights."""
+    tokens in ``microbatches`` microbatches) against the unsharded step on
+    the same weights."""
     cfg, msd, params, dparams = _lm(arch, mesh, **kw)
     batch = {"tokens": _tokens(cfg, rows, 32, 6),
              "labels": _tokens(cfg, rows, 32, 7)}
     opt_cfg = AdamWConfig(lr=1e-3)
-    step = make_train_step(cfg, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, num_microbatches=microbatches)
     want_p, _, want_m = step(params, adamw_init(params, opt_cfg), batch)
     specs = param_specs(cfg, params, msd)
     dopt = distribute_tree(adamw_init(params, opt_cfg),
                            {"m": specs, "v": specs, "step": P()}, mesh)
     got_p, _, got_m = step(dparams, dopt, distribute_tree(
         batch, batch_specs(cfg, batch, msd), mesh))
-    a_log = dparams["blocks"][0]["mamba"]["a_log"]
-    return {"loss": [float(_full(got_m["loss"])), float(want_m["loss"])],
-            "grad_norm": [float(_full(got_m["grad_norm"])),
-                          float(want_m["grad_norm"])],
-            "update": _tree_err(want_p, params)["err"],
-            "params": _tree_err(got_p, want_p),
-            "a_log_local": list(a_log.to_local().shape)}
+    out = {"loss": [float(_full(got_m["loss"])), float(want_m["loss"])],
+           "grad_norm": [float(_full(got_m["grad_norm"])),
+                         float(want_m["grad_norm"])],
+           "update": _tree_err(want_p, params)["err"],
+           "params": _tree_err(got_p, want_p)}
+    if "mamba" in dparams["blocks"][0]:
+        a_log = dparams["blocks"][0]["mamba"]["a_log"]
+        out["a_log_local"] = list(a_log.to_local().shape)
+    return out
 
 
 def check_mamba_train(rank: int) -> dict:
@@ -352,15 +361,86 @@ def check_mamba_train(rank: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _pinned_rows(out: list):
+    """Appends to ``out`` the local rows (dim 0) of every DTensor that
+    ``transformer._pin_batch`` returns while the context is open."""
+    pin = T._pin_batch
+
+    def record(cfg, x):
+        y = pin(cfg, x)
+        if isinstance(y, DTensor):
+            out.append(int(y.to_local().shape[0]))
+        return y
+
+    T._pin_batch = record
+    try:
+        yield
+    finally:
+        T._pin_batch = pin
+
+
 def check_jamba_fsdp_train(rank: int) -> dict:
-    """One train step of smoke jamba (FSDP: the big weights sharded over
-    'data' too) on (pod 2, data 2, model 1) with two rows, which split over
-    'pod' alone (``batch_axes`` pod and data, as jamba train_4k's 16-row
-    microbatches on the 512-rank mesh), against the unsharded step: each
-    layer's FSDP weights are gathered over 'data' at its entry."""
+    """One train step of smoke jamba (MoE, Mamba, and FSDP: the big weights
+    sharded over 'data' too) on (pod 2, data 2, model 1) with two rows
+    (``batch_axes`` pod and data, as jamba train_4k's 16-row microbatches
+    on the 512-rank mesh): the input batch splits over 'pod' alone, the
+    pinned hidden stream over all four ranks (1, 0, 1, 0 rows by rank);
+    against the unsharded step: each layer's FSDP weights are gathered
+    over 'data' at its entry."""
     mesh = make_mesh({"pod": 2, "data": 2, "model": 1}, "cpu")
-    return _mamba_step(mesh, "jamba-1.5-large-398b", rows=2,
-                       batch_axes=("pod", "data"))
+    rows: list = []
+    with _pinned_rows(rows):
+        out = _mamba_step(mesh, "jamba-1.5-large-398b", rows=2,
+                          batch_axes=("pod", "data"))
+    return dict(out, pinned_rows=sorted(set(rows)))
+
+
+def _merge_split_rows(mesh) -> dict:
+    """``shards.merge_rows`` and ``split_rows`` of a (2, 8, 4) tensor whose
+    two rows split over (pod 2, data 2) (1, 0, 1, 0 rows by rank): the
+    merged (16, 4) rows evenly, 4 a rank, equal to the plain reshape, the
+    split back equal to the input, and the gradient of a function of the
+    merged rows equal to plain autograd's."""
+    from repro_torch.parallel.shards import merge_rows, split_rows
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (2, 8, 4)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1, (16, 4)).astype(np.float32))
+    pl = (Shard(0), Shard(0), Replicate())
+    dx = distribute_tensor(x, mesh, pl).detach().requires_grad_()
+    rows = merge_rows(dx)
+    back = split_rows(rows * 2.0, dx)
+    (rows.full_tensor() * w).sum().backward()
+    return {"merged": _err(rows, x.reshape(16, 4)),
+            "split": _err(back, x * 2.0), "grad": _err(dx.grad, w.reshape(
+                2, 8, 4)),
+            "rows_local": int(rows.to_local().shape[0]),
+            "back_local": int(back.to_local().shape[0])}
+
+
+def check_uneven_pin(rank: int) -> dict:
+    """Train steps on (pod 2, data 2, model 1), ``batch_axes`` pod and
+    data, four rows in two microbatches of two: the input batch splits
+    over 'pod' alone (``batch_specs``), while the pinned hidden stream
+    splits each microbatch's two rows over all four ranks, as the
+    reference's ``_pin_batch`` does (1, 0, 1, 0 rows by rank).  Smoke
+    olmo-1b, and smoke qwen2-moe with four dispatch groups, whose 2 x 32
+    rows go to one group a rank (``merge_rows``) and back; each against
+    the unsharded step on the same weights.  Then ``merge_rows`` and
+    ``split_rows`` alone."""
+    mesh = make_mesh({"pod": 2, "data": 2, "model": 1}, "cpu")
+    out = {}
+    for name, arch, kw in (("olmo", "olmo-1b", {}),
+                           ("moe", "qwen2-moe-a2.7b",
+                            {"moe_dispatch_groups": 4})):
+        rows: list = []
+        with _pinned_rows(rows):
+            out[name] = _mamba_step(mesh, arch, rows=4, microbatches=2,
+                                    batch_axes=("pod", "data"), **kw)
+        out[name]["pinned_rows"] = sorted(set(rows))
+    out["rows"] = _merge_split_rows(mesh)
+    return out
 
 
 class _Largest(TorchDispatchMode):
@@ -501,6 +581,7 @@ CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "cache_alloc": check_cache_alloc,
           "olmo_microbatches": check_olmo_microbatches,
           "jamba_fsdp_train": check_jamba_fsdp_train,
+          "uneven_pin": check_uneven_pin,
           "loss_heads": check_loss_heads}
 
 # the directory ``run`` writes its results to (a check's larger outputs go
