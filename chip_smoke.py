@@ -54,7 +54,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      float32, random weights from a seed) serves 8 prompts of 1024 tokens
      through ServingEngine.generate (prefill through the flash kernel, then
      DV-DVFS decode windows), with the flash launch count read after it and
-     the prefill's logits held against the plain chunked attention;
+     the prefill's logits held against the plain chunked attention; then
+     the same weights and traffic with the int8 KV cache (kv_quant, the
+     reference's opt decode config): 16 flash launches in the prefill and
+     none in decode, the cache's bytes against float32's, decode time,
+     peak, greedy tokens against the float32-cache run, each dequantized
+     K/V element within half its row's step and the first decode step's
+     logits within a bound argued from it;
   9. the serving path at smoke size, card against CPU;
  10. the Mamba serving path at full width: mamba2-1.3b (48 layers, d_model
      2048, float32, random weights from a seed) serves the same traffic
@@ -143,7 +149,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      512-rank mesh (one microbatch each), jamba long_500k, olmo-1b
      long_500k (the reference's skip), olmo-1b prefill_32k on the 512-rank
      mesh and olmo-1b train_4k there at 16 microbatches (16 rows over 32
-     batch ranks, one on rank 0), each cell a child process on the host
+     batch ranks, one on rank 0), and in the hillclimbed layouts (--opt)
+     olmo-1b train_4k (dp: its all-reduces below 1% of the float32
+     gradient) and decode_32k (an int8 KV cache); no cell launches a
+     kernel; each cell a child process on the host
      (meta DTensors over a 256/512-rank fake process group, nothing on
      the card), four at a time after every phase that times the host,
      with each record's trace wall, FLOPs, collective bytes by kind and
@@ -213,6 +222,7 @@ from repro_torch.launch.optconfig import build_cfg  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.common import LeafShape  # noqa: E402
 from repro_torch.models.convert import SEP, flatten  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.parallel import (batch_specs,  # noqa: E402
@@ -344,6 +354,11 @@ DISK_MARGIN = 1.05
 # the examples phase: train_lm at its 100m preset's full width, 30 steps
 TRAIN_LM_ARGS = ["--preset", "100m", "--steps", "30"]
 SERVE_LOGIT_TOL = 1e-3     # kernel vs chunked prefill, 16 float32 layers
+# int8 KV cache against the float32 one, the first decode step's logits:
+# K and V of each layer each within 1/254 of their row's largest value,
+# the errors taken to add over the layers; this times the layers and the
+# largest |logit| is the bound
+INT8_LOGIT_TOL = 2 / 254
 # prefill of S tokens vs prefill of S-1 and one decode step, 48 float32
 # layers: the chunked scan against the recurrence, summed in other orders
 CONTINUE_LOGIT_TOL = 1e-3
@@ -1479,13 +1494,17 @@ def phase_apps() -> dict:
 
 # the dry run's cells (arch, shape, multi-pod, microbatches or None for the
 # production count), the longest first: DRYRUN_JOBS children at a time
-DRYRUN_CELLS = (("olmo-1b", "train_4k", True, 16),
-                ("olmo-1b", "prefill_32k", True, None),
-                ("olmo-1b", "train_4k", False, None),
-                ("qwen2-moe-a2.7b", "train_4k", True, 1),
-                ("mamba2-1.3b", "train_4k", False, 1),
-                ("jamba-1.5-large-398b", "long_500k", False, None),
-                ("olmo-1b", "long_500k", False, None))
+# (arch, shape, multi-pod, microbatches or None for the production ones,
+# the hillclimbed layouts of launch/optconfig.py)
+DRYRUN_CELLS = (("olmo-1b", "train_4k", True, 16, False),
+                ("olmo-1b", "prefill_32k", True, None, False),
+                ("olmo-1b", "train_4k", False, None, False),
+                ("qwen2-moe-a2.7b", "train_4k", True, 1, False),
+                ("mamba2-1.3b", "train_4k", False, 1, False),
+                ("olmo-1b", "train_4k", False, None, True),
+                ("jamba-1.5-large-398b", "long_500k", False, None, False),
+                ("olmo-1b", "long_500k", False, None, False),
+                ("olmo-1b", "decode_32k", False, None, True))
 DRYRUN_JOBS = 4
 DRYRUN_TIMEOUT_S = 400
 # olmo-1b prefill_32k multi-pod: 1,493,827,584 B when the cache is made at
@@ -1508,6 +1527,12 @@ DRYRUN_FLOP_RATIO = {("mamba2-1.3b", "train_4k", "single_pod"): 1.2,
                      # a 16-row microbatch over 'pod' alone put 8 rows on
                      # each device, about 15x
                      ("olmo-1b", "train_4k", "multi_pod"): 2.1}
+# olmo-1b train_4k in the dp layout (opt): every gradient reduced once, by
+# a reduce-scatter into its moments' shard, so the step all-reduces only
+# scalars; this share of the float32 gradient's bytes is the limit (the
+# norm's reductions over each mesh dim had all-reduced 10.24 GB a device,
+# twice the bfloat16 gradient)
+DRYRUN_OPT_AR_SHARE = 0.01
 # (global shape, placements on a (pod 2, data 2, model 2) mesh): uneven
 # splits, a dim split by two mesh dims, replicated dims
 LOCAL_SHAPE_CASES = (((5, 7, 3), ("S0", "S0", "S1")),
@@ -1583,7 +1608,13 @@ def phase_dryrun() -> list:
     and qwen2-moe-a2.7b trains' temp near their shards' (the loss on each
     device's rows and vocab columns), mamba2-1.3b's FLOPs at most 1.2x
     counts.py's (every tensor-parallel product at its shard) and the
-    16-microbatch olmo-1b's at most 2.1x (a row a device).  The children
+    16-microbatch olmo-1b's at most 2.1x (a row a device).  Two cells in
+    the reference's hillclimbed layouts (``--opt``): olmo-1b train_4k in
+    the dp layout, whose all-reduces stay below ``DRYRUN_OPT_AR_SHARE`` of
+    the float32 gradient (each gradient reduce-scattered once into its
+    moments' shard), and olmo-1b decode_32k with the int8 KV cache.  No
+    cell launches a kernel (``kernel_launches``: the SSD wrapper on meta
+    counts its bound, never a launch).  The children
     run ``DRYRUN_JOBS`` at a time: their trace walls share the host's
     cores with each other, never with a timed phase."""
     n = check_local_shape()
@@ -1597,11 +1628,13 @@ def phase_dryrun() -> list:
     t0 = time.perf_counter()
 
     def child(cell) -> int | None:
-        arch, shape, mp, mb = cell
+        arch, shape, mp, mb, opt = cell
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-               "--arch", arch, "--shape", shape, "--out", out_dir]
+               "--arch", arch, "--shape", shape,
+               "--out", os.path.join(out_dir, "opt" if opt else "base")]
         cmd += ["--multi-pod"] if mp else []
         cmd += ["--microbatches", str(mb)] if mb else []
+        cmd += ["--opt"] if opt else []
         left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
         try:
             # on a timeout the child is killed before this raises
@@ -1615,11 +1648,13 @@ def phase_dryrun() -> list:
     try:
         with concurrent.futures.ThreadPoolExecutor(DRYRUN_JOBS) as pool:
             rcs = list(pool.map(child, DRYRUN_CELLS))
-        for (arch, shape, mp, mb), rc in zip(DRYRUN_CELLS, rcs):
+        for (arch, shape, mp, mb, opt), rc in zip(DRYRUN_CELLS, rcs):
             check(rc is not None,
                   f"the dry run took over {DRYRUN_TIMEOUT_S} s")
             tag = f"{'mp' if mp else 'sp'}_{arch}_{shape}"
-            path = os.path.join(out_dir, tag + ".json")
+            path = os.path.join(out_dir, "opt" if opt else "base",
+                                tag + ".json")
+            tag += " opt" if opt else ""
             check(os.path.exists(path),
                   f"dry run {tag} exited {rc} and wrote no record")
             with open(path) as f:
@@ -1637,6 +1672,10 @@ def phase_dryrun() -> list:
             check(rec["flops_per_device"] > 0 and coll["total"] > 0
                   and mem["argument_bytes"] > 0,
                   f"dry run {tag}: an empty count")
+            check(not any(rec["kernel_launches"].values()),
+                  f"dry run {tag}: launched {rec['kernel_launches']} on "
+                  "meta tensors")
+            check(rec["opt"] == opt, f"dry run {tag}: opt {rec['opt']}")
             print(f"dryrun {tag}: {rec['n_devices']} devices, "
                   f"{rec['layout']} layout, {rec['microbatches']} "
                   f"microbatch(es), trace {rec['trace_s']} s; a device: "
@@ -1649,6 +1688,16 @@ def phase_dryrun() -> list:
                   f"{mem['argument_bytes']} B, output "
                   f"{mem['output_bytes']} B, temp {mem['temp_bytes']} B "
                   "(counts from shapes)")
+            if opt and rec["kind"] == "train":
+                grad = 4 * int(build_cfg(arch, {"data": 16, "model": 16},
+                                         opt=True).param_count())
+                print(f"dryrun {tag}: all-reduces {coll['all-reduce']} B, "
+                      f"{coll['all-reduce'] / grad:.3e} of the float32 "
+                      f"gradient's {grad} B")
+                check(coll["all-reduce"] < DRYRUN_OPT_AR_SHARE * grad,
+                      f"dry run {tag}: all-reduces {coll['all-reduce']} B, "
+                      f"not below {DRYRUN_OPT_AR_SHARE} of the gradient")
+                continue
             key = (arch, shape, rec["mesh"])
             if key in DRYRUN_TEMP_LIMIT:
                 check(mem["temp_bytes"] < DRYRUN_TEMP_LIMIT[key],
@@ -1699,12 +1748,14 @@ class TimedEngine(ServingEngine):
 
 def cache_bytes_per_token(cfg, batch: int, max_len: int) -> int:
     """The bytes a decode step moves through the layers' caches: the whole
-    float32 KV cache read for an attention layer; the float32 SSM state and
-    the conv caches each read and written for a Mamba layer."""
+    KV cache read for an attention layer (float32, or with ``kv_quant``
+    int8 values and a float32 scale a row); the float32 SSM state and the
+    conv caches each read and written for a Mamba layer."""
     total = 0
+    row = cfg.d_head + 4 if cfg.kv_quant else 4 * cfg.d_head
     for spec in cfg.pattern:
         if spec.mixer == "attn":
-            total += 2 * batch * max_len * cfg.n_kv_heads * cfg.d_head * 4
+            total += 2 * batch * max_len * cfg.n_kv_heads * row
         else:
             sc = cfg.ssm
             state = batch * sc.n_heads * sc.head_dim * sc.d_state * 4
@@ -1860,7 +1911,97 @@ def phase_serving() -> dict:
     decode_profile(eng.params, cfg, want.argmax(-1).to(torch.int32)[:, None],
                    cache)
     return {"launches": counts, "logit_err": err,
+            "tokens": out["tokens"].cpu(),
             **serve_report(eng, sv, out, roof, walls)}
+
+
+def leaf_bytes(tree) -> int:
+    """Bytes of every ``LeafShape`` in a shape tree."""
+    return sum(math.prod(t.shape) * t.dtype.itemsize
+               for t in flatten(tree).values() if isinstance(t, LeafShape))
+
+
+def phase_int8_serving(float_run: dict) -> dict:
+    """olmo-1b served at full width with the int8 KV cache (``kv_quant``,
+    the reference's opt decode config) on the serving phase's traffic and
+    weights (the same seed): one flash launch a layer, all in the prefill,
+    none in decode (``serve_run``).  Then, on the same weights and prompts,
+    the prefill's cache and the first decode step with the int8 cache
+    against the float32 cache: every dequantized K and V element within
+    half its row's scale (absmax / 127, rounded to the nearest step) of
+    the float32 value, and the first decode step's logits within
+    ``INT8_LOGIT_TOL``: each layer's K and V move by at most 1/254 of
+    their row's largest value, and the error reaching the logits is taken
+    to add over the layers, K and V each, with no cancellation.  The
+    cache's bytes against the float32 cache's, decode time, peak memory,
+    and the greedy tokens against the float32-cache run (the first step
+    at which a sequence parts from it, and how many tokens differ;
+    reported: random weights leave near-ties a rounding can flip)."""
+    sv = SERVE
+    cfg = get_arch(sv["arch"], attn_impl_train="pallas", kv_quant=True)
+    plain = cfg.replace(kv_quant=False)
+    q_bytes = leaf_bytes(T.cache_leaf_shapes(cfg, sv["batch"],
+                                             sv["max_len"]))
+    f_bytes = leaf_bytes(T.cache_leaf_shapes(plain, sv["batch"],
+                                             sv["max_len"]))
+    eng, prompts, out, counts, roof, walls = serve_run(
+        sv, cfg, "flash_attention", f"int8 KV cache ({q_bytes} B, "
+        f"float32 cache {f_bytes} B)")
+    check(counts["flash_attention"] == cfg.n_layers
+          and eng.prefill_launches == counts,
+          f"int8 serving launched {counts}, not {cfg.n_layers} flash "
+          "launches in the prefill and none in decode")
+    report = serve_report(eng, sv, out, roof, walls)
+
+    toks, ref = out["tokens"].cpu(), float_run["tokens"]
+    differ = toks != ref
+    parted = [int(torch.nonzero(row)[0]) if bool(row.any()) else None
+              for row in differ]
+    print(f"  int8 cache {q_bytes} B ({q_bytes / 1e9:.6f} GB: int8 values "
+          f"and float32 row scales) against float32 {f_bytes} B "
+          f"({f_bytes / q_bytes:.4f}x smaller); greedy tokens against the "
+          f"float32-cache run: {int(differ.sum())} of {differ.numel()} "
+          f"differ; first differing position by sequence (0 = the "
+          f"prefill's token): {parted}")
+
+    dev = torch.device("cuda")
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    with torch.no_grad():
+        lf, cf = T.prefill(eng.params, plain, batch, sv["max_len"])
+        lq, cq = T.prefill(eng.params, cfg, batch, sv["max_len"])
+        check(torch.equal(lf, lq), "the int8 cache changed the prefill's "
+              "logits")
+        over = 0.0
+        for blk_f, blk_q in zip(cf["blocks"], cq["blocks"]):
+            for name in ("k", "v"):
+                x = blk_f[name][:, :, :sv["prompt"]]
+                sc = blk_q[name + "_s"][:, :, :sv["prompt"]]
+                got = blk_q[name + "_q"][:, :, :sv["prompt"]].float() * sc
+                # half a step, and float32's rounding of x / s and q * s
+                lim = sc / 2 * (1 + 1e-5) + 1e-6 * x.abs()
+                over = max(over, float(((got - x).abs() / lim).max()))
+        nxt = lf.argmax(-1).to(torch.int32)[:, None]
+        df, _ = T.decode_step(eng.params, plain, nxt, cf)
+        dq, _ = T.decode_step(eng.params, cfg, nxt, cq)
+    err = _max_err(dq, df)
+    scale = float(df.abs().max())
+    tol = INT8_LOGIT_TOL * cfg.n_layers * scale
+    print(f"  int8 cache vs float32 after the prefill: the largest "
+          f"dequantization error is {over:.6f} of its bound (half the "
+          f"row's step, absmax / 254); first decode step's logits max "
+          f"|err| {err:.6g} against the bound {tol:.6g} (2 x "
+          f"{cfg.n_layers} layers x 1/254 of |logits| up to {scale:.6g}); "
+          f"greedy tokens of that step equal: "
+          f"{bool(torch.equal(dq.argmax(-1), df.argmax(-1)))}")
+    check(over <= 1.0, f"an int8 cache element is {over:.4f}x its bound "
+          "from the float32 value")
+    check(bool(torch.isfinite(dq).all()) and err <= tol,
+          f"int8-cache decode logits differ by {err}, bound {tol}")
+    del cf, cq, eng
+    free_device_memory()
+    return {"cache_bytes": q_bytes, "float_cache_bytes": f_bytes,
+            "decode_logit_err": err, "decode_logit_tol": tol,
+            "tokens_differ": int(differ.sum()), "parted": parted, **report}
 
 
 def decode_profile(params, cfg, tok, cache, top: int = 8) -> None:
@@ -3783,6 +3924,7 @@ def main() -> int:
     phase_small_path()
     phase_apps()
     serving = phase_serving()
+    phase_int8_serving(serving)
     phase_serving_cpu("olmo-1b", {"flash_attention"}, attn_impl_train="pallas")
     mamba = phase_mamba_serving()
     phase_serving_cpu("mamba2-1.3b", {"ssd_scan"})

@@ -46,13 +46,17 @@ carries over:
   local storage made during the call and still alive (the results
   included), above the arguments.  Nothing is compiled, so there is no
   ``generated_code_bytes``;
-* ``trace_s`` (the call's wall) in place of ``lower_s``/``compile_s``.
+* ``trace_s`` (the call's wall) in place of ``lower_s``/``compile_s``;
+* ``kernel_launches``: the CUDA kernels' launches during the call, by
+  wrapper (zero: a wrapper on meta tensors counts its bound, never a
+  launch).
 
 These are counts from shapes; no number here was measured on any device.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--both-meshes]
+  add --opt for the reference's hillclimbed layouts (``launch/optconfig.py``)
 """
 from __future__ import annotations
 
@@ -72,7 +76,7 @@ from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import ARCH_IDS, SHAPES, cell_applicable
 from repro_torch.configs.shapes import ShapeCell
-from repro_torch.kernels import ssd_scan
+from repro_torch.kernels import flash_attention, ssd_scan
 from repro_torch.launch import specs as S
 from repro_torch.launch.commcount import CollectiveCounter
 from repro_torch.launch.mesh import make_production_mesh, mesh_shape_dict
@@ -229,10 +233,13 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         fn, args = _trace_cell(cfg, cell, mesh, microbatches=mb)
         arg_bytes = _nbytes(args)
         ssd_scan.reset_meta_flops()
+        before = {**flash_attention.LAUNCHES, **ssd_scan.LAUNCHES}
         t0 = time.perf_counter()
         with _CellCost(args) as cost:
             out = fn(*args)
         trace_s = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in
+                    {**flash_attention.LAUNCHES, **ssd_scan.LAUNCHES}.items()}
         n_devices = mesh.size()
     coll = cost.result()
     result = {
@@ -253,6 +260,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
                    "output_bytes": _nbytes(out),
                    "temp_bytes": cost.peak},
         "n_devices": n_devices,
+        # the card's kernels launched by the cell (none on meta tensors)
+        "kernel_launches": launched,
     }
     if verbose:
         print(json.dumps(result, indent=None)[:400])
@@ -290,7 +299,8 @@ def main(argv=None):
         if os.path.exists(out_path):
             with open(out_path) as f:
                 prev = json.load(f)
-            if prev.get("status") in ("ok", "skipped"):
+            if prev.get("status") in ("ok", "skipped") \
+                    and prev.get("opt", args.opt) == args.opt:
                 print(f"[cached] {tag}: {prev['status']}")
                 n_ok += prev["status"] == "ok"
                 n_skip += prev["status"] == "skipped"

@@ -9,8 +9,10 @@ trainer's calibration steps do).
 
 On DTensors each leaf's update runs in its moments' layout (ZeRO-1 when they
 are laid out by ``parallel.zero1_specs``): the gradient and the parameter
-are laid out as the moments are, and the new parameter goes back to the
-parameter's layout; the moments keep theirs.
+are laid out as the moments are (a gradient still summed across ranks is
+reduce-scattered onto the moments' shard in one collective,
+``shards.relayout``), and the new parameter goes back to the parameter's
+layout; the moments keep theirs.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.parallel.shards import match, replicate_like
+from repro_torch.parallel.shards import match, relayout, replicate_like
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update"]
@@ -59,14 +61,14 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr=None):
     c2 = 1.0 - b2 ** step.float()
 
     def upd(p_in, g, m, v):
-        p, gf = match(p_in, m), match(g, m).float()
+        p, gf = match(p_in, m), relayout(g, m).float()
         m_new = b1 * m.float() + (1 - b1) * gf
         v_new = b2 * v.float() + (1 - b2) * torch.square(gf)
         delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
         if p.dim() >= 2:  # no decay on norms/biases/scalars
             delta = delta + cfg.weight_decay * p.float()
         p_new = p.float() - lr * delta
-        return (match(p_new.to(p.dtype), p_in), m_new.to(m.dtype),
+        return (relayout(p_new.to(p.dtype), p_in), m_new.to(m.dtype),
                 v_new.to(v.dtype))
 
     out = tree_map(upd, params, grads, state["m"], state["v"])

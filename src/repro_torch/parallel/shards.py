@@ -34,7 +34,8 @@ from repro_torch.tree import tree_map
 __all__ = ["is_dtensor", "mesh_of", "roles", "head_roles", "layout",
            "on_shards", "tp_matmul", "nll_sum", "local_shape",
            "mergeable_rows", "merge_rows", "split_rows", "replicate_like",
-           "batch_like", "match", "gather_dim", "gather_fsdp"]
+           "batch_like", "match", "gather_dim", "gather_fsdp", "group_over",
+           "relayout", "sum_of_squares"]
 
 
 def is_dtensor(t) -> bool:
@@ -541,3 +542,141 @@ def gather_fsdp(tree, x):
         return w.redistribute(w.device_mesh, pl)
 
     return tree_map(one, tree)
+
+
+def group_over(mesh, dims: tuple):
+    """The process group of this rank and the ranks that differ from it
+    only along the mesh dims ``dims`` (those of one rank left out), ordered
+    as a dim split over ``dims`` (in mesh order) orders its shards; None
+    where no such group can be had here.  One dim is the mesh's own group,
+    and every dim of a mesh that lists the world's ranks in order is the
+    world's.  Others are made once a mesh, every group of them on every
+    rank (as ``new_group`` asks), so only on a mesh that spans the world.
+    The mesh is not flattened: DTensor would then gather over the
+    flattened dims."""
+    dims = tuple(m for m in sorted(dims) if mesh.size(m) > 1)
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    if not dims or mesh.size() != dist.get_world_size():
+        return None
+    ranks = mesh.mesh
+    if len(dims) == sum(mesh.size(m) > 1 for m in range(mesh.ndim)) \
+            and ranks.reshape(-1).tolist() == list(range(mesh.size())):
+        return dist.group.WORLD
+    cache = mesh.__dict__.setdefault("_groups_over", {})
+    if dims not in cache:
+        rest = tuple(m for m in range(mesh.ndim) if m not in dims)
+        n = math.prod(mesh.size(m) for m in dims)
+        me = dist.get_rank()
+        for row in ranks.permute(*rest, *dims).reshape(-1, n).tolist():
+            group = dist.new_group(row)
+            if me in row:
+                cache[dims] = group
+    return cache[dims]
+
+
+def _sharded_by(pl: tuple, dim: int, mesh) -> tuple | None:
+    """The mesh dims of more than one rank whose ``Shard`` splits ``dim``;
+    None where one of them splits it in strides (``_StridedShard``), whose
+    shards a flat collective does not order."""
+    ms = tuple(m for m, p in enumerate(pl) if isinstance(p, Shard)
+               and p.dim == dim and mesh.size(m) > 1)
+    return ms if all(type(pl[m]) is Shard for m in ms) else None
+
+
+def _collective(local, d: int, op: str, group, n: int):
+    """``local`` reduce-scattered (``op`` "reduce_scatter") or all-gathered
+    ("all_gather") along its dim ``d`` over ``group`` of ``n`` ranks."""
+    x = local.movedim(d, 0).contiguous()
+    ops = torch.ops._c10d_functional
+    if op == "reduce_scatter":
+        out = ops.reduce_scatter_tensor(x, "sum", n, group.group_name)
+    else:
+        out = ops.all_gather_into_tensor(x, n, group.group_name)
+    return ops.wait_tensor(out).movedim(0, d)
+
+
+def relayout(t, like):
+    """``t`` laid out as ``like`` is, when both are DTensors, with one
+    collective for each change that spans several mesh dims: the mesh dims
+    on which ``t`` holds partial sums and ``like`` splits one tensor dim are
+    reduce-scattered onto it together, and the mesh dims that split one
+    tensor dim of ``t`` and that ``like`` replicates are all-gathered
+    together (DTensor moves one mesh dim at a time, and all-reduces each
+    partial sum where an op needs the whole tensor).  What is left (partial
+    sums ``like`` replicates, other moves) is redistributed as DTensor does
+    it, on the smaller tensor."""
+    if not (isinstance(t, DTensor) and isinstance(like, DTensor)):
+        return t
+    mesh, dst = t.device_mesh, tuple(like.placements)
+    for op in ("reduce_scatter", "all_gather"):
+        src = tuple(t.placements)
+        if op == "reduce_scatter":
+            moved = tuple(m for m, (p, q) in enumerate(zip(src, dst))
+                          if p.is_partial() and isinstance(q, Shard))
+            by = dst
+        else:
+            moved = tuple(m for m, (p, q) in enumerate(zip(src, dst))
+                          if isinstance(p, Shard) and isinstance(q, Replicate))
+            by = src
+        ms = tuple(m for m in moved if mesh.size(m) > 1)
+        dims = {by[m].dim % t.dim() for m in ms}
+        n = math.prod(mesh.size(m) for m in ms)
+        if n == 1 or len(dims) != 1:
+            continue
+        d = dims.pop()
+        local = t.to_local()
+        if op == "reduce_scatter":
+            # mesh dims after ``ms`` that ``like`` also splits ``d`` over
+            # and ``t`` replicates take their slice of the shard locally
+            inner = _sharded_by(dst, d, mesh) or ()
+            fits = (_sharded_by(src, d, mesh) == () and inner[:len(ms)] == ms
+                    and all(isinstance(src[m], Replicate)
+                            for m in inner[len(ms):])
+                    and local.shape[d] % n == 0)
+        else:
+            fits = (_sharded_by(src, d, mesh) == ms
+                    and _sharded_by(dst, d, mesh) == ()
+                    and local.shape[d] * n == t.shape[d])
+        if not fits:
+            continue
+        group = group_over(mesh, ms)
+        if group is None:
+            continue
+        out = _collective(local, d, op, group, n)
+        pl = tuple(dst[m] if m in moved else p for m, p in enumerate(src))
+        t = DTensor.from_local(out, mesh, pl, run_check=False, shape=t.shape,
+                               stride=_contiguous_stride(out, t.shape))
+    return match(t, like)
+
+
+def sum_of_squares(leaves) -> torch.Tensor:
+    """The float32 sum of every element's square over ``leaves``, DTensors
+    among them, replicated: each rank sums its shards, leaf by leaf in
+    order (a shard that other ranks hold too counts on one of them only),
+    then one all-reduce over the whole mesh (one a mesh dim where
+    ``group_over`` has no group for them all).  A leaf that holds partial
+    sums is reduced first, as DTensor reduces it."""
+    first = next(x for x in leaves if isinstance(x, DTensor))
+    mesh = first.device_mesh
+    coord = mesh.get_coordinate()
+    parts = []
+    for x in leaves:
+        pl = tuple(x.placements) if isinstance(x, DTensor) else \
+            (Replicate(),) * mesh.ndim
+        if any(p.is_partial() for p in pl):
+            pl = tuple(Replicate() if p.is_partial() else p for p in pl)
+            x = x.redistribute(mesh, pl)
+        local = x.to_local() if isinstance(x, DTensor) else x
+        s = torch.sum(torch.square(local.float()))
+        held = all(coord[m] == 0 for m, p in enumerate(pl)
+                   if not isinstance(p, Shard))
+        parts.append(s if held else torch.zeros_like(s))
+    total = sum(parts)
+    group = group_over(mesh, tuple(range(mesh.ndim)))
+    ops = torch.ops._c10d_functional
+    for g in [group] if group is not None else \
+            [mesh.get_group(m) for m in range(mesh.ndim) if mesh.size(m) > 1]:
+        total = ops.wait_tensor(ops.all_reduce(total, "sum", g.group_name))
+    return DTensor.from_local(total, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)

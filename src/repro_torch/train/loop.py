@@ -34,7 +34,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, linear_warmup_cosine)
 from repro_torch.parallel.shards import (gather_dim, is_dtensor, match,
-                                         replicate_like)
+                                         relayout, replicate_like)
 from repro_torch.train.dvfs_controller import (DVFSController, EnergyLedger,
                                                SimulatedActuator)
 from repro_torch.train.straggler import StragglerDetector
@@ -137,8 +137,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     raise ValueError(
                         f"batch leaf {k!r} has {v.shape[0]} rows, not "
                         f"divisible into {m} microbatches")
-            gsum = pin_grads(tree_map(lambda p: torch.zeros_like(
-                p, dtype=torch.float32), params))
+            gsum = None
             lsum = replicate_like(torch.zeros(
                 (), dtype=torch.float32, device=tree_leaves(params)[0].device),
                 tree_leaves(params)[0])
@@ -153,12 +152,23 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                                         (i + 1) * (v.shape[0] // m)], v)
                       for k, v in batch.items()}
                 l, g = value_and_grad(params, mb)
-                gsum = pin_grads(tree_map(lambda a, b: a + b.float(), gsum,
-                                          g))
+                g = tree_map(lambda b: b.float(), g)
+                # the sum starts from the first microbatch's gradient (equal
+                # to the reference's float32 zeros plus it): a zero
+                # accumulator would lie replicated, and adding partial sums
+                # to it makes some torch versions (2.11) all-reduce each
+                # microbatch's gradient
+                gsum = pin_grads(g if gsum is None else tree_map(
+                    lambda a, b: a + b, gsum, g))
                 lsum = lsum + l
             grads = tree_map(lambda g: g / m, gsum)
             loss = lsum / m
         with torch.no_grad():
+            # each gradient still summed across ranks is reduced once, into
+            # its moments' layout (ZeRO-1's shard), before the norm reads it
+            # and the update uses it: the norm is then a sum over shards
+            # and one scalar all-reduce
+            grads = tree_map(relayout, grads, opt_state["m"])
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             lr = lr_fn(opt_state["step"]) if lr_fn is not None else None
             params, opt_state = adamw_update(params, grads, opt_state,

@@ -488,6 +488,25 @@ def test_jamba_fsdp_train_step_matches_unsharded(gloo_results):
         assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
 
 
+@pytest.mark.parametrize("case", sorted(W.DP_CASES))
+def test_dp_layout_train_step_matches_unsharded(gloo_results, case):
+    """The reference's ``layout="dp"`` (the opt layout of olmo-1b and
+    mamba2-1.3b): parameters replicated, ZeRO-1 moments over ('data',
+    'model'), four rows over every mesh dim, on (data 2, model 2) and on
+    (pod 2, data 2, model 1).  Each gradient is reduced once into its
+    moments' shard (``shards.relayout``) and the norm is a sum over shards
+    and one all-reduce, so its float32 sums run in another order than the
+    unsharded step's: one step against that step at the olmo step's
+    tolerances (loss and grad norm 1e-5 relative, weights 1e-5); the step
+    moves the weights by about the lr, so a gradient reduced twice or not
+    at all shows."""
+    for r in [r[case] for r in _ok(gloo_results["dp_train"])]:
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(*r[key], rtol=1e-5)
+        assert r["update"] >= 5e-4, r["update"]
+        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+
+
 def _uneven_results(gloo_results, case: str) -> list:
     if case == "jamba":
         return _ok(gloo_results["jamba_fsdp_train"])

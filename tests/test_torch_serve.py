@@ -3,7 +3,8 @@
 ``ServingEngine.generate`` on ``smoke_config("olmo-1b",
 attn_impl_train="pallas")``, on ``smoke_config("mamba2-1.3b")`` (its
 prefill through the ``ssd_scan`` wrapper) and on
-``smoke_config("qwen2-moe-a2.7b")`` (MoE FFNs with a shared expert) with the
+``smoke_config("qwen2-moe-a2.7b")`` (MoE FFNs with a shared expert), and on
+olmo-1b with the int8 KV cache (``kv_quant=True``), with the
 reference's weights (carried across by ``params_from_numpy``) and the same
 seeded prompts gives the reference's greedy tokens, with the same ledger
 step counts; the window walls, and so the plans' frequencies, are measured
@@ -41,9 +42,10 @@ def _roofline(mod, mem_bound=True):
         flops=1e9, hbm_bytes=8e9 if mem_bound else 1e6, coll_bytes=0)
 
 
-def _engines(impl="pallas", window=8, arch="olmo-1b", **sc_kw):
-    jc = jsmoke(arch, attn_impl_train=impl)
-    tc_ = tsmoke(arch, attn_impl_train=impl)
+def _engines(impl="pallas", window=8, arch="olmo-1b", kv_quant=False,
+             **sc_kw):
+    jc = jsmoke(arch, attn_impl_train=impl, kv_quant=kv_quant)
+    tc_ = tsmoke(arch, attn_impl_train=impl, kv_quant=kv_quant)
     jp = JT.init_params(jc, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     sc_kw.setdefault("slack", 1.15)
@@ -70,6 +72,17 @@ def test_mamba_generate_matches_reference(arch):
     decode through the recurrence) and qwen2-moe-a2.7b (prefill and decode
     through apply_moe): three DV-DVFS windows."""
     _check_generate(*_engines(window=8, arch=arch), 24)
+
+
+@pytest.mark.parametrize("n_tokens,window", [(24, 8), (8, 16)])
+def test_int8_kv_cache_generate_matches_reference(n_tokens, window):
+    """olmo-1b with the int8 KV cache (``kv_quant``, the opt decode
+    config): each new K/V row quantized at its per-row absmax / 127 in the
+    prefill and in every decode step, and dequantized for attention; the
+    greedy tokens and ledger step counts equal the reference's."""
+    jeng, teng, prompts = _engines(window=window, kv_quant=True)
+    assert jeng.cfg.kv_quant and teng.cfg.kv_quant
+    _check_generate(jeng, teng, prompts, n_tokens)
 
 
 def _check_generate(jeng, teng, prompts, n_tokens):

@@ -322,10 +322,12 @@ def check_mamba(rank: int) -> dict:
 
 
 def _mamba_step(mesh, arch: str = "mamba2-1.3b", rows: int = 4,
-                microbatches: int = 1, **kw) -> dict:
+                microbatches: int = 1, zero1_axes: tuple = (),
+                **kw) -> dict:
     """One train step of smoke ``arch`` on ``mesh`` (``rows`` rows of 32
     tokens in ``microbatches`` microbatches) against the unsharded step on
-    the same weights."""
+    the same weights; the moments laid out as the parameters, or by
+    ``zero1_specs`` over ``zero1_axes`` (ZeRO-1)."""
     cfg, msd, params, dparams = _lm(arch, mesh, **kw)
     batch = {"tokens": _tokens(cfg, rows, 32, 6),
              "labels": _tokens(cfg, rows, 32, 7)}
@@ -333,6 +335,8 @@ def _mamba_step(mesh, arch: str = "mamba2-1.3b", rows: int = 4,
     step = make_train_step(cfg, opt_cfg, num_microbatches=microbatches)
     want_p, _, want_m = step(params, adamw_init(params, opt_cfg), batch)
     specs = param_specs(cfg, params, msd)
+    if zero1_axes:
+        specs = zero1_specs(specs, params, msd, axes=zero1_axes)
     dopt = distribute_tree(adamw_init(params, opt_cfg),
                            {"m": specs, "v": specs, "step": P()}, mesh)
     got_p, _, got_m = step(dparams, dopt, distribute_tree(
@@ -358,6 +362,32 @@ def check_mamba_train(rank: int) -> dict:
     out = {"tp": _mamba_step(mesh) if rank < 2 else {}}
     out["dp_tp"] = _mamba_step(make_mesh({"data": 2, "model": 2}, "cpu"),
                                batch_axes=("data",))
+    return out
+
+
+# the reference's pure data-parallel layout (``layout="dp"``, the opt
+# layout of olmo-1b, mamba2-1.3b and musicgen-large): parameters
+# replicated, ZeRO-1 moments over ('data', 'model'), the batch over every
+# mesh dim; (mesh, arch) by case
+DP_CASES = {
+    "olmo": ({"data": 2, "model": 2}, "olmo-1b"),
+    "mamba": ({"data": 2, "model": 2}, "mamba2-1.3b"),
+    "olmo_multi_pod": ({"pod": 2, "data": 2, "model": 1}, "olmo-1b"),
+}
+
+
+def check_dp_train(rank: int) -> dict:
+    """One train step in the reference's ``dp`` layout for each of
+    ``DP_CASES`` (four rows, one a rank), against the unsharded step on the
+    same weights: every gradient is reduced once, into its moments' shard,
+    before the norm and the update (over 'pod' the shard is then
+    all-reduced)."""
+    out = {}
+    for name, (shape, arch) in DP_CASES.items():
+        mesh = make_mesh(shape, "cpu")
+        out[name] = _mamba_step(mesh, arch, layout="dp",
+                                batch_axes=tuple(shape),
+                                zero1_axes=("data", "model"))
     return out
 
 
@@ -582,7 +612,7 @@ CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "olmo_microbatches": check_olmo_microbatches,
           "jamba_fsdp_train": check_jamba_fsdp_train,
           "uneven_pin": check_uneven_pin,
-          "loss_heads": check_loss_heads}
+          "loss_heads": check_loss_heads, "dp_train": check_dp_train}
 
 # the directory ``run`` writes its results to (a check's larger outputs go
 # there too)
