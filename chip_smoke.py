@@ -144,7 +144,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      at (8, 256) and (8, 1024) tokens beside their bound, the plain
      version, and each kernel's registers, spills, shared memory and CTAs
      an SM;
- 19. the dry run (launch/dryrun.py) of olmo-1b train_4k at its two
+ 19. the reference's production cells in bfloat16 (configs/shapes.py;
+     launch/dryrun.py runs them on meta): olmo-1b, mamba2-1.3b,
+     qwen2-moe-a2.7b, musicgen-large and pixtral-12b, each at full width
+     with bfloat16 weights from a seed, at the rows of the cells' global
+     batches one card holds (launch/cell_memory.py's ROWS, reckoned from
+     shapes): prefill_32k, T.prefill of 32,768 positions (pixtral's
+     first 1,024 of them patches) into a bfloat16 cache, with one
+     bfloat16 kernel launch a layer, layers 0 and last's kernel outputs on
+     the first and last rows against the plain version on their real
+     inputs (also within 2 bfloat16 steps of their own largest value),
+     and the last logits against a prefill through the plain path
+     on one row (greedy flips counted), every layer's kernel call on that
+     row against the plain version; decode_32k, a prefill of 32,752
+     positions then 16 greedy decode steps up to position 32,767, no
+     launch in decode, one step traced, the first step's logits against
+     the plain path's; walls, peaks under 80 GB, and each kernel timed at
+     its cell's shape beside its bound;
+ 20. the dry run (launch/dryrun.py) of olmo-1b train_4k at its two
      microbatches, mamba2-1.3b train_4k, qwen2-moe-a2.7b train_4k on the
      512-rank mesh (one microbatch each), jamba long_500k, olmo-1b
      long_500k (the reference's skip), olmo-1b prefill_32k on the 512-rank
@@ -194,7 +211,8 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.cluster import (ClusterReport, NodeReport,  # noqa: E402
                                  NodeSpec, assign_blocks, plan_cluster_arrays,
                                  simulate_cluster, simulate_cluster_reference)
-from repro_torch.configs import get_arch, smoke_config  # noqa: E402
+from repro_torch.configs import (SHAPES, get_arch,  # noqa: E402
+                                smoke_config)
 from repro_torch.core import (CPU_PAPER_POWER, BlockArrays,  # noqa: E402
                               BlockInfo, EstimateArrays,
                               FrequencyLadder, PowerModel, RooflineTimeModel,
@@ -214,7 +232,8 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
-from repro_torch.launch import dryrun, ssd_bwd_timing  # noqa: E402
+from repro_torch.launch import (cell_memory, dryrun,  # noqa: E402
+                                ssd_bwd_timing)
 from repro_torch.launch.block_stats_timing import (  # noqa: E402
     event_ms, traced)
 from repro_torch.launch.mesh import make_mesh, mesh_shape_dict  # noqa: E402
@@ -2005,37 +2024,45 @@ def phase_int8_serving(float_run: dict) -> dict:
 
 
 def decode_profile(params, cfg, tok, cache, top: int = 8) -> None:
-    """One decode step at the serving shape, timed alone and then traced
-    with torch.profiler: the device's busy share of the step (its kernels'
-    time over the untraced step's wall) and the ops whose kernels take the
-    most device time."""
+    """One decode step at the serving shape, timed alone (after a warm-up
+    step) and then traced (``step_profile``)."""
+    def step():
+        return T.decode_step(params, cfg, tok, cache)
+    sync_seconds(step)                                    # warm-up
+    _, step_s = sync_seconds(step)
+    step_profile(step, step_s, f"decode step at position {cache['pos']}",
+                 top)
+
+
+def step_profile(fn, untraced_s: float, label: str, top: int = 8) -> tuple:
+    """(``fn()``, device seconds or None) of one decode step ``fn`` traced
+    by torch.profiler; prints the device's busy share of ``untraced_s``
+    (its kernels' time over an untraced step's wall) and the ops whose
+    kernels take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    sync_seconds(lambda: T.decode_step(params, cfg, tok, cache))   # warm-up
-    _, step_s = sync_seconds(lambda: T.decode_step(params, cfg, tok, cache))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, traced_s = sync_seconds(
-            lambda: T.decode_step(params, cfg, tok, cache))
+        out, traced_s = sync_seconds(fn)
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_s = 1e-6 * sum(e.self_device_time_total for e in kernels)
     if busy_s <= 0:
-        print(f"  decode step {step_s:.6f} s; device time not measured "
+        print(f"  {label}: {untraced_s:.6f} s; device time not measured "
               "(the profiler recorded no CUDA kernels)")
-        return
-    ops = [e for e in events if e.device_type == DeviceType.CPU
-           and e.self_device_time_total > 0]
-    print(f"  decode step at position {cache['pos'] - 1}: {step_s:.6f} s "
-          f"untraced ({traced_s:.6f} s traced), {sum(e.count for e in kernels)}"
-          f" kernels; device busy {busy_s:.6f} s = "
-          f"{100 * busy_s / step_s:.2f}% of the untraced step (idle "
-          f"{100 * max(0.0, 1 - busy_s / step_s):.2f}%); ops by the device "
-          "time of their kernels:")
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        return out, None
+    ops_ = [e for e in events if e.device_type == DeviceType.CPU
+            and e.self_device_time_total > 0]
+    print(f"  {label}: {untraced_s:.6f} s untraced ({traced_s:.6f} s "
+          f"traced), {sum(e.count for e in kernels)} kernels; device busy "
+          f"{busy_s:.6f} s = {100 * busy_s / untraced_s:.2f}% of the "
+          f"untraced step (idle {100 * max(0.0, 1 - busy_s / untraced_s):.2f}"
+          "%); ops by the device time of their kernels:")
+    for e in sorted(ops_, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {1e-3 * e.self_device_time_total:10.3f} ms "
               f"{100e-6 * e.self_device_time_total / busy_s:6.2f}% "
               f"x{e.count:<4d} {e.key}")
+    return out, busy_s
 
 
 def phase_serving_cpu(arch: str, kernels: set, **overrides) -> None:
@@ -2078,21 +2105,43 @@ def phase_serving_cpu(arch: str, kernels: set, **overrides) -> None:
           "card and CPU greedy tokens differ")
 
 
-class SsdRecorder:
-    """A pass-through around the model's ``ssd_scan_cuda`` that keeps the
-    arguments and results of the calls numbered in ``keep``."""
+class RowRecorder:
+    """A pass-through around a kernel wrapper ``fn`` that keeps the
+    arguments and output of the calls numbered in ``keep``; with ``rows``,
+    copies of those rows (dim 0) of every batched one (a_log, 1-D, whole)
+    in place of the tensors.  It counts the bytes of the arguments at
+    ``staged`` that the wrapper copies before its kernel
+    (``fa.tma_ready``)."""
 
-    def __init__(self, keep):
-        self.keep = set(keep)
+    def __init__(self, fn, keep, rows=None, staged=()):
+        self.fn, self.keep, self.rows = fn, set(keep), rows
+        self.staged = staged
         self.calls: dict = {}
         self.n = 0
+        self.copied = 0
+
+    def _pick(self, t):
+        if isinstance(t, tuple):
+            return tuple(self._pick(x) for x in t)
+        if self.rows is not None and isinstance(t, torch.Tensor) \
+                and t.dim() > 1:
+            return t[list(self.rows)].clone()
+        return t
 
     def __call__(self, *args, **kw):
-        out = ss.ssd_scan_cuda(*args, **kw)
+        self.copied += sum(args[i].numel() * args[i].element_size()
+                           for i in self.staged if not fa.tma_ready(args[i]))
+        out = self.fn(*args, **kw)
         if self.n in self.keep:
-            self.calls[self.n] = (args, kw, out)
+            self.calls[self.n] = (self._pick(args), kw, self._pick(out))
         self.n += 1
         return out
+
+    def held_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for call in self.calls.values()
+                   for t in tree_leaves(call)
+                   if isinstance(t, torch.Tensor))
 
 
 def phase_mamba_serving() -> dict:
@@ -2108,7 +2157,7 @@ def phase_mamba_serving() -> dict:
     # the kernel against the plain chunked version on the real inputs of
     # the first and the last layer, recorded in a second prefill
     last = cfg.n_layers - 1
-    rec = SsdRecorder((0, last))
+    rec = RowRecorder(ss.ssd_scan_cuda, (0, last))
     M.ssd_scan_cuda = rec
     try:
         again, _ = T.prefill(eng.params, cfg, {"tokens": tprompts},
@@ -2156,23 +2205,6 @@ def phase_mamba_serving() -> dict:
     return {"launches": counts, "layer_err": layer_err,
             "continuation_err": cont_err,
             **serve_report(eng, sv, out, roof, walls)}
-
-
-class FlashRecorder:
-    """A pass-through around the model's ``flash_attention_cuda`` that keeps
-    the inputs and output of the calls numbered in ``keep``."""
-
-    def __init__(self, keep):
-        self.keep = set(keep)
-        self.calls: dict = {}
-        self.n = 0
-
-    def __call__(self, q, k, v, **kw):
-        out = fa.flash_attention_cuda(q, k, v, **kw)
-        if self.n in self.keep:
-            self.calls[self.n] = (q, k, v, kw, out)
-        self.n += 1
-        return out
 
 
 ROUTE = MOE._route
@@ -2235,7 +2267,8 @@ def phase_moe_serving() -> dict:
     # a second prefill: the kernel against its plain version on the real
     # q/k/v of the first and the last layer, and the routes it took
     last = cfg.n_layers - 1
-    flash, kernel_routes = FlashRecorder((0, last)), RouteRecorder()
+    flash = RowRecorder(fa.flash_attention_cuda, (0, last))
+    kernel_routes = RouteRecorder()
     again = recorded_prefill(eng.params, cfg, tprompts, sv["max_len"],
                              flash, kernel_routes)[0]
     check(flash.n == cfg.n_layers and len(kernel_routes.routes)
@@ -2246,7 +2279,7 @@ def phase_moe_serving() -> dict:
     print("  a second prefill of the same prompts: logits bit-identical to "
           "the first")
     layer_err = {}
-    for i, (q, k, v, kw, got) in sorted(flash.calls.items()):
+    for i, ((q, k, v), kw, got) in sorted(flash.calls.items()):
         want = ref.flash_attention_ref(q, k, v, **kw)
         layer_err[i] = _max_err(got, want)
         print(f"  layer {i} attention, kernel vs plain on its real q/k/v "
@@ -3554,6 +3587,490 @@ def phase_parallel(smi: str) -> dict:
     return out
 
 
+# the reference's production cells (configs/shapes.py) in bfloat16 on one
+# card, for the archs it holds whole, at the rows of launch/cell_memory.py's
+# ROWS: the largest power of two up to the cell's global batch
+# (prefill_32k 32, decode_32k 128) whose bfloat16 weights and peak,
+# reckoned from shapes, fit its 72 GB budget; both cells give the same rows
+PROD_SEED = 0
+PROD_CHECK_ROWS = 1      # rows of the prefills through the plain path
+PROD_Q_SLAB = 256        # queries held against plain at each end of S
+PROD_TRACED_STEP = 8     # the decode step traced by torch.profiler
+PROD_TIMING_REPS = 5
+# a bfloat16 kernel output at 32k against the plain version's, in bfloat16
+# steps of the compared slab's largest |want|: both round float32 values
+# that differ by far less than a step, so each element is off by at most
+# one step of its own size; a second for the kernel's bfloat16
+# probabilities (a relative 2**-9 a term, which average out over the keys)
+PROD_SLAB_STEPS = 2
+CARD_BYTES = 80e9
+
+
+def bf16_step(t: torch.Tensor) -> float:
+    """One bfloat16 step at ``t``'s largest |value|: 2**(e - 7) for a
+    largest |value| in [2**e, 2**(e + 1))."""
+    top = float(t.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def _max_abs(t: torch.Tensor) -> float:
+    return float(t.float().abs().max()) if t.numel() else 0.0
+
+
+def own_size_ok(got: torch.Tensor, want: torch.Tensor, steps: int) -> tuple:
+    """(max |got - want|, whether it is within ``steps`` bfloat16 steps of
+    ``want``'s largest |value|)."""
+    err = _max_err(got, want)
+    return err, err <= steps * bf16_step(want)
+
+
+def prod_logit_steps(cfg) -> int:
+    """The logits' tolerance against the plain path, in bfloat16 steps of
+    the plain logits' largest |value|: 3 sqrt(layers), rounded up.  The two
+    paths differ only in the mixer: each layer's attention (or SSD) output
+    is rounded to bfloat16 once on both, from float32 sums taken in
+    different orders, so each layer adds about one step of its output to
+    the hidden stream, with a sign of its own; such errors add as
+    sqrt(layers).  The readings set the factor: on the H100 the five archs
+    gave 0.43-2.21 sqrt(layers) steps (qwen2-moe-a2.7b's 10.81 steps at 24
+    layers the largest, its routing flips included)."""
+    return math.ceil(3 * math.sqrt(cfg.n_layers))
+
+
+@contextlib.contextmanager
+def in_place_of(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` for the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield fn
+    finally:
+        setattr(module, name, old)
+
+
+def plain_ssd(x, dt, a_log, b_mat, c_mat, *, chunk, final_state=False):
+    """The plain chunked SSD (``ref.ssd_chunked_ref``) in the kernel
+    wrapper's place."""
+    y, state = ref.ssd_chunked_ref(x, dt, a_log, b_mat, c_mat, chunk=chunk)
+    return (y, state) if final_state else y
+
+
+def plain_prefill(params, cfg, batch, max_len: int):
+    """The bfloat16 prefill through the plain path: chunked attention, the
+    plain chunked SSD; it must launch no kernel."""
+    reset_launches()
+    with in_place_of(M, "ssd_scan_cuda", plain_ssd):
+        out = T.prefill(params, cfg.replace(attn_impl_train="chunked"),
+                        batch, max_len, dtype=torch.bfloat16)
+    check(not any(launches().values()),
+          f"the plain prefill launched {launches()}")
+    return out
+
+
+def next_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy tokens as decode_step takes them: (B, 1), or (B, 1, K)."""
+    return logits.argmax(-1).to(torch.int32).unsqueeze(1)
+
+
+def rows_of(batch: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def compare_logits(label: str, got: torch.Tensor, want: torch.Tensor,
+                   cfg) -> dict:
+    """``got`` (the kernel path's logits) against ``want`` (the plain
+    path's) within ``prod_logit_steps``; greedy tokens may flip only where
+    the plain top two lie within that tolerance of each other, and the
+    flips are counted."""
+    steps = prod_logit_steps(cfg)
+    step = bf16_step(want)
+    err = _max_err(got, want)
+    flips = got.argmax(-1) != want.argmax(-1)
+    top2 = want.float().topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    print(f"  {label}: last logits vs the plain path max |err| {err:.6g} = "
+          f"{err / step:.2f} bfloat16 steps of the largest |logit| "
+          f"{float(want.float().abs().max()):.4f} (tol {steps} steps); "
+          f"{int(flips.sum())} of {flips.numel()} greedy tokens flipped"
+          + (f", at top-two gaps {gap[flips].tolist()}" if flips.any()
+             else ""))
+    check(err <= steps * step, f"{label}: logits differ by {err}")
+    check(not bool((flips & (gap > steps * step)).any()),
+          f"{label}: a greedy token flipped at a gap above the tolerance")
+    return {"max_abs_err": err, "steps": err / step, "tol_steps": steps,
+            "flips": int(flips.sum())}
+
+
+def check_call(kernel: str, label: str, args, kw, out) -> tuple:
+    """One kernel call's output against the plain version on the same
+    inputs: flash attention on the first and last ``PROD_Q_SLAB`` queries
+    (``ref.flash_attention_ref`` with ``q_start``, without the (S, S)
+    scores), the SSD's y and final state on the whole rows; within
+    ``FLASH_TOL`` / ``SSD_TOL`` for bfloat16, and each held to its own
+    size as well (``own_size_ok``), since at 32,768 keys a late query's
+    output can be as small as those absolute tolerances.  Returns (max
+    |err|, the largest error in bfloat16 steps of its own size, what to
+    print)."""
+    if kernel == "flash_attention":
+        q, k, v = args
+        s = q.shape[2]
+        err, steps, slabs = 0.0, 0.0, []
+        for start in (0, s - PROD_Q_SLAB):
+            end = start + PROD_Q_SLAB
+            want = ref.flash_attention_ref(
+                q[:, :, start:end], k[:, :, :end], v[:, :, :end],
+                q_start=start, **kw)
+            got = out[:, :, start:end]
+            e, ok = own_size_ok(got, want, PROD_SLAB_STEPS)
+            check(flash_close(got, want, torch.bfloat16) and ok,
+                  f"{label}: flash queries {start}..{end - 1} differ from "
+                  f"plain by {e} (|o| up to {_max_abs(want)})")
+            err, steps = max(err, e), max(steps, e / bf16_step(want))
+            slabs.append(f"queries {start}..{end - 1}: max |err| {e:.3g} = "
+                         f"{e / bf16_step(want):.2f} steps of |o| up to "
+                         f"{_max_abs(want):.4g}")
+            del want
+        return err, steps, (
+            f"{label} attention, kernel vs plain on its real q/k/v, of {s} "
+            "positions: " + "; ".join(slabs) + f" (tol "
+            f"{FLASH_TOL[torch.bfloat16]} abs + rel and {PROD_SLAB_STEPS} "
+            "bfloat16 steps of the slab's largest |o|)")
+    y, state = out
+    want_y, want_state = ref.ssd_chunked_ref(*args, chunk=kw["chunk"])
+    err_y, ok_y = own_size_ok(y, want_y, PROD_SLAB_STEPS)
+    err_s = _max_err(state, want_state)
+    top_s = _max_abs(want_state)
+    check(ssd_close(y, want_y, torch.bfloat16)
+          and ssd_close(state, want_state, torch.bfloat16)
+          and ok_y and err_s <= SSD_TOL[torch.float32] * top_s,
+          f"{label}: the SSD differs from the plain chunked SSD (y {err_y},"
+          f" state {err_s})")
+    steps = err_y / bf16_step(want_y)
+    return max(err_y, err_s), steps, (
+        f"{label} SSD, kernel vs plain chunked on its real inputs: y max "
+        f"|err| {err_y:.3g} = {steps:.2f} steps of |y| up to "
+        f"{_max_abs(want_y):.4g} (tol {PROD_SLAB_STEPS} steps), float32 "
+        f"state max |err| {err_s:.3g} = {err_s / top_s:.3g} of |state| up "
+        f"to {top_s:.4g} (tol {SSD_TOL[torch.float32]} of it); and tol "
+        f"{SSD_TOL[torch.bfloat16]} abs + rel")
+
+
+def check_layers(kernel: str, rec: RowRecorder, rows: tuple) -> dict:
+    """``check_call`` on each call ``rec`` recorded (rows ``rows``)."""
+    errs = {}
+    for i, (args, kw, out) in sorted(rec.calls.items()):
+        errs[i], _, text = check_call(kernel, f"layer {i}, rows {rows},",
+                                      args, kw, out)
+        print("  " + text)
+    return errs
+
+
+class EveryLayerCheck:
+    """A pass-through around a kernel wrapper ``fn`` that holds every
+    call's output against the plain version (``check_call``) as it goes,
+    keeping only the errors: a fault in a middle layer shows here, where
+    the logits of random weights cannot resolve it."""
+
+    def __init__(self, fn, kernel: str):
+        self.fn, self.kernel = fn, kernel
+        self.errs: list = []     # (max |err|, steps of its own size)
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        err, steps, _ = check_call(self.kernel, f"layer {len(self.errs)}",
+                                   args, kw, out)
+        self.errs.append((err, steps))
+        return out
+
+
+def prod_kernel_times(cfg, rows: int, s: int, kernel: str, gen) -> dict:
+    """The cell's kernel at its prefill shape on seeded inputs laid out as
+    the model hands them in: CUDA-event medians of ``PROD_TIMING_REPS``
+    runs, the bound, scaled_dot_product_attention for flash (the plain
+    version's (S, S) float32 scores, B H S^2 4 bytes, do not fit the card:
+    its time is not measured) and the plain chunked SSD for the scan."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    dt_ = torch.bfloat16
+    if kernel == "flash_attention":
+        hq, hkv, d = (T._dims(cfg).n_q_phys, T._dims(cfg).n_kv_phys,
+                      cfg.d_head)
+        q, k, v = (torch.randn((rows, s, h, d), generator=gen, device="cuda",
+                               dtype=dt_).transpose(1, 2)
+                   for h in (hq, hkv, hkv))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def call():
+            return fa.flash_attention_cuda(q, k, v)
+        ms = event_ms(call, flush, PROD_TIMING_REPS)
+        lib_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                       enable_gqa=hq != hkv), flush,
+                          PROD_TIMING_REPS)
+        plain_ms = None
+        bound, by, flops, nbytes = flash_bound(rows, hq, hkv, s, d, dt_)
+        shape = [rows, hq, hkv, s, d]
+        load = clock_under_load(call)
+    else:
+        sc = cfg.ssm
+        h, g, p, n = sc.n_heads, sc.n_groups, sc.head_dim, sc.d_state
+        x = torch.randn((rows, s, h * p), generator=gen, device="cuda",
+                        dtype=dt_).reshape(rows, s, h, p)
+        dt = 0.01 + 0.49 * torch.rand((rows, s, h), generator=gen,
+                                      device="cuda")
+        a_log = 2 * torch.rand(h, generator=gen, device="cuda") - 1
+        bc = torch.randn((rows, s, 2 * g * n), generator=gen, device="cuda",
+                         dtype=dt_)
+        args = (x, dt, a_log, bc[..., :g * n].reshape(rows, s, g, n),
+                bc[..., g * n:].reshape(rows, s, g, n))
+
+        def call():
+            return ss.ssd_scan_cuda(*args, final_state=True)
+        ms = event_ms(call, flush, PROD_TIMING_REPS)
+        plain_ms = event_ms(lambda: ref.ssd_chunked_ref(*args,
+                                                        chunk=sc.chunk),
+                            flush, PROD_TIMING_REPS)
+        lib_ms = None
+        bound, by, flops, nbytes = ssd_bound(rows, s, h, g, p, n, dt_)
+        shape = [rows, s, h, g, p, n]
+        load = clock_under_load(call)
+    print(f"  {kernel} bfloat16 at {cfg.name}'s prefill_32k shape {shape}: "
+          f"kernel {ms:.6f} ms, bound {bound:.6f} ms ({by}: {flops} FLOP, "
+          f"{nbytes} bytes) = {100 * bound / ms:.4f}% of the bound; plain "
+          + (f"{plain_ms:.6f} ms" if plain_ms is not None else
+             "not measured (its (S, S) float32 scores do not fit the card)")
+          + (f"; scaled_dot_product_attention {lib_ms:.6f} ms (yardstick "
+             "only)" if lib_ms is not None else "")
+          + f"; SM clock {load['sm_mhz']:.0f} MHz and board power "
+          f"{load['power_w']:.1f} W while it runs back to back (nvidia-smi, "
+          "median)")
+    return {"dtype": "bfloat16", "path": f"{cfg.name} prefill_32k",
+            "shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "flops": flops, "bytes": nbytes, "share": bound / ms, **load}
+
+
+def production_cells(arch: str) -> dict:
+    """``arch``'s prefill_32k and decode_32k cells in bfloat16 (see
+    ``phase_production_cells``)."""
+    free_device_memory()
+    dev = torch.device("cuda")
+    cfg = get_arch(arch, attn_impl_train="pallas")
+    kernels = {MIXER_KERNEL[spec.mixer] for spec in cfg.pattern}
+    check(len(kernels) == 1, f"{arch} runs {kernels}")
+    (kernel,) = kernels
+    rows, n_layers = cell_memory.ROWS[arch], cfg.n_layers
+    s = SHAPES["prefill_32k"].seq_len
+    steps = cell_memory.DECODE_STEPS
+    gen = torch.Generator(device=dev).manual_seed(PROD_SEED)
+    params, init_s = sync_seconds(lambda: T.init_params(
+        cfg, gen, dtype=torch.bfloat16, device=dev))
+    batch = cell_memory.prefill_inputs(cfg, rows, s, dev, gen)
+    print(f"production cells: {arch} ({n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}x{cfg.d_head} heads, vocab "
+          f"{cfg.vocab}), {int(cfg.param_count())} bfloat16 parameters "
+          f"(random, seed {PROD_SEED}, init {init_s:.3f} s), {rows} rows of "
+          f"the cells' {SHAPES['prefill_32k'].global_batch} / "
+          f"{SHAPES['decode_32k'].global_batch} (launch/cell_memory.py)")
+    # the kernel's entry and the arguments its wrapper may copy first
+    if kernel == "flash_attention":
+        target, staged = (ops, "flash_attention_cuda",
+                          fa.flash_attention_cuda), (0, 1, 2)
+        source = fa.route(torch.bfloat16)
+    else:
+        target, staged = (M, "ssd_scan_cuda", ss.ssd_scan_cuda), (0, 3, 4)
+        source = ss.SOURCE
+    out = {"rows": rows, "kernel": kernel}
+
+    # (a) prefill_32k: S positions into an S-position cache
+    rec = RowRecorder(target[2], (0, n_layers - 1), (0, rows - 1),
+                      staged)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with in_place_of(target[0], target[1], rec):
+        (logits, cache), wall = sync_seconds(lambda: T.prefill(
+            params, cfg, batch, s, dtype=torch.bfloat16))
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts[kernel] == n_layers and sum(counts.values()) == n_layers,
+          f"{arch} prefill_32k launched {counts}, not {kernel} once a layer")
+    check(rec.n == n_layers, f"{arch}: {rec.n} {kernel} calls")
+    v_shape = (rows, cfg.n_codebooks, cfg.vocab) if cfg.n_codebooks \
+        else (rows, cfg.vocab)
+    check(logits.dtype == torch.bfloat16 and tuple(logits.shape) == v_shape
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits {logits.dtype} {tuple(logits.shape)}")
+    want_leaves = flatten(T.cache_leaf_shapes(cfg, rows, s,
+                                              torch.bfloat16)["blocks"])
+    got_leaves = flatten(cache["blocks"])
+    check(cache["pos"] == s and all(
+        tuple(got_leaves[k].shape) == w.shape and got_leaves[k].dtype
+        == w.dtype for k, w in want_leaves.items()),
+        f"{arch}: the cache is not the bfloat16 cache of {s} positions")
+    cache_b = sum(t.numel() * t.element_size() for t in got_leaves.values())
+    check(peak < CARD_BYTES, f"{arch} prefill_32k peak {peak} B")
+    print(f"  prefill_32k: {rows} x {s} positions in {wall:.6f} s "
+          f"({rows * s / wall:.1f} tokens/s), {counts[kernel]} {kernel} "
+          f"launches on the bfloat16 route ({source}); cache {cache_b} B; "
+          f"peak {peak} B ({rec.held_bytes()} B of it the recorded rows of "
+          f"layers 0 and {n_layers - 1}); inputs copied before the kernel "
+          f"{rec.copied} B in all")
+    out["prefill"] = {"wall_s": wall, "tokens_per_s": rows * s / wall,
+                      "peak_bytes": peak, "launches": counts[kernel],
+                      "cache_bytes": cache_b, "copied_bytes": rec.copied}
+    del cache, got_leaves
+    out["layer_err"] = check_layers(kernel, rec, (0, rows - 1))
+    del rec
+    got_a = logits[:PROD_CHECK_ROWS].clone()
+    del logits
+
+    # (b) decode_32k: S - steps positions into an S-position cache, then
+    # ``steps`` greedy steps, the last against the whole cache
+    short = {k: v[:, :v.shape[1] - steps] if k == "tokens" else v
+             for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    (logits, cache), wall_b = sync_seconds(lambda: T.prefill(
+        params, cfg, short, s, dtype=torch.bfloat16))
+    counts = launches()
+    check(counts[kernel] == n_layers and sum(counts.values()) == n_layers,
+          f"{arch} decode_32k prefill launched {counts}")
+    check(cache["pos"] == s - steps, f"{arch}: cache at {cache['pos']}")
+    tok = first_tok = next_tokens(logits)
+    reset_launches()
+    walls, got_b, busy_s = [], None, None
+    for i in range(steps):
+        def step():
+            return T.decode_step(params, cfg, tok, cache)
+        if i == PROD_TRACED_STEP:
+            (logits, cache), busy_s = step_profile(
+                step, float(np.median(walls)), f"decode_32k step {i} at "
+                f"position {cache['pos']}")
+        else:
+            (logits, cache), w = sync_seconds(step)
+            walls.append(w)
+        check(bool(torch.isfinite(logits).all()),
+              f"{arch} decode step {i}: logits not finite")
+        if i == 0:
+            got_b = logits[:PROD_CHECK_ROWS].clone()
+        tok = next_tokens(logits)
+    counts = launches()
+    peak_b = torch.cuda.max_memory_allocated()
+    check(not any(counts.values()), f"{arch} decode launched {counts}")
+    check(cache["pos"] == s, f"{arch}: decode ended at {cache['pos']}")
+    check(peak_b < CARD_BYTES, f"{arch} decode_32k peak {peak_b} B")
+    step_ms = 1e3 * float(np.median(walls))
+    print(f"  decode_32k: prefill of {rows} x {s - steps} positions in "
+          f"{wall_b:.6f} s ({n_layers} {kernel} launches), then {steps} "
+          f"greedy steps up to position {s - 1} (the last over all {s} "
+          f"cache positions): no launch; a step {step_ms:.3f} ms median "
+          f"(untraced steps {[round(1e3 * w, 3) for w in walls]} ms), "
+          f"{rows / step_ms * 1e3:.1f} tokens/s; peak {peak_b} B")
+    out["decode"] = {"prefill_wall_s": wall_b, "launches": n_layers,
+                     "step_ms": step_ms,
+                     "step_ms_all": [1e3 * w for w in walls],
+                     "tokens_per_s": rows / step_ms * 1e3,
+                     "peak_bytes": peak_b, "traced_busy_s": busy_s}
+    del cache, logits
+    out.update(plain_checks(params, cfg, batch, got_a, got_b,
+                            first_tok[:PROD_CHECK_ROWS], target))
+    out["times"] = prod_kernel_times(cfg, rows, s, kernel, gen)
+    del params, batch, short
+    return out
+
+
+def plain_checks(params, cfg, batch, got_a, got_b, tok, target) -> dict:
+    """Both cells' logits on ``PROD_CHECK_ROWS`` rows against the plain
+    path's: ``got_a`` (prefill_32k's last logits) and ``got_b``
+    (decode_32k's first step, on the greedy tokens ``tok``); and, in a
+    prefill of those rows through the kernel path, every layer's kernel
+    call against the plain version (``EveryLayerCheck`` in place of the
+    entry ``target``, (module, name, wrapper)).
+
+    An attention-only model's decode_32k cache is its prefill_32k cache of
+    the same prompt rolled back to position S - steps: K and V at a
+    position depend on the tokens up to it alone (causal attention), and a
+    decode step writes its own slot before it attends, masking every later
+    one; so one plain prefill of S positions serves both cells there.  A
+    Mamba layer's cache is its state at the prompt's end, so mamba2-1.3b
+    prefills its S - steps positions through the plain path again.  An
+    MoE's capacity, and so its drops, depend on the rows dispatched
+    together: its logits are the kernel path's on the plain's rows, rolled
+    back the same way where the capacity of S and of S - steps tokens
+    rounds to the same (a slot's rank counts only earlier tokens)."""
+    s = SHAPES["prefill_32k"].seq_len
+    steps = cell_memory.DECODE_STEPS
+    rows = rows_of(batch, PROD_CHECK_ROWS)
+    short = {k: v[:, :v.shape[1] - steps] if k == "tokens" else v
+             for k, v in rows.items()}
+    rollback = all(spec.mixer == "attn" for spec in cfg.pattern) \
+        and not cfg.swa_window and (cfg.moe is None or MOE._capacity(
+            s * PROD_CHECK_ROWS, cfg.moe) == MOE._capacity(
+                (s - steps) * PROD_CHECK_ROWS, cfg.moe))
+
+    def decode_cache(prefill_fn, cache):
+        """The decode_32k cache: ``cache`` rolled back, or a prefill of
+        the S - steps positions."""
+        if rollback:
+            cache["pos"] = s - steps
+            return cache
+        del cache
+        return prefill_fn(short)[1]
+
+    def kernel_prefill(b):
+        return T.prefill(params, cfg, b, s, dtype=torch.bfloat16)
+    kernel = MIXER_KERNEL[cfg.pattern[0].mixer]
+    every = EveryLayerCheck(target[2], kernel)
+    with in_place_of(target[0], target[1], every):
+        got_row, kcache = kernel_prefill(rows)
+    check(len(every.errs) == cfg.n_layers,
+          f"{len(every.errs)} {kernel} calls in a {cfg.n_layers}-layer "
+          "prefill")
+    worst = max(range(cfg.n_layers), key=lambda i: every.errs[i][1])
+    print(f"  every layer's {kernel} call in a prefill of {PROD_CHECK_ROWS}"
+          f" row(s) of {s} positions, against the plain version on its "
+          f"inputs: all {cfg.n_layers} held; the largest error "
+          f"{every.errs[worst][1]:.2f} bfloat16 steps of its own size "
+          f"(layer {worst}, max |err| {every.errs[worst][0]:.3g}; tol "
+          f"{PROD_SLAB_STEPS})")
+    out = {"every_layer_err": [e for e, _ in every.errs],
+           "every_layer_steps": [st for _, st in every.errs]}
+    if cfg.moe is not None:
+        got_a = got_row
+        kcache = decode_cache(kernel_prefill, kcache)
+        got_b = T.decode_step(params, cfg, tok, kcache)[0]
+    del kcache, got_row
+    (want, pcache), plain_s = sync_seconds(lambda: plain_prefill(
+        params, cfg, rows, s))
+    out.update(plain_wall_s=plain_s, prefill_logits=compare_logits(
+        f"prefill_32k, {PROD_CHECK_ROWS} row(s) through the plain path "
+        f"({plain_s:.3f} s)", got_a, want, cfg))
+    pcache = decode_cache(lambda b: plain_prefill(params, cfg, b, s), pcache)
+    want = T.decode_step(params, cfg, tok, pcache)[0]
+    del pcache
+    out["decode_logits"] = compare_logits(
+        f"decode_32k first step, {PROD_CHECK_ROWS} row(s) after a prefill "
+        "through the plain path" + (" (rolled back)" if rollback else ""),
+        got_b, want, cfg)
+    return out
+
+
+def phase_production_cells() -> dict:
+    """The reference's production cells on the card: for each arch of
+    ``cell_memory.ROWS`` (``get_arch(arch, attn_impl_train="pallas")``,
+    bfloat16 weights from a seed), ``prefill_32k`` (``T.prefill`` of 32,768
+    positions, pixtral-12b's first 1,024 of them patches, into a bfloat16
+    cache) with one bfloat16 kernel launch a layer, layers 0 and last's
+    kernel outputs on rows 0 and B-1 against the plain version on their
+    real inputs, the last logits against a prefill through the plain path
+    (chunked attention, the plain chunked SSD) on ``PROD_CHECK_ROWS`` rows,
+    argmax flips counted, and every layer's kernel call in a kernel-path
+    prefill of those rows against the plain version; and ``decode_32k`` (a prefill of 32,752
+    positions, then 16 greedy ``decode_step``s up to position 32,767, one
+    traced) with no launch in decode and the first step's logits against
+    the same step after the plain prefill; walls, peaks under 80 GB, and
+    the kernel timed at the cell's shape beside its bound."""
+    return {arch: production_cells(arch) for arch in cell_memory.ROWS}
+
+
 def phase_times(main: dict, worst: dict) -> list:
     toks = main["first_chunk"]                  # (256, 2048, 256) int32
     k = main["k"]
@@ -3936,8 +4453,9 @@ def main() -> int:
     print(f"times on {kind} ({smi}); ms, plain_ms and library_ms are "
           "CUDA-event medians of 20 runs, each after evicting the L2:")
     kernels = phase_times(main_path, worst)
-    kernels.append(phase_flash_times({SERVE["arch"]: serving,
-                                      MOE_SERVE["arch"]: moe}, worst))
+    flash_entry = phase_flash_times({SERVE["arch"]: serving,
+                                     MOE_SERVE["arch"]: moe}, worst)
+    kernels.append(flash_entry)
     ssd_entry = phase_ssd_times(mamba, worst)
     kernels.append(ssd_entry)
     phase_examples()
@@ -3973,6 +4491,20 @@ def main() -> int:
         "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
         "library_ms": None, "ptxas": mtrain["ptxas"],
         "per_shape": mtrain["per_shape"]})
+    production = phase_production_cells()
+    for entry in (flash_entry, ssd_entry):
+        by_path = entry.setdefault("launches_by_path", {})
+        for arch, cell in production.items():
+            if cell["kernel"] != entry["name"]:
+                continue
+            for name in ("prefill", "decode"):
+                by_path[f"{arch} {name}_32k bfloat16"] = \
+                    cell[name]["launches"]
+                entry["launches"] += cell[name]["launches"]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *cell["layer_err"].values(),
+                                       *cell["every_layer_err"])
+            entry["per_shape"].append(cell["times"])
     phase_dryrun()
     print(f"total wall: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"kernels": kernels}))

@@ -4,10 +4,12 @@
 and k, v (B, Hkv, S, D), float32 or bfloat16, and returns (B, Hq, S, D) in
 q's type.  A CPU tensor goes to the plain version in
 ``repro_torch.kernels.ref``; a CUDA tensor goes to one of two CUDA kernels
-(built for ``sm_90a`` at first use), or the call raises.  ``LAUNCHES`` counts
-the launches.  Both replace ``flash_attention_kernel`` /
-``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py:28``,
-``:79``); the route is chosen by the input type (``route``):
+(built for ``sm_90a`` at first use), or the call raises; a meta tensor gives
+the output's shape and type alone (``launch/cell_memory.py`` reckons a
+model's memory so).  ``LAUNCHES`` counts the launches.  Both kernels
+replace ``flash_attention_kernel`` / ``flash_attention_pallas``
+(``src/repro/kernels/flash_attention.py:28``, ``:79``); the route is chosen
+by the input type (``route``):
 
 * bfloat16, ``csrc/flash_attention_bf16.cu``: bound by the bytes at the
   serving shape (989 TFLOP/s of tensor-core math outruns 3.35 TB/s).  A
@@ -115,7 +117,7 @@ def _check(q, k, v, swa_window=None) -> None:
         if t.dtype not in SOURCES:
             raise TypeError(f"{name} must be float32 or bfloat16, got "
                             f"{t.dtype}")
-        if t.device.type not in ("cpu", "cuda"):
+        if t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{name} on unsupported device {t.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v differ in dtype: {q.dtype}, {k.dtype}, "
@@ -194,6 +196,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    swa_window=swa_window)
+    if q.device.type == "meta":     # shapes only: nothing is launched
+        return torch.empty_like(q)
     if q.shape[0] == 0 or q.shape[1] == 0 or q.shape[2] == 0:
         return torch.empty_like(q)
     q, k, v = prepare(q), prepare(k), prepare(v)

@@ -34,25 +34,31 @@ SSD_BWD_CHUNK = 32  # rows of a chunk in the CUDA SSD backward kernels
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, swa_window=None) -> torch.Tensor:
-    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
+                        causal: bool = True, swa_window=None,
+                        q_start: int = 0) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, S, D) -> (B, Hq, Sq, D) in q's dtype;
+    Sq = S unless ``q_start`` says otherwise.
 
-    Materialises the (S, S) scores in float32, masks them with the finite
+    Materialises the (Sq, S) scores in float32, masks them with the finite
     -1e30 (causal; ``swa_window`` falsy means no window) and takes a float32
-    softmax; kv head = q head // (Hq / Hkv).
+    softmax; kv head = q head // (Hq / Hkv).  With ``q_start``, q holds
+    only the queries at positions ``q_start`` .. ``q_start + Sq - 1`` of the
+    S keys (some rows of a long sequence's output, without its (S, S)
+    scores).
     """
-    s, d = q.shape[2], q.shape[3]
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
     rep = q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) \
         * (1.0 / math.sqrt(d))
-    pos = torch.arange(s, device=q.device)
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    q_pos = q_start + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
-        ok &= pos[None, :] <= pos[:, None]
+        ok &= k_pos[None, :] <= q_pos[:, None]
     if swa_window:
-        ok &= pos[None, :] > pos[:, None] - swa_window
+        ok &= k_pos[None, :] > q_pos[:, None] - swa_window
     scores = torch.where(ok, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

@@ -265,7 +265,11 @@ def _embed_inputs(params, cfg: ArchConfig, batch) -> tuple:
     """Returns (x (B,S,d), positions (B,S)) handling frontends."""
     x = embed_tokens(params["embed"], batch["tokens"])
     if cfg.frontend == "patch":
-        patches = tp_matmul(batch["patch_embeds"], params["patch_proj"])
+        # the product in the promoted type, as the reference's ``@``
+        # promotes float32 patches against bfloat16 weights
+        pe, w = batch["patch_embeds"], params["patch_proj"]
+        t = torch.promote_types(pe.dtype, w.dtype)
+        patches = tp_matmul(pe.to(t), w.to(t))
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     x = _pin_batch(cfg, x)
     b, s = x.shape[0], x.shape[1]

@@ -1,0 +1,126 @@
+"""What the production-cell phase of ``chip_smoke.py`` stands on, on the CPU.
+
+* ``kernels.ref.flash_attention_ref`` with ``q_start`` gives rows of the
+  full output without its (S, S) scores: the phase and the 32k card test
+  hold the kernel's last queries against it.
+* The flash wrapper on meta tensors gives its output's shape and type and
+  launches nothing, as the SSD wrapper does.
+* ``launch/cell_memory.py`` reckons a cell's bytes from shapes: its
+  weights and cache equal what ``init_params`` and ``prefill`` allocate on
+  the CPU, its peak holds them, its inputs are the reference's
+  ``launch/specs.py`` prefill inputs, and ``largest_batch`` takes the
+  largest power of two that fits.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jget_arch
+from repro.configs import SHAPES as JSHAPES
+from repro.launch import specs as jspecs
+from repro_torch.configs import SHAPES, get_arch, smoke_config
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.launch import cell_memory as cm
+from repro_torch.models import transformer as T
+from repro_torch.tree import tree_leaves
+
+
+@pytest.mark.parametrize("hq,hkv,causal,window,start,n", [
+    (4, 4, True, None, 0, 16), (4, 2, True, None, 40, 24),
+    (6, 1, True, 9, 17, 31), (2, 2, False, None, 8, 8)])
+def test_flash_ref_rows_equal_the_full_outputs_rows(hq, hkv, causal, window,
+                                                    start, n):
+    g = torch.Generator().manual_seed(hq + start)
+    s, d = 64, 16
+    q, k, v = (torch.randn((2, h, s, d), generator=g)
+               for h in (hq, hkv, hkv))
+    full = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   swa_window=window)
+    # causal rows need keys only up to their last position
+    end = start + n if causal else s
+    got = ref.flash_attention_ref(q[:, :, start:start + n], k[:, :, :end],
+                                  v[:, :, :end], causal=causal,
+                                  swa_window=window, q_start=start)
+    torch.testing.assert_close(got, full[:, :, start:start + n], rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_on_meta_gives_shapes_and_launches_nothing(dtype):
+    q = torch.empty((2, 8, 128, 64), dtype=dtype, device="meta")
+    kv = torch.empty((2, 2, 128, 64), dtype=dtype, device="meta")
+    fa.reset_launches()
+    out = fa.flash_attention_cuda(q, kv, kv)
+    assert out.device.type == "meta" and out.dtype == dtype
+    assert out.shape == q.shape
+    assert fa.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "qwen2-moe-a2.7b",
+                                  "musicgen-large", "pixtral-12b"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_reckon_counts_the_weights_and_cache_prefill_allocates(arch, kind):
+    cfg = smoke_config(arch, attn_impl_train="pallas")
+    cell = ShapeCell("small", kind, 64, 8)
+    rows = 2
+    got = cm.reckon(cfg, cell, rows)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           dtype=torch.bfloat16, device="cpu")
+    steps = cm.DECODE_STEPS if kind == "decode" else 0
+    batch = cm.prefill_inputs(cfg, rows, cell.seq_len - steps, "cpu",
+                              torch.Generator().manual_seed(0))
+    _, cache = T.prefill(params, cfg, batch, cell.seq_len,
+                         dtype=torch.bfloat16)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+    assert got["params"] == nbytes(params)
+    assert got["cache"] == nbytes(cache["blocks"])
+    assert got["cache"] < got["peak"] and got["total"] == (got["params"]
+                                                         + got["peak"])
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large", "olmo-1b"])
+def test_prefill_inputs_are_the_reference_specs(arch):
+    """At the production cell's own shapes (on meta): the reference's
+    ``prefill_input_specs``, patches in bfloat16 ahead of the text."""
+    cfg, cell = get_arch(arch), SHAPES["prefill_32k"]
+    want = jspecs.prefill_input_specs(jget_arch(arch),
+                                      JSHAPES["prefill_32k"])
+    got = cm.prefill_inputs(cfg, cell.global_batch, cell.seq_len, "meta")
+    assert set(got) == set(want)
+    for key, spec in want.items():
+        assert tuple(got[key].shape) == tuple(spec.shape)
+        assert str(got[key].dtype).removeprefix("torch.") == \
+            jnp.dtype(spec.dtype).name
+
+
+def test_largest_batch_takes_the_largest_power_of_two_that_fits():
+    cfg = smoke_config("olmo-1b", attn_impl_train="pallas")
+    cell = ShapeCell("small", "prefill", 64, 8)
+    totals = {r: cm.reckon(cfg, cell, r)["total"] for r in (1, 2, 4, 8)}
+    assert totals[1] < totals[2] < totals[4] < totals[8]
+    assert cm.largest_batch(cfg, cell, totals[8])[0] == 8
+    assert cm.largest_batch(cfg, cell, totals[4] + 1)[0] == 4
+    rows, got = cm.largest_batch(cfg, cell, totals[2])
+    assert rows == 2 and got["total"] == totals[2]
+    assert cm.largest_batch(cfg, cell, totals[1] - 1) == (0, None)
+    assert np.isfinite(totals[8])
+
+
+@pytest.mark.parametrize("arch", list(cm.ROWS))
+def test_rows_are_the_largest_batch_that_fits(arch):
+    """``ROWS``, the rows ``chip_smoke.py`` runs, is what ``largest_batch``
+    gives at the production cells' own shapes (on meta), in both cells:
+    those rows fit the budget and twice as many do not."""
+    cfg = get_arch(arch, attn_impl_train="pallas")
+    rows = cm.ROWS[arch]
+    for name in ("prefill_32k", "decode_32k"):
+        cell = SHAPES[name]
+        assert rows < cell.global_batch
+        assert cm.reckon(cfg, cell, rows)["total"] <= cm.BUDGET_BYTES
+        assert cm.reckon(cfg, cell, 2 * rows)["total"] > cm.BUDGET_BYTES

@@ -28,7 +28,11 @@ quantization step, and a sharded smoke olmo-1b prefill launching the flash
 kernel once a layer on its local heads, its logits and next decode step
 equal to the plain path's on the card within 1e-5.  The flash and SSD
 wrappers (the backward too) on a batch of no rows, what a rank of an uneven
-batch split holds: empty outputs and gradients, no launch.
+batch split holds: empty outputs and gradients, no launch.  The production
+cells' shapes (prefill_32k, bfloat16): the SSD at mamba2-1.3b's 32 rows of
+32,768 positions (2**32 elements of x), its last row bit-identical to the
+row run alone; flash attention at olmo-1b's heads and 32,768 positions,
+its last 256 queries within 2e-2 of the plain version.
 """
 import dataclasses
 
@@ -1084,3 +1088,68 @@ def test_cuda_kernels_on_zero_rows_launch_nothing(cuda, dtype):
             assert not grad.any()
     torch.cuda.synchronize()
     assert (dict(fa.LAUNCHES), dict(ss.LAUNCHES)) == before
+
+
+def test_cuda_ssd_scan_bf16_last_of_32_rows_at_32k_equals_the_row_alone(
+        cuda):
+    """mamba2-1.3b's SSD at the prefill_32k cell's full batch, 32 rows of
+    32,768 positions, 64 heads of 64 and d_state 128 in bfloat16: x holds
+    2**32 elements, so an element offset taken in 32 bits would wrap in the
+    last rows.  The last row's y and state equal, bit for bit, the same row
+    run alone (the kernels compute each row on its own), and that row
+    agrees with the plain chunked version."""
+    b, s, h, g, p, n = 32, 32768, 64, 1, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((b, s, h * p), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).reshape(b, s, h, p)
+    assert x.numel() >= 2 ** 32
+    dt = 0.01 + 0.49 * torch.rand((b, s, h), generator=gen, device=cuda)
+    a_log = 2 * torch.rand(h, generator=gen, device=cuda) - 1
+    bc = torch.randn((b, s, 2 * g * n), generator=gen, device=cuda,
+                     dtype=torch.bfloat16)
+    bm = bc[..., :g * n].reshape(b, s, g, n)
+    cm = bc[..., g * n:].reshape(b, s, g, n)
+    ss.reset_launches()
+    y, state = ss.ssd_scan_cuda(x, dt, a_log, bm, cm, final_state=True)
+    last = (x[-1:], dt[-1:], a_log, bm[-1:], cm[-1:])
+    y1, state1 = ss.ssd_scan_cuda(*last, final_state=True)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == 2
+    assert torch.equal(y[-1:], y1) and torch.equal(state[-1:], state1)
+    want_y, want_state = ref.ssd_chunked_ref(*last, chunk=256)
+    torch.testing.assert_close(y1.float(), want_y.float(), rtol=5e-2,
+                               atol=5e-2)
+    torch.testing.assert_close(state1, want_state, rtol=5e-2, atol=5e-2)
+
+
+def test_cuda_flash_attention_bf16_at_32k_matches_plain_on_last_queries(
+        cuda):
+    """olmo-1b's heads at the prefill_32k length, bfloat16, causal, as the
+    model's (B, H, S, D) views: 256 query tiles a head, each kv tile's
+    bounds and the L2 head grouping in a regime no shorter run reaches.
+    The last 256 queries (those that attend over every key) against the
+    plain version, which takes them alone (``q_start``) rather than
+    materialising the (S, S) scores.  Over 32k keys of random inputs a
+    query's output is a near-even mean of V, of about 0.01, below the
+    absolute tolerance; so it is also held within 2 bfloat16 steps of
+    those queries' largest |output|, where a kv tile left out or counted
+    twice shows."""
+    b, h, s, d = 1, 16, 32768, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda,
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    fa.reset_launches()
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    start = s - 256
+    want = ref.flash_attention_ref(q[:, :, start:], k, v, causal=True,
+                                   q_start=start)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got[:, :, start:].float(), want.float(),
+                               rtol=2e-2, atol=2e-2)
+    top = float(want.float().abs().max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)
+    err = float((got[:, :, start:].float() - want.float()).abs().max())
+    assert err <= 2 * step, (err, step, top)
