@@ -144,7 +144,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      at (8, 256) and (8, 1024) tokens beside their bound, the plain
      version, and each kernel's registers, spills, shared memory and CTAs
      an SM;
- 19. the reference's production cells in bfloat16 (configs/shapes.py;
+ 19. the reference's train_4k cell in bfloat16 (configs/shapes.py;
+     launch/dryrun.py runs it on meta): olmo-1b and mamba2-1.3b at full
+     width, bfloat16 weights from a seed and moments at the config's
+     opt_dtype, at the rows of the cell's 256 one card holds
+     (launch/cell_memory.py's TRAIN_ROWS, reckoned from shapes) of 4,096
+     packed tokens, make_train_step with the arch's TRAIN_MICROBATCHES,
+     four steps on one batch: losses finite and falling, the leaves'
+     dtypes kept, no kernel wrapper launched for olmo-1b (attention trains
+     through chunked), 96 x m ssd_scan and 48 x m ssd_scan_bwd launches a
+     step for mamba2-1.3b, every call on bfloat16 inputs, layers 0 and
+     47's bfloat16 SSD backward on the step's real inputs and cotangents
+     against the plain version's, the backward kernels timed at that shape
+     beside their bound; step walls, tokens/s, model TFLOP/s, and each
+     step's peak under 80 GB and beside cell_memory.reckon's;
+ 20. the reference's production cells in bfloat16 (configs/shapes.py;
      launch/dryrun.py runs them on meta): olmo-1b, mamba2-1.3b,
      qwen2-moe-a2.7b, musicgen-large and pixtral-12b, each at full width
      with bfloat16 weights from a seed, at the rows of the cells' global
@@ -161,7 +175,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      launch in decode, one step traced, the first step's logits against
      the plain path's; walls, peaks under 80 GB, and each kernel timed at
      its cell's shape beside its bound;
- 20. the dry run (launch/dryrun.py) of olmo-1b train_4k at its two
+ 21. the dry run (launch/dryrun.py) of olmo-1b train_4k at its two
      microbatches, mamba2-1.3b train_4k, qwen2-moe-a2.7b train_4k on the
      512-rank mesh (one microbatch each), jamba long_500k, olmo-1b
      long_500k (the reference's skip), olmo-1b prefill_32k on the 512-rank
@@ -194,6 +208,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -237,7 +252,8 @@ from repro_torch.launch import (cell_memory, dryrun,  # noqa: E402
 from repro_torch.launch.block_stats_timing import (  # noqa: E402
     event_ms, traced)
 from repro_torch.launch.mesh import make_mesh, mesh_shape_dict  # noqa: E402
-from repro_torch.launch.optconfig import build_cfg  # noqa: E402
+from repro_torch.launch.optconfig import (  # noqa: E402
+    TRAIN_MICROBATCHES, build_cfg)
 from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -271,6 +287,7 @@ from repro_torch.serve import ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serving import (check_serving_conservation,  # noqa: E402
                                  run_serving)
 from repro_torch.train import TrainConfig, Trainer, make_train_step  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.tree import flatten as tree_flatten  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -361,6 +378,17 @@ SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # steps of lr 1e-3 absolute (AdamW moves every weight by about lr whatever
 # its gradient's size, so a gradient near its eps moves by a visible share;
 # a tenth of one step bounds that)
+# the reference's train_4k cell (configs/shapes.py; launch/dryrun.py:53-70)
+# in bfloat16 at the rows one card holds (launch/cell_memory.py:TRAIN_ROWS,
+# reckoned from shapes): moments at cfg.opt_dtype, TRAIN_MICROBATCHES of the
+# arch, four steps on one repeated batch (so the loss must fall)
+TRAIN_4K = dict(steps=4, seed=0)
+# a step's device memory peak against cell_memory.reckon's (weights,
+# moments and what the step makes, from shapes): within this many bytes
+# either way (the allocator's rounding, cuBLAS' workspaces, the packed
+# batch), and above it the SSD backward's float32 scratch too
+# (ssd_scan.bwd_scratch_bytes), which the meta reckoning does not see
+TRAIN_4K_PEAK_MARGIN = 2e9
 SMOKE_GRAD_TOL = 5e-5
 SMOKE_TRAIN_TOL = 1e-5
 SMOKE_WEIGHT_TOL = 1e-4
@@ -2035,10 +2063,11 @@ def decode_profile(params, cfg, tok, cache, top: int = 8) -> None:
 
 
 def step_profile(fn, untraced_s: float, label: str, top: int = 8) -> tuple:
-    """(``fn()``, device seconds or None) of one decode step ``fn`` traced
-    by torch.profiler; prints the device's busy share of ``untraced_s``
-    (its kernels' time over an untraced step's wall) and the ops whose
-    kernels take the most device time."""
+    """(``fn()``, device seconds or None) of one step ``fn`` (a decode
+    step, a training microbatch) traced by torch.profiler; prints the
+    device's busy share of ``untraced_s`` (its kernels' time over an
+    untraced step's wall) and the ops whose kernels take the most device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2606,9 +2635,12 @@ class RecordingTrainer(Trainer):
 
 
 def packed_batch(cfg, batch: int, seq_len: int) -> dict:
-    """Block 0 of the trainer's default dataset, packed, on the card."""
-    ds = BlockDataset(n_blocks=1, records_per_block=512, max_len=128,
-                      vocab=cfg.vocab, seed=0)
+    """Block 0 of the trainer's default dataset, packed, on the card: its
+    512 records of up to 128 tokens, or for a larger batch records enough
+    to fill it (twice its tokens at 128 a record; they average 80)."""
+    ds = BlockDataset(n_blocks=1,
+                      records_per_block=max(512, 2 * batch * seq_len // 128),
+                      max_len=128, vocab=cfg.vocab, seed=0)
     packed = pack_tokens(ds.block(0)["tokens"], batch, seq_len)
     return {"tokens": torch.from_numpy(packed.tokens).cuda(),
             "labels": torch.from_numpy(packed.labels).cuda()}
@@ -3027,6 +3059,265 @@ def ssd_bwd_times(sc, by_dtype: dict) -> dict:
     print(f"    {ss.BWD_DEVICE_KERNELS} device kernels a call")
     return {"per_shape": per_shape, "ptxas": usage, "occupancy": occ,
             "max_err": by_dtype}
+
+
+FLOAT32_LEAVES = ("a_log", "dt_bias", "d_skip", "router")
+
+
+def leaf_dtypes(tree) -> dict:
+    return {k: str(v.dtype)[6:] for k, v in tree_flatten(tree).items()}
+
+
+def check_train_dtypes(params, opt, cfg, steps: int, label: str) -> None:
+    """bfloat16 weights but the float32 ``a_log``, ``dt_bias``, ``d_skip``
+    and router (``init_params(dtype=torch.bfloat16)``, the reference's
+    leaf dtypes), moments at ``cfg.opt_dtype``, the step counter int32."""
+    got = leaf_dtypes(params)
+    want = {k: "float32" if k.split(SEP)[-1] in FLOAT32_LEAVES
+            else "bfloat16" for k in got}
+    check(got == want, f"{label}: weight dtypes {got}")
+    for name in ("m", "v"):
+        check(set(leaf_dtypes(opt[name]).values()) == {cfg.opt_dtype},
+              f"{label}: {name} in {set(leaf_dtypes(opt[name]).values())}")
+    check(opt["step"].dtype == torch.int32 and int(opt["step"]) == steps,
+          f"{label}: step counter {opt['step']}")
+
+
+def train_4k_cell(arch: str) -> dict:
+    """One arch's train_4k step (see ``phase_train_4k``)."""
+    free_device_memory()
+    cell = SHAPES["train_4k"]
+    cfg = get_arch(arch)
+    rows, m = cell_memory.TRAIN_ROWS[arch], TRAIN_MICROBATCHES[arch]
+    seq, steps = cell.seq_len, TRAIN_4K["steps"]
+    mamba = cfg.ssm is not None
+    check(cfg.attn_impl_train == "chunked" and cfg.remat,
+          f"{arch} does not train as the reference's config does")
+    tokens = rows * seq
+    flops = T.model_flops(cfg, tokens, seq)
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_4K["seed"])
+    params = T.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_dtype)
+    opt = adamw_init(params, opt_cfg)
+    check_train_dtypes(params, opt, cfg, 0, f"{arch} train_4k at init")
+    batch = packed_batch(cfg, rows, seq)
+    nonpad = int((batch["tokens"] != 0).sum())
+    step = make_train_step(cfg, opt_cfg, num_microbatches=m)
+    print(f"train_4k: {arch} ({cfg.n_layers} layers, d_model {cfg.d_model},"
+          f" vocab {cfg.vocab}, remat, attention {cfg.attn_impl_train}), "
+          f"{int(cfg.param_count())} bfloat16 parameters (random, seed "
+          f"{TRAIN_4K['seed']}), moments {cfg.opt_dtype}; {rows} rows of the"
+          f" cell's {cell.global_batch} x {seq} tokens "
+          f"(launch/cell_memory.py:TRAIN_ROWS), {nonpad} of {tokens} "
+          f"tokens not padding, {m} microbatches (TRAIN_MICROBATCHES); "
+          f"{steps} steps on the one batch")
+    # every SSD call's input dtypes, and layers 0 and last's inputs and
+    # cotangents in microbatch 0 of step 0
+    last = cfg.n_layers - 1
+    rec = SsdGradRecorder((0, last))
+    fwd_types, bwd_types = collections.Counter(), collections.Counter()
+    bwd = ss.ssd_scan_bwd_cuda
+
+    def fwd_spy(*args, **kw):
+        fwd_types[tuple(str(a.dtype)[6:] for a in (args[0], args[3],
+                                                   args[4]))] += 1
+        return (rec if rec.n < 2 * cfg.n_layers else ss.ssd_scan_cuda)(
+            *args, **kw)
+
+    def bwd_spy(*args):
+        bwd_types[tuple(str(args[i].dtype)[6:] for i in (0, 3, 4, 5))] += 1
+        return bwd(*args)
+
+    losses, gnorms, walls, peaks, counts = [], [], [], [], []
+    micro_walls, update_walls = [], []
+    M.ssd_scan_cuda, ss.ssd_scan_bwd_cuda = fwd_spy, bwd_spy
+    try:
+        with StepSplit() as split:
+            for i in range(steps):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                split.marks.clear()
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                check(len(split.marks) == m + 1, f"{arch}: step {i} entered "
+                      f"loss_fn and the clip {len(split.marks)} times, "
+                      f"expected {m + 1}")
+                counts.append(launches())
+                peaks.append(torch.cuda.max_memory_allocated())
+                walls.append(t1 - t0)
+                micro_walls.append([b - a for a, b in zip(split.marks,
+                                                          split.marks[1:])])
+                update_walls.append(t1 - split.marks[-1])
+                losses.append(float(metrics["loss"]))
+                gnorms.append(float(metrics["grad_norm"]))
+                wall = walls[-1]
+                print(f"    step {i}: loss {losses[-1]:.6f}, grad norm "
+                      f"{gnorms[-1]:.6f}, wall {wall:.6f} s = "
+                      f"{split.marks[0] - t0:.6f} s before microbatch 0 + "
+                      f"{m} microbatches (forward, backward, float32 sum) "
+                      + " + ".join(f"{t:.6f}" for t in micro_walls[-1])
+                      + f" s + update (clip, AdamW) {update_walls[-1]:.6f}"
+                      f" s; {tokens / wall:.1f} tokens/s, "
+                      f"{flops / wall / 1e12:.3f} model TFLOP/s "
+                      f"({flops * 4 / 3 / wall / 1e12:.3f} with remat), "
+                      f"peak {peaks[-1] / 1e9:.3f} GB, launches "
+                      f"{json.dumps(counts[-1])}")
+    finally:
+        M.ssd_scan_cuda, ss.ssd_scan_bwd_cuda = ss.ssd_scan_cuda, bwd
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"{arch}: losses {losses}, grad norms {gnorms}")
+    check(losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses}")
+    check_train_dtypes(params, opt, cfg, steps, f"{arch} train_4k")
+    micro_s = statistics.median(t for w in micro_walls[1:] for t in w)
+    update_s = statistics.median(update_walls[1:])
+    mb = {k: v[:rows // m] for k, v in batch.items()}
+
+    def microbatch():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = T.loss_fn(leaves, cfg, mb)
+        return torch.autograd.grad(loss, tree_leaves(leaves))
+    _, busy_s = step_profile(microbatch, micro_s, f"{arch} train_4k: one "
+                             f"microbatch ({rows // m} x {seq} tokens) "
+                             "forward and backward, traced against the "
+                             "median untraced microbatch of steps 1-")
+    del params, opt, _
+    want = dict.fromkeys(counts[0], 0)
+    if mamba:
+        want.update(ssd_scan=2 * cfg.n_layers * m,
+                    ssd_scan_bwd=cfg.n_layers * m)
+    check(all(c == want for c in counts), f"{arch}: launches a step "
+          f"{counts}, expected {want}" + ("" if mamba else ": attention "
+                                          "trains through chunked"))
+    check(set(fwd_types) <= {("bfloat16",) * 3}
+          and set(bwd_types) <= {("bfloat16",) * 4}
+          and sum(fwd_types.values()) == steps * want["ssd_scan"]
+          and sum(bwd_types.values()) == steps * want["ssd_scan_bwd"],
+          f"{arch}: SSD calls by input dtypes {dict(fwd_types)}, backward "
+          f"{dict(bwd_types)}")
+    timed = sorted(walls[1:])
+    wall = timed[len(timed) // 2]
+    out = {"rows": rows, "microbatches": m, "tokens": tokens,
+           "nonpad": nonpad, "losses": losses, "grad_norms": gnorms,
+           "walls": walls, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "model_tflops": flops / wall / 1e12, "peaks": peaks,
+           "microbatch_walls": micro_walls, "update_walls": update_walls,
+           "microbatch_s": micro_s, "update_s": update_s,
+           "microbatch_busy_s": busy_s,
+           "launches_per_step": counts[0],
+           "launches": {k: sum(c[k] for c in counts) for k in counts[0]}}
+    print(f"  {arch} train_4k: median step wall (steps 1-{steps - 1}) "
+          f"{wall:.6f} s, {tokens / wall:.1f} tokens/s, "
+          f"{flops / wall / 1e12:.3f} model TFLOP/s; median microbatch "
+          f"{micro_s:.6f} s (x {m} = {m * micro_s:.6f} s), median update "
+          f"{update_s:.6f} s; peaks "
+          + ", ".join(f"{p / 1e9:.3f}" for p in peaks) + " GB; SSD calls by "
+          f"input dtypes {dict(fwd_types)}, backward {dict(bwd_types)}")
+    if mamba:
+        out.update(train_4k_ssd_checks(cfg, rec))
+    scratch = ss.bwd_scratch_bytes(rows // m, seq, cfg.ssm.n_heads,
+                                   cfg.ssm.n_groups, cfg.ssm.head_dim,
+                                   cfg.ssm.d_state) if mamba else 0
+    got = out["reckoned"] = cell_memory.reckon(cfg, cell, rows)
+    peak = max(peaks[1:])
+    low = got["total"] - TRAIN_4K_PEAK_MARGIN
+    high = got["total"] + TRAIN_4K_PEAK_MARGIN + scratch
+    print(f"  {arch} train_4k peak {peak / 1e9:.3f} GB (steps 1-; step 0, "
+          f"SSD inputs recorded: {peaks[0] / 1e9:.3f}), reckoned "
+          f"{got['total'] / 1e9:.3f} GB (weights {got['params'] / 1e9:.3f}, "
+          f"optimizer state {got['opt'] / 1e9:.3f}, made "
+          f"{got['peak'] / 1e9:.3f}); within [{low / 1e9:.3f}, "
+          f"{high / 1e9:.3f}]: {low <= peak <= high}")
+    check(max(peaks) < 80e9,
+          f"{arch}: a step needed {max(peaks) / 1e9:.3f} GB")
+    check(low <= peak <= high, f"{arch}: peak {peak} B against the "
+          f"reckoned {got['total']} B")
+    return out
+
+
+class StepSplit:
+    """Marks where each microbatch of a train step begins (``T.loss_fn``
+    entered) and where its update begins (``clip_by_global_norm``
+    entered), each after a device synchronise, in ``marks``: a step of m
+    microbatches leaves m + 1 marks."""
+
+    def __enter__(self):
+        self.marks: list = []
+        self.saved = T.loss_fn, train_loop.clip_by_global_norm
+
+        def mark(fn):
+            def spy(*args, **kw):
+                torch.cuda.synchronize()
+                self.marks.append(time.perf_counter())
+                return fn(*args, **kw)
+            return spy
+        T.loss_fn, train_loop.clip_by_global_norm = map(mark, self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        T.loss_fn, train_loop.clip_by_global_norm = self.saved
+
+
+def train_4k_ssd_checks(cfg, rec: SsdGradRecorder) -> dict:
+    """Layers 0 and last's SSD backward in microbatch 0 of step 0, on the
+    step's real inputs and cotangents, against autograd of the plain
+    chunked version in bfloat16; then the backward kernels timed on layer
+    0's inputs beside the bound and the plain version."""
+    layer_err, shape = {}, None
+    for i, call in sorted(rec.calls.items()):
+        check("dy" in call, f"layer {i}'s SSD got no cotangent")
+        args, dy = call["args"], call["dy"]
+        x, bm = args[0], args[3]
+        shape = [*x.shape[:3], bm.shape[2], x.shape[3], bm.shape[3]]
+        got = ss.ssd_scan_bwd_cuda(*args, dy, None)
+        want = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=call["chunk"])
+        errs = layer_err[i] = grads_err(got, want)
+        del got, want
+        print(f"  layer {i} bfloat16 SSD backward at (B,S,H,G,P,N)="
+              f"{tuple(shape)}, kernel vs the plain version's bfloat16 "
+              "gradients on its real inputs and cotangent: " + ", ".join(
+                  f"{k} {e['err']:.3g} of {e['scale']:.4g}"
+                  for k, e in errs.items())
+              + f" (tol {SSD_BWD_TOL[torch.bfloat16]} of it)")
+        check(all(e["ok"] for e in errs.values()),
+              f"layer {i}: the bfloat16 backward differs: {errs}")
+    call = rec.calls[0]
+    args, dy = tuple(call["args"]), call["dy"]
+    del rec
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    t = ssd_bwd_timing.time_shape(args, dy, flush)
+    plain_ms = event_ms(lambda: ref.ssd_chunked_bwd_ref(
+        *args, dy, None, chunk=call["chunk"]), flush)
+    print(f"  ssd_scan_bwd bfloat16 at the train_4k microbatch's "
+          f"(B,S,H,G,P,N)={tuple(shape)} on layer 0's inputs: kernels "
+          f"{t['ms']:.6f} ms, autograd of the plain chunked version "
+          f"{plain_ms:.6f} ms, bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']}: {t['flops']} FLOP, {t['bytes']} bytes) = "
+          f"{100 * t['bound_ms'] / t['ms']:.4f}% of the bound; "
+          + ", ".join(f"{k} {us:.3f} us" for k, us in
+                      t["kernels_us"].items()))
+    return {"layer_err": layer_err,
+            "times": {"path": f"{cfg.name} train_4k bfloat16",
+                      "dtype": "bfloat16", "shape": shape,
+                      "plain_ms": plain_ms, "library_ms": None, **t}}
+
+
+def phase_train_4k() -> dict:
+    """The reference's train_4k cell in bfloat16 (``launch/dryrun.py:
+    _lower_cell``'s train branch, which the dry run runs on meta): olmo-1b
+    and mamba2-1.3b at full width, bfloat16 weights from a seed, moments
+    at ``opt_dtype``, ``TRAIN_ROWS`` rows of 4,096 tokens,
+    ``make_train_step`` with the arch's ``TRAIN_MICROBATCHES``, four steps
+    on one repeated batch: losses finite and falling, leaf dtypes kept,
+    olmo-1b launching no kernel wrapper (attention trains through
+    ``chunked``), mamba2-1.3b 96 m ``ssd_scan`` and 48 m ``ssd_scan_bwd``
+    launches a step, all on bfloat16 inputs, and layers 0 and 47's
+    backward against the plain version; step walls split into the
+    microbatches and the update, tokens/s, model TFLOP/s, one microbatch
+    traced, and each step's peak beside ``cell_memory.reckon``'s."""
+    return {arch: train_4k_cell(arch) for arch in cell_memory.TRAIN_ROWS}
 
 
 def training_report(trainer, res, cfg, tokens, flops, n_params, run_s
@@ -4476,7 +4767,7 @@ def main() -> int:
     ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"],
                                    mtrain["fwd_max_abs_err"])
     main_bwd = mtrain["per_shape"][0]       # the training step's shape
-    kernels.append({
+    bwd_entry = {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/" + ss.BWD_SOURCE,
         "replaces": KERNELS["ssd_scan_bwd"],
@@ -4490,7 +4781,17 @@ def main() -> int:
         "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
         "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
         "library_ms": None, "ptxas": mtrain["ptxas"],
-        "per_shape": mtrain["per_shape"]})
+        "per_shape": mtrain["per_shape"]}
+    kernels.append(bwd_entry)
+    train_4k = phase_train_4k()["mamba2-1.3b"]
+    path = "mamba2-1.3b train_4k bfloat16"
+    for entry in (ssd_entry, bwd_entry):
+        n = train_4k["launches"][entry["name"]]
+        entry.setdefault("launches_by_path", {})[path] = n
+        entry["launches"] += n
+    for errs in train_4k["layer_err"].values():
+        fold_errs(bwd_entry["max_err_by_dtype"], torch.bfloat16, errs)
+    bwd_entry["per_shape"].append(train_4k["times"])
     production = phase_production_cells()
     for entry in (flash_entry, ssd_entry):
         by_path = entry.setdefault("launches_by_path", {})

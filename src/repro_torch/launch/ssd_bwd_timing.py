@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 import repro_torch
-from repro_torch.device import F32_FLOPS, HBM_BYTES_PER_S
+from repro_torch.device import BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.launch.block_stats_timing import event_ms, traced
 
@@ -56,23 +56,53 @@ def inputs(rng, b: int, s: int, dev, dtype=torch.float32) -> tuple:
             normal(b, s, h, p))
 
 
+def op_seconds(s: int, p: int, n: int, dtype=torch.float32) -> tuple:
+    """(seconds, float32 operations, bfloat16 operations, chunk length L)
+    a (token, head) of the least backward ``ss.flops_per_token_head``
+    counts, each operation at the peak rate of its operands' type and L
+    the one in 1..S that makes the time least.  With float32 inputs every
+    product runs at the float32 rate (L 8 at P = 64, N = 128).  With
+    bfloat16 inputs the products of two bfloat16 operands run at the
+    bfloat16 rate: the two state-size products of the inputs (the state
+    recomputed, the sum of u_j B_j^T, and its cotangent, the sum of dy_i
+    C_i^T; 4 P N) and the (L + 1)(2 P + 3 N) of the causal pairs (C_i.B_j,
+    dy_i.u_j, and their shares of du, dC and dB, a bfloat16 input times a
+    pair weight rounded to bfloat16 as flash attention rounds its
+    probabilities).  The products that read the float32 state or its
+    cotangent run at the float32 rate: the inter-chunk terms of dC, du and
+    dB (6 P N) and the chunk's decays and d a's state term (4 P N / L),
+    since the states stay float32, as the reference keeps them."""
+    if dtype == torch.float32:
+        per, chunk = ss.flops_per_token_head(s, p, n)
+        return per / F32_FLOPS, per, 0.0, chunk
+
+    def split(L: int) -> tuple:
+        f32 = 6 * p * n + 4 * p * n / L
+        bf16 = 4 * p * n + (L + 1) * (2 * p + 3 * n)
+        return f32 / F32_FLOPS + bf16 / BF16_FLOPS, f32, bf16, L
+    return min((split(L) for L in range(1, s + 1)), key=lambda t: t[0])
+
+
 def bound(b: int, s: int, h: int, g: int, p: int, n: int,
           dtype=torch.float32) -> dict:
     """The least time (ms) an H100 could take for the SSD backward at this
-    shape, the larger of its operations (``ss.flops_per_token_head`` for
-    each of B S H (token, head)s) at the float32 rate (the sums are float32
-    whatever the input type) and its bytes (x, dy, dt, B, C and a_log read
-    once; dx, ddt, dB, dC and da_log written once; x, dy, dx, B, C, dB and
-    dC of ``dtype``, the rest float32) at the memory rate."""
-    per, chunk = ss.flops_per_token_head(s, p, n)
-    flops = int(round(per * b * s * h))
+    shape, the larger of its operations (``op_seconds`` for each of B S H
+    (token, head)s: ``flops`` of them, ``flops_bf16`` at the bfloat16
+    rate and the rest at the float32 rate) and its bytes (x, dy, dt, B, C
+    and a_log read once; dx, ddt, dB, dC and da_log written once; x, dy,
+    dx, B, C, dB and dC of ``dtype``, the rest float32) at the memory
+    rate."""
+    sec, f32, bf16, chunk = op_seconds(s, p, n, dtype)
+    tokens = b * s * h
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = (item * (3 * b * s * h * p + 4 * b * s * g * n)
               + 4 * (2 * b * s * h + 2 * h))
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = sec * tokens, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes, "bound_chunk": chunk}
+            "flops": int(round((f32 + bf16) * tokens)),
+            "flops_bf16": int(round(bf16 * tokens)), "bytes": nbytes,
+            "bound_chunk": chunk}
 
 
 def kernels_us(call, reps: int = 5) -> dict:

@@ -425,7 +425,9 @@ def _decode_core(q, k_new, v_new, cache: dict, *, pos: int, swa_window,
     qg = q.reshape(b, 1, g, hq // g, dh)
 
     length = (cache["k"] if "k" in cache else cache["k_q"]).shape[1]
-    slot = (pos % length) if swa_window else pos
+    # past the cache's end the reference's dynamic_update_slice clamps its
+    # start, so the step overwrites the last slot
+    slot = (pos % length) if swa_window else min(pos, length - 1)
     if "k_q" in cache:
         kq, ks = _quantize_kv(k_new)
         vq, vs = _quantize_kv(v_new)

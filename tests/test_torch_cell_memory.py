@@ -10,6 +10,12 @@
   the CPU, its peak holds them, its inputs are the reference's
   ``launch/specs.py`` prefill inputs, and ``largest_batch`` takes the
   largest power of two that fits.
+* The train cell (``train_4k``) is reckoned as the reference's
+  ``_lower_cell`` builds it: bfloat16 weights and moments at
+  ``cfg.opt_dtype``, held (handed in), one ``make_train_step`` step on a
+  ``train_input_specs`` batch, whose new trees are made; ``largest_batch``
+  keeps its rows divisible by the microbatches, and ``TRAIN_ROWS`` is what
+  it gives at the cell's own shapes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +30,9 @@ from repro_torch.configs.shapes import ShapeCell
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.launch import cell_memory as cm
+from repro_torch.launch.optconfig import TRAIN_MICROBATCHES
 from repro_torch.models import transformer as T
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.tree import tree_leaves
 
 
@@ -124,3 +132,70 @@ def test_rows_are_the_largest_batch_that_fits(arch):
         assert rows < cell.global_batch
         assert cm.reckon(cfg, cell, rows)["total"] <= cm.BUDGET_BYTES
         assert cm.reckon(cfg, cell, 2 * rows)["total"] > cm.BUDGET_BYTES
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b", "qwen2-moe-a2.7b",
+                                  "pixtral-12b", "jamba-1.5-large-398b"])
+def test_reckon_counts_the_weights_and_optimizer_state_a_train_step_holds(
+        arch):
+    """The weights and the optimizer state (moments at ``opt_dtype``: jamba
+    keeps bfloat16 ones) are what ``init_params`` and ``adamw_init``
+    allocate on the CPU, counted as held; the step makes new trees of
+    both, so its peak is at least their bytes again."""
+    cfg = smoke_config(arch)
+    got = cm.reckon(cfg, ShapeCell("small", "train", 64, 16), 16)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           dtype=torch.bfloat16, device="cpu")
+    opt = adamw_init(params, AdamWConfig(moment_dtype=cfg.opt_dtype))
+    assert got["params"] == _nbytes(params)
+    assert got["opt"] == _nbytes(opt)
+    assert got["cache"] == 0
+    assert got["peak"] >= got["params"] + got["opt"]
+    assert got["total"] == got["params"] + got["opt"] + got["peak"]
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-1.3b"])
+def test_a_train_cell_is_not_reckoned_as_a_prefill(arch):
+    """The same rows and length as a train cell and as a prefill: the train
+    cell holds an optimizer state and no cache, and its step (gradients,
+    new weights and moments) makes more than the prefill's forward and
+    cache."""
+    cfg = smoke_config(arch)
+    train = cm.reckon(cfg, ShapeCell("small", "train", 64, 8), 8)
+    prefill = cm.reckon(cfg, ShapeCell("small", "prefill", 64, 8), 8)
+    assert train["cache"] == 0 < train["opt"]
+    assert prefill["opt"] == 0 < prefill["cache"]
+    assert train["peak"] > prefill["peak"]
+
+
+def test_largest_train_batch_keeps_rows_divisible_by_the_microbatches():
+    """mamba2-1.3b takes 8 microbatches: 16 and 8 rows are tried, fewer
+    are not (the step refuses them)."""
+    cfg = smoke_config("mamba2-1.3b")
+    cell = ShapeCell("small", "train", 128, 16)
+    assert TRAIN_MICROBATCHES[cfg.name] == 8
+    totals = {r: cm.reckon(cfg, cell, r)["total"] for r in (8, 16)}
+    assert totals[8] < totals[16]
+    assert cm.largest_batch(cfg, cell, totals[16])[0] == 16
+    assert cm.largest_batch(cfg, cell, totals[8])[0] == 8
+    assert cm.largest_batch(cfg, cell, totals[8] - 1) == (0, None)
+    with pytest.raises(ValueError, match="not divisible into 8"):
+        cm.reckon(cfg, cell, 4)
+
+
+@pytest.mark.parametrize("arch", list(cm.TRAIN_ROWS))
+def test_train_rows_are_the_largest_batch_that_fits(arch):
+    """``TRAIN_ROWS``, the rows of ``chip_smoke.py``'s train_4k phase, is
+    what ``largest_batch`` gives at the cell's own shapes (on meta) with
+    the arch's ``TRAIN_MICROBATCHES``: they divide into the microbatches,
+    fit the budget, and twice as many do not."""
+    cfg, cell = get_arch(arch), SHAPES["train_4k"]
+    rows, m = cm.TRAIN_ROWS[arch], TRAIN_MICROBATCHES[arch]
+    assert rows % m == 0 and rows < cell.global_batch
+    assert cm.reckon(cfg, cell, rows)["total"] <= cm.BUDGET_BYTES
+    assert cm.reckon(cfg, cell, 2 * rows)["total"] > cm.BUDGET_BYTES

@@ -31,7 +31,8 @@ wrappers (the backward too) on a batch of no rows, what a rank of an uneven
 batch split holds: empty outputs and gradients, no launch.  The production
 cells' shapes (prefill_32k, bfloat16): the SSD at mamba2-1.3b's 32 rows of
 32,768 positions (2**32 elements of x), its last row bit-identical to the
-row run alone; flash attention at olmo-1b's heads and 32,768 positions,
+row run alone; the bfloat16 SSD backward at the train_4k microbatch's
+8 x 4,096 tokens against the plain version; flash attention at olmo-1b's heads and 32,768 positions,
 its last 256 queries within 2e-2 of the plain version.
 """
 import dataclasses
@@ -51,6 +52,7 @@ from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.launch import ssd_bwd_timing
 from repro_torch.launch.mesh import make_mesh, mesh_shape_dict
 from repro_torch.obs import StreamingMetrics, explain_energy, explain_miss
 from repro_torch.parallel import (batch_specs, distribute_tree,
@@ -1088,6 +1090,23 @@ def test_cuda_kernels_on_zero_rows_launch_nothing(cuda, dtype):
             assert not grad.any()
     torch.cuda.synchronize()
     assert (dict(fa.LAUNCHES), dict(ss.LAUNCHES)) == before
+
+
+def test_cuda_ssd_scan_bwd_bf16_at_train_4k_matches_plain_version(cuda):
+    """The backward kernels in bfloat16 at the shape mamba2-1.3b's train_4k
+    step gives them (a microbatch of 8 rows of 4,096 tokens, 64 heads of
+    64, d_state 128), as the model hands them in, against autograd of the
+    plain chunked version's bfloat16 gradients within 2e-2 of each one's
+    largest magnitude; a cotangent of y alone, as training brings."""
+    rng = np.random.default_rng(4096)
+    *ins, dy = ssd_bwd_timing.inputs(rng, 8, 4096, cuda, torch.bfloat16)
+    ss.reset_launches()
+    got = ss.ssd_scan_bwd_cuda(*ins, dy, None)
+    want = ref.ssd_chunked_bwd_ref(*ins, dy, None, chunk=256)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == {"ssd_scan": 0, "ssd_scan_bwd": 1}
+    assert [t.dtype for t in got] == [t.dtype for t in ins]
+    _grads_close(got, want)
 
 
 def test_cuda_ssd_scan_bf16_last_of_32_rows_at_32k_equals_the_row_alone(

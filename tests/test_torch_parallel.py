@@ -20,8 +20,10 @@
   pods; float within 1e-6), the int8 all-reduce within its analytic bound,
   expert-parallel MoE equal to plain, sharded smoke olmo-1b (train
   step, prefill, decode) and mamba2-1.3b (prefill, decode and a train
-  step) against the unsharded port, and the sharded loss and its
-  gradients against plain for a vocab-split, a d-split and an FSDP head.
+  step) against the unsharded port, decode steps past the end of a full
+  cache (float32 and int8) against the unsharded port, and the sharded
+  loss and its gradients against plain for a vocab-split, a d-split and an
+  FSDP head.
 """
 import dataclasses
 import json
@@ -417,6 +419,20 @@ def test_olmo_sharded_prefill_and_decode_match_unsharded(gloo_results):
         assert r["cache_local"] == [1, 2, 40, 2, 16]
         storage, shard = r["cache_storage"]     # allocated at its shard
         assert storage == shard == 1 * 2 * 40 * 2 * 16 * 4
+
+
+@pytest.mark.parametrize("cache", ["float", "int8"])
+def test_sharded_decode_past_the_cache_end_matches_unsharded(gloo_results,
+                                                             cache):
+    """Two decode steps past the end of a cache the prompt filled, on
+    (data 2, model 2): the logits within 1e-5 of the unsharded port's (held
+    to the reference in ``tests/test_torch_serve.py``), and the last slot
+    rewritten by each step on the sharded path as on the plain one (int8
+    codes equal)."""
+    for r in _ok(gloo_results["decode_past_end"]):
+        r = r[cache]
+        assert r["decode"] <= 1e-5 * max(1.0, r["scale"]), r
+        assert r["last_slot"] == 0 and r["last_slot_written"], r
 
 
 def test_sharded_cache_is_allocated_at_its_shards(gloo_results):

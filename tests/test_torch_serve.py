@@ -23,6 +23,7 @@ import torch
 
 import repro.core as rc
 import repro.train.dvfs_controller as jdc
+from repro.checkpoint.ckpt import _flatten as ckpt_flatten
 from repro.configs import smoke_config as jsmoke
 from repro.models import transformer as JT
 from repro.serve import ServeConfig as JServeConfig
@@ -33,7 +34,7 @@ import repro_torch.train.dvfs_controller as tdc
 from repro_torch.configs import smoke_config as tsmoke
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as TT
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.convert import flatten, params_from_numpy
 from repro_torch.serve import ServeConfig, ServingEngine
 
 
@@ -99,6 +100,51 @@ def _check_generate(jeng, teng, prompts, n_tokens):
     if teng.plan is not None:
         assert len(teng.plan.blocks) == len(jeng.plan.blocks)
     return tout
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_decode_step_past_the_cache_end_matches_reference(kv_quant):
+    """A prompt that fills the cache (``prefill(..., max_len=S)``), then
+    three ``decode_step``s at positions S, S + 1 and S + 2, past the
+    cache's end: the reference's ``dynamic_update_slice`` clamps its start
+    and overwrites the last slot each step, and so must the port (a write
+    at ``[:, S:S + 1]`` would be dropped).  Every step's logits and every
+    cache leaf within 1e-5 (float32 sums in another order); the int8
+    cache's codes equal, its scales within 1e-5."""
+    jc = jsmoke("olmo-1b", kv_quant=kv_quant)
+    tc_ = tsmoke("olmo-1b", kv_quant=kv_quant)
+    jp = JT.init_params(jc, jax.random.PRNGKey(3))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    s = 16
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(1, jc.vocab, (2, s)).astype(np.int32)
+    jl, jcache = JT.prefill(jp, jc, {"tokens": jax.numpy.asarray(prompts)}, s)
+    tl, tcache = TT.prefill(tp, tc_, {"tokens": torch.from_numpy(prompts)}, s)
+    last = flatten({"blocks": tcache["blocks"]})
+    last = {k: v[:, -1].clone() for k, v in last.items()
+            if k.endswith("§k") or k.endswith("§k_q")}
+    assert last
+    for step in range(3):
+        tok = rng.integers(1, jc.vocab, (2, 1)).astype(np.int32)
+        jl, jcache = JT.decode_step(jp, jc, jax.numpy.asarray(tok), jcache)
+        tl, tcache = TT.decode_step(tp, tc_, torch.from_numpy(tok), tcache)
+        assert tcache["pos"] == int(jcache["pos"]) == s + step + 1
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"step {step}")
+        jleaves = ckpt_flatten({"blocks": jcache["blocks"]})
+        tleaves = flatten({"blocks": tcache["blocks"]})
+        assert tleaves.keys() == jleaves.keys()
+        for key, want in jleaves.items():
+            got, want = tleaves[key].numpy(), np.asarray(want)
+            assert got.dtype == want.dtype, key
+            if got.dtype == np.int8:
+                np.testing.assert_array_equal(got, want, err_msg=key)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                           err_msg=f"{key}, step {step}")
+    # the last slot holds the newest keys, not the prompt's last
+    for key, was in last.items():
+        assert not torch.equal(tleaves[key][:, -1], was), key
 
 
 def test_generate_is_deterministic_and_downclocks_memory_bound_decode():

@@ -330,6 +330,39 @@ def test_bwd_work_and_scratch_at_the_training_shape():
         2 * states + heads // 8 + 4 * b * ss.bwd_n_chunks(s) * h)
 
 
+def test_bwd_bound_takes_each_product_at_its_operands_rate():
+    """The backward's bound at the train_4k microbatch (8 x 4,096 tokens,
+    mamba2-1.3b's heads): with float32 inputs every product at the float32
+    rate, L = 8 (2.836602 ms); with bfloat16 inputs the products of two
+    bfloat16 operands (4 P N and the causal pairs' (L + 1)(2 P + 3 N)) at
+    the bfloat16 rate and those of the float32 states (6 P N + 4 P N / L)
+    at the float32 rate, L = 31 (1.675807 ms), above its bytes' 0.255 ms."""
+    from repro_torch.device import BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S
+    from repro_torch.launch import ssd_bwd_timing as bt
+    b, s, h, g, p, n = 8, 4096, 64, 1, 64, 128
+    f32 = bt.bound(b, s, h, g, p, n, torch.float32)
+    assert (f32["bound_chunk"], f32["flops_bf16"]) == (8, 0)
+    assert f32["flops"] == ss.backward_flops(b, s, h, p, n)
+    assert f32["bound_ms"] == pytest.approx(2.836602, abs=1e-6)
+    bf16 = bt.bound(b, s, h, g, p, n, torch.bfloat16)
+    tokens, L = b * s * h, 31
+    assert bf16["bound_chunk"] == L and bf16["bound_by"] == "operations"
+    assert bf16["flops_bf16"] == (4 * p * n + (L + 1) * (2 * p + 3 * n)) \
+        * tokens
+    f32_ops = (6 * p * n + 4 * p * n / L) * tokens
+    assert bf16["flops"] == round(f32_ops + bf16["flops_bf16"])
+    assert bf16["bound_ms"] == pytest.approx(
+        1e3 * (f32_ops / F32_FLOPS + bf16["flops_bf16"] / BF16_FLOPS),
+        rel=1e-12)
+    assert bf16["bound_ms"] == pytest.approx(1.675807, abs=1e-6)
+    assert bf16["bytes"] == 855638528
+    assert 1e3 * bf16["bytes"] / HBM_BYTES_PER_S < bf16["bound_ms"]
+    for L in (8, 30, 32):          # any other chunk takes longer
+        assert bt.op_seconds(s, p, n, torch.bfloat16)[0] < (
+            (6 * p * n + 4 * p * n / L) / F32_FLOPS
+            + (4 * p * n + (L + 1) * (2 * p + 3 * n)) / BF16_FLOPS)
+
+
 def test_bwd_source_sums_in_a_fixed_order_in_float32():
     """No atomics (two calls give the same bits), no tensor-core route,
     cp.async staging and the cluster's sums through distributed shared

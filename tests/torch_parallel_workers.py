@@ -321,6 +321,38 @@ def check_mamba(rank: int) -> dict:
             "ssm_global": list(ssm.shape), "ssm_storage": _storage(ssm)}
 
 
+def check_decode_past_end(rank: int) -> dict:
+    """Smoke olmo-1b on (data 2, model 2): a prompt that fills the cache,
+    then two decode steps past its end, sharded against the unsharded
+    port, with the float32 and the int8 cache.  Each step writes the last
+    slot (the reference's clamp), on the sharded path too."""
+    mesh = make_mesh({"data": 2, "model": 2}, "cpu")
+    out = {}
+    for name, quant in (("float", False), ("int8", True)):
+        cfg, msd, params, dparams = _lm("olmo-1b", mesh,
+                                        batch_axes=("data",),
+                                        kv_quant=quant)
+        toks = _tokens(cfg, 4, 16, 5)
+        key = "k_q" if quant else "k"
+        want, wcache = T.prefill(params, cfg, {"tokens": toks}, 16)
+        got, gcache = T.prefill(dparams, cfg, {
+            "tokens": distribute_tree(toks, P("data"), mesh)}, 16)
+        was = wcache["blocks"][0][key][:, :, -1].clone()
+        errs, wrote = [], []
+        for step in range(2):
+            nxt = _tokens(cfg, 4, 1, 6 + step)
+            want, wcache = T.decode_step(params, cfg, nxt, wcache)
+            got, gcache = T.decode_step(
+                dparams, cfg, distribute_tree(nxt, P("data"), mesh), gcache)
+            errs.append(_err(got, want))
+        wk, gk = wcache["blocks"][0][key], _full(gcache["blocks"][0][key])
+        out[name] = {"decode": max(errs), "scale": float(want.abs().max()),
+                     "last_slot": _err(gk[:, :, -1], wk[:, :, -1]),
+                     "last_slot_written": not torch.equal(
+                         gk[:, :, -1], was)}
+    return out
+
+
 def _mamba_step(mesh, arch: str = "mamba2-1.3b", rows: int = 4,
                 microbatches: int = 1, zero1_axes: tuple = (),
                 **kw) -> dict:
@@ -612,7 +644,8 @@ CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "olmo_microbatches": check_olmo_microbatches,
           "jamba_fsdp_train": check_jamba_fsdp_train,
           "uneven_pin": check_uneven_pin,
-          "loss_heads": check_loss_heads, "dp_train": check_dp_train}
+          "loss_heads": check_loss_heads, "dp_train": check_dp_train,
+          "decode_past_end": check_decode_past_end}
 
 # the directory ``run`` writes its results to (a check's larger outputs go
 # there too)
