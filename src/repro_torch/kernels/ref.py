@@ -31,6 +31,7 @@ NEG_INF = -1e30
 SSD_CHUNK = 64      # rows of a chunk in the CUDA SSD kernel
 SSD_P_SLICE = 64    # head-dim columns of one CTA of the CUDA SSD kernel
 SSD_BWD_CHUNK = 32  # rows of a chunk in the CUDA SSD backward kernels
+SSD_REF_BLOCK = 1 << 27  # decay elements of a block of ssd_chunked_ref
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -95,7 +96,11 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     until it divides S.  Every product is pairwise: the largest intermediate
     is the (B,q,q,G,R) decay, never a (B,q,q,G,R,P) tensor.  Decays are exp
     of non-positive sums (A < 0), and exp is taken only on and below the
-    diagonal.
+    diagonal.  The chunks are taken as many at a time as keep a block's
+    decay within ``SSD_REF_BLOCK`` elements: each product of a block is one
+    batched product, and only the carried state steps from chunk to chunk
+    (one row of 524,272 positions is 2,114 chunks of 248, a loop that one
+    chunk at a time spends on launching its ops).
     """
     bsz, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
@@ -116,32 +121,36 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     dtac_all = cm(dta, (g, r))
     bc_all = cm(b_mat, (g, n))
     cc_all = cm(c_mat, (g, n))
-    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    below = tri[None, :, :, None, None]
+    below = torch.ones((q, q), dtype=torch.bool,
+                       device=x.device).tril()[:, :, None, None]
+    blk = max(1, SSD_REF_BLOCK // max(1, bsz * q * q * h))
     hprev = torch.zeros((bsz, g, r, p, n), dtype=torch.float32,
                         device=x.device)
-    ys = []
-    for c in range(nc):
-        xc = xc_all[c].float()                            # (B,q,g,r,p)
-        dtc, dtac = dtc_all[c], dtac_all[c]               # (B,q,g,r)
-        bc, cc = bc_all[c].float(), cc_all[c].float()     # (B,q,g,n)
-        seg = torch.cumsum(dtac, dim=1)                   # (B,q,g,r)
-        li = seg[:, :, None] - seg[:, None, :]            # (B,q,q,g,r)
+    y = torch.empty((bsz, nc, q, g, r, p), dtype=x.dtype, device=x.device)
+    for c0 in range(0, nc, blk):
+        sl = slice(c0, c0 + blk)
+        xc = xc_all[sl].float()                           # (k,B,q,g,r,p)
+        dtc, dtac = dtc_all[sl], dtac_all[sl]             # (k,B,q,g,r)
+        bc, cc = bc_all[sl].float(), cc_all[sl].float()   # (k,B,q,g,n)
+        seg = torch.cumsum(dtac, dim=2)                   # (k,B,q,g,r)
+        li = seg[:, :, :, None] - seg[:, :, None, :]      # (k,B,q,q,g,r)
         decay = torch.exp(li.masked_fill(~below, -torch.inf))
-        scores = torch.einsum("bign,bjgn->bijg", cc, bc)
-        wgt = scores[..., None] * decay * dtc[:, None]    # (B,q,q,g,r)
-        y_intra = torch.einsum("bijgr,bjgrp->bigrp", wgt, xc)
-        entry = torch.exp(seg)                            # (B,q,g,r)
-        y_inter = torch.einsum("bign,bgrpn->bigrp", cc, hprev) \
-            * entry[..., None]
-        tail = torch.exp(seg[:, -1:] - seg)               # (B,q,g,r)
-        xw = xc * (tail * dtc)[..., None]                 # (B,q,g,r,p)
-        state = torch.einsum("bjgrp,bjgn->bgrpn", xw, bc)
-        hprev = hprev * torch.exp(seg[:, -1])[..., None, None] + state
-        ys.append((y_intra + y_inter).to(x.dtype))
-    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p) if ys \
-        else torch.empty_like(x)
-    return y, hprev.reshape(bsz, h, p, n)
+        scores = torch.einsum("kbign,kbjgn->kbijg", cc, bc)
+        wgt = scores[..., None] * decay * dtc[:, :, None]
+        y_intra = torch.einsum("kbijgr,kbjgrp->kbigrp", wgt, xc)
+        tail = torch.exp(seg[:, :, -1:] - seg)            # (k,B,q,g,r)
+        xw = xc * (tail * dtc)[..., None]                 # (k,B,q,g,r,p)
+        state = torch.einsum("kbjgrp,kbjgn->kbgrpn", xw, bc)
+        last = torch.exp(seg[:, :, -1])[..., None, None]  # (k,B,g,r,1,1)
+        entering = []                                     # each chunk's
+        for i in range(state.shape[0]):                   # carried state
+            entering.append(hprev)
+            hprev = hprev * last[i] + state[i]
+        y_inter = torch.einsum("kbign,kbgrpn->kbigrp", cc,
+                               torch.stack(entering)) \
+            * torch.exp(seg)[..., None]
+        y[:, sl] = (y_intra + y_inter).to(x.dtype).transpose(0, 1)
+    return y.reshape(bsz, s, h, p), hprev.reshape(bsz, h, p, n)
 
 
 def ssd_split_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

@@ -6,7 +6,9 @@ The reference's production cells (``configs/shapes.py``) run
 ``prefill_32k`` as ``T.prefill(params, cfg, batch, 32768,
 dtype=bfloat16)`` on bfloat16 weights (``src/repro/launch/dryrun.py:77``)
 for a global batch of 32, ``decode_32k`` as a ``decode_step`` against a
-32,768-position bfloat16 cache for 128, and ``train_4k`` as
+32,768-position bfloat16 cache for 128, ``long_500k`` as a ``decode_step``
+against a 524,288-position cache for 1 (the archs ``cell_applicable``
+gives it: sub-quadratic ones), and ``train_4k`` as
 ``make_train_step(cfg, AdamWConfig(moment_dtype=cfg.opt_dtype),
 num_microbatches=TRAIN_MICROBATCHES[arch])`` on bfloat16 weights and
 moments at ``cfg.opt_dtype`` for 256 rows of 4,096 tokens
@@ -16,10 +18,11 @@ wrappers give their outputs' shapes) under the dry run's counter
 (``dryrun._CellCost``) and returns the bytes of the bfloat16 weights, of
 the cache (prefill, decode) or the optimizer state (train), and the peak
 of the storage the call makes (its results and the cache included) on top
-of what it is handed.  The decode cell is reckoned as ``chip_smoke.py``'s
-production phase runs it: a prefill of S - ``DECODE_STEPS`` tokens into an
-S-position cache, then a decode step (each of its ``DECODE_STEPS`` steps
-makes the same storage: the prefill allocates the whole cache).  The train
+of what it is handed.  A decode cell (``decode_32k``, ``long_500k``) is
+reckoned as ``chip_smoke.py``'s production phase runs it: a prefill of
+S - ``DECODE_STEPS`` tokens into an S-position cache, then a decode step
+(each of its ``DECODE_STEPS`` steps makes the same storage: the prefill
+allocates the whole cache).  The train
 cell is one step on a batch of ``launch/specs.py:train_input_specs``'
 shapes at B rows; the weights and the optimizer state are held (handed
 in), and the step's new trees are made, as the port's step is functional
@@ -27,9 +30,9 @@ where the reference donates both (``dryrun.py:69``).  ``largest_batch`` is
 the largest power of two up to the cell's global batch (a train cell's
 rows divisible by its microbatches) whose held bytes plus peak fit
 ``budget``; ``ROWS`` holds what it gives for each arch at ``BUDGET_BYTES``
-in both 32k cells, and ``TRAIN_ROWS`` in ``train_4k``: the rows
-``chip_smoke.py`` runs (``tests/test_torch_cell_memory.py`` holds them
-together).
+in both 32k cells, ``LONG_ROWS`` in ``long_500k`` and ``TRAIN_ROWS`` in
+``train_4k``: the rows ``chip_smoke.py`` runs
+(``tests/test_torch_cell_memory.py`` holds them together).
 
 These are counts from shapes, with no allocator: the caching allocator's
 rounding and fragmentation, the kernels' own scratch (the SSD kernel's
@@ -45,7 +48,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs import SHAPES, get_arch
-from repro_torch.configs.shapes import ShapeCell
+from repro_torch.configs.shapes import ShapeCell, cell_applicable
 from repro_torch.launch import specs as S
 from repro_torch.launch.dryrun import _CellCost
 from repro_torch.launch.optconfig import TRAIN_MICROBATCHES
@@ -54,13 +57,16 @@ from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train.loop import make_train_step
 from repro_torch.tree import tree_leaves
 
-__all__ = ["ROWS", "TRAIN_ROWS", "DECODE_STEPS", "BUDGET_BYTES",
-           "prefill_inputs", "reckon", "largest_batch", "main"]
+__all__ = ["ROWS", "LONG_ROWS", "TRAIN_ROWS", "DECODE_STEPS",
+           "BUDGET_BYTES", "prefill_inputs", "reckon", "largest_batch", "main"]
 
 # the production cells' archs one card holds whole in bfloat16, and the rows
 # of both cells that ``largest_batch`` gives them at ``BUDGET_BYTES``
 ROWS = {"olmo-1b": 8, "mamba2-1.3b": 16, "qwen2-moe-a2.7b": 4,
-        "musicgen-large": 4, "pixtral-12b": 4}
+        "musicgen-large": 4, "pixtral-12b": 4, "yi-6b": 8, "minitron-8b": 4}
+# the archs whose long_500k cell ``chip_smoke.py`` runs, and its rows (the
+# cell's global batch is 1)
+LONG_ROWS = {"mamba2-1.3b": 1}
 # the archs whose train_4k step ``chip_smoke.py`` runs, and the rows
 # ``largest_batch`` gives them at ``BUDGET_BYTES``
 TRAIN_ROWS = {"olmo-1b": 16, "mamba2-1.3b": 64}
@@ -158,6 +164,8 @@ def main(argv=None) -> None:
     for arch in args.arch:
         cfg = get_arch(arch, attn_impl_train="pallas")
         names = ["prefill_32k", "decode_32k"]
+        if cell_applicable(cfg, SHAPES["long_500k"]):
+            names.append("long_500k")
         if arch in TRAIN_ROWS:
             names.append("train_4k")
         for name in names:

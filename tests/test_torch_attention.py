@@ -326,6 +326,25 @@ def test_wedge_matches_reference(s, chunk, swa):
     torch.testing.assert_close(to, dense, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 32)])
+def test_wedge_equals_chunked_bit_for_bit_when_causal(s, chunk, dtype):
+    """Causal, no window, an even chunk count: the all-pairs schedule's
+    pairs that the wedge skips are fully masked and come after the
+    diagonal, so they leave the running max, sum and output as they were
+    (alpha 1, weights 0) and both schedules give the same bits; the
+    production cells' plain prefill takes the wedge for it."""
+    td = TA.AttnDims(D, 4, 2, 8)
+    _, tp = _params(JA.AttnDims(D, 4, 2, 8), 11)
+    _, tx = _x(np.random.default_rng(11), s=s)
+    tp = {k: v.to(dtype) for k, v in tp.items()}
+    tx = tx.to(dtype)
+    outs = [TA.attention_train(tp, tx, td, impl=impl, chunk_q=chunk,
+                               chunk_k=chunk)[0]
+            for impl in ("chunked", "wedge")]
+    assert outs[0].dtype == dtype and torch.equal(outs[0], outs[1])
+
+
 def _requires_grad(*ts):
     return [t.clone().requires_grad_() for t in ts]
 

@@ -53,11 +53,13 @@ import repro.configs as jcfg
 from repro.checkpoint.ckpt import _flatten as ckpt_flatten
 from repro.models import transformer as JT
 import repro_torch.configs as tcfg
+from repro_torch.launch.cell_memory import DECODE_STEPS
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import flatten, params_from_numpy
 
 ARCHS = ("olmo-1b", "mamba2-1.3b", "qwen2-moe-a2.7b", "musicgen-large",
-         "pixtral-12b", "jamba-1.5-large-398b", "mixtral-8x7b")
+         "pixtral-12b", "jamba-1.5-large-398b", "mixtral-8x7b", "yi-6b",
+         "minitron-8b")
 B, S = 2, 32
 BASE_STEPS = 3      # logits of a one-layer arch, see the module docstring
 LAYER_STEPS = 4     # cache drift a layer, see the module docstring
@@ -167,3 +169,42 @@ def test_bf16_prefill_and_decode_match_reference(arch, impl):
     _check_close("decode logits", td, jd, steps)
     _check_argmax("decode", td, jd, steps)
     assert tcache["pos"] == int(jcache["pos"]) == total + 1
+
+
+LONG_PROMPT = 100   # positions no 64-row chunk (nor the smoke chunk) divides
+
+
+def test_bf16_long_cell_decode_matches_reference():
+    """The long_500k cell's shape at smoke size: mamba2-1.3b in bfloat16, one
+    row, a prefill of ``LONG_PROMPT`` positions into a cache
+    ``DECODE_STEPS`` longer, then ``DECODE_STEPS`` decode steps up to the
+    cache's last position, both packages fed the same tokens; the prefill's
+    and every step's logits within the logits' tolerance, the final caches
+    leaf by leaf within theirs."""
+    jc = jcfg.smoke_config("mamba2-1.3b")
+    tc = tcfg.smoke_config("mamba2-1.3b")
+    steps = _steps(tc)
+    jp = JT.init_params(jc, jax.random.PRNGKey(1), jnp.bfloat16)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    total = LONG_PROMPT + DECODE_STEPS
+    tokens = np.random.default_rng(2).integers(
+        1, jc.vocab, (1, total)).astype(np.int32)
+    prompt = tokens[:, :LONG_PROMPT]
+    jl, jcache = JT.prefill(jp, jc, {"tokens": jnp.asarray(prompt)}, total,
+                            dtype=jnp.bfloat16)
+    tl, tcache = TT.prefill(tp, tc, {"tokens": torch.from_numpy(prompt)},
+                            total, dtype=torch.bfloat16)
+    _check_close("prefill logits", tl, jl, steps)
+    for i in range(DECODE_STEPS):
+        nxt = tokens[:, LONG_PROMPT + i:LONG_PROMPT + i + 1]
+        jl, jcache = JT.decode_step(jp, jc, jnp.asarray(nxt), jcache)
+        tl, tcache = TT.decode_step(tp, tc, torch.from_numpy(nxt), tcache)
+        assert tl.dtype == torch.bfloat16
+        _check_close(f"decode step {i} logits", tl, jl, steps)
+        _check_argmax(f"decode step {i}", tl, jl, steps)
+    assert tcache["pos"] == int(jcache["pos"]) == total
+    jleaves = ckpt_flatten({"blocks": jcache["blocks"]})
+    tleaves = flatten({"blocks": tcache["blocks"]})
+    for key, want_leaf in jleaves.items():
+        _check_close(f"cache {key}", tleaves[key], want_leaf,
+                     _leaf_steps(tc, key))

@@ -10,6 +10,10 @@
   the CPU, its peak holds them, its inputs are the reference's
   ``launch/specs.py`` prefill inputs, and ``largest_batch`` takes the
   largest power of two that fits.
+* The long cell (``long_500k``) is a decode cell of its own: mamba2-1.3b's
+  state does not grow with the sequence, so it reckons the cache of
+  ``decode_32k`` at one row, and ``LONG_ROWS`` is what ``largest_batch``
+  gives at its shapes.
 * The train cell (``train_4k``) is reckoned as the reference's
   ``_lower_cell`` builds it: bfloat16 weights and moments at
   ``cfg.opt_dtype``, held (handed in), one ``make_train_step`` step on a
@@ -17,6 +21,8 @@
   keeps its rows divisible by the microbatches, and ``TRAIN_ROWS`` is what
   it gives at the cell's own shapes.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +32,7 @@ from repro.configs import get_arch as jget_arch
 from repro.configs import SHAPES as JSHAPES
 from repro.launch import specs as jspecs
 from repro_torch.configs import SHAPES, get_arch, smoke_config
-from repro_torch.configs.shapes import ShapeCell
+from repro_torch.configs.shapes import ShapeCell, cell_applicable
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.launch import cell_memory as cm
@@ -132,6 +138,38 @@ def test_rows_are_the_largest_batch_that_fits(arch):
         assert rows < cell.global_batch
         assert cm.reckon(cfg, cell, rows)["total"] <= cm.BUDGET_BYTES
         assert cm.reckon(cfg, cell, 2 * rows)["total"] > cm.BUDGET_BYTES
+
+
+@pytest.mark.parametrize("arch", list(cm.LONG_ROWS))
+def test_long_rows_are_the_largest_batch_that_fits(arch):
+    """``LONG_ROWS``, the rows of ``chip_smoke.py``'s long_500k cell, is
+    what ``largest_batch`` gives at the cell's own shapes (on meta): the
+    cell applies to the arch, the rows fit the budget, and twice as many
+    exceed the budget or the cell's global batch."""
+    cfg, cell = get_arch(arch, attn_impl_train="pallas"), SHAPES["long_500k"]
+    rows = cm.LONG_ROWS[arch]
+    assert cell_applicable(cfg, cell)
+    rows_got, got = cm.largest_batch(cfg, cell)
+    assert rows_got == rows and got["total"] <= cm.BUDGET_BYTES
+    assert 2 * rows > cell.global_batch \
+        or cm.reckon(cfg, cell, 2 * rows)["total"] > cm.BUDGET_BYTES
+
+
+def test_long_cell_reckons_the_decode_cells_cache_at_one_row():
+    """mamba2-1.3b's cache is its conv windows and SSM state, whatever the
+    length: long_500k (a prefill of 524,272 positions into 524,288) holds
+    the bytes decode_32k holds at one row, the bytes of the cache
+    ``cache_leaf_shapes`` lays out; only the prefill's peak grows."""
+    cfg = get_arch("mamba2-1.3b", attn_impl_train="pallas")
+    long = cm.reckon(cfg, SHAPES["long_500k"], 1)
+    short = cm.reckon(cfg, SHAPES["decode_32k"], 1)
+    want = sum(math.prod(leaf.shape) * leaf.dtype.itemsize
+               for leaf in tree_leaves(T.cache_leaf_shapes(
+                   cfg, 1, SHAPES["long_500k"].seq_len,
+                   torch.bfloat16)["blocks"]))
+    assert long["cache"] == short["cache"] == want
+    assert long["params"] == short["params"]
+    assert long["peak"] > 8 * short["peak"]
 
 
 def _nbytes(tree) -> int:

@@ -31,7 +31,10 @@ wrappers (the backward too) on a batch of no rows, what a rank of an uneven
 batch split holds: empty outputs and gradients, no launch.  The production
 cells' shapes (prefill_32k, bfloat16): the SSD at mamba2-1.3b's 32 rows of
 32,768 positions (2**32 elements of x), its last row bit-identical to the
-row run alone; the bfloat16 SSD backward at the train_4k microbatch's
+row run alone; at long_500k's one row of 524,288 positions (x's last
+element at offset 2**31 - 1), its last 1,024 rows, cut from the rest by a
+decay of 0, bit-identical to those rows run alone; the bfloat16 SSD
+backward at the train_4k microbatch's
 8 x 4,096 tokens against the plain version; flash attention at olmo-1b's heads and 32,768 positions,
 its last 256 queries within 2e-2 of the plain version.
 """
@@ -1135,6 +1138,45 @@ def test_cuda_ssd_scan_bf16_last_of_32_rows_at_32k_equals_the_row_alone(
     torch.cuda.synchronize()
     assert ss.LAUNCHES["ssd_scan"] == 2
     assert torch.equal(y[-1:], y1) and torch.equal(state[-1:], state1)
+    want_y, want_state = ref.ssd_chunked_ref(*last, chunk=256)
+    torch.testing.assert_close(y1.float(), want_y.float(), rtol=5e-2,
+                               atol=5e-2)
+    torch.testing.assert_close(state1, want_state, rtol=5e-2, atol=5e-2)
+
+
+def test_cuda_ssd_scan_bf16_one_row_at_500k_past_int32_offsets(cuda):
+    """mamba2-1.3b's SSD at the long_500k cell's one row of 524,288
+    positions in bfloat16: x's last element lies at offset 2**31 - 1 of its
+    one row, so a row offset taken in 32 bits would wrap.  dt at position
+    S - 1,024 (a chunk boundary) is large enough that exp(dt A) is 0 in
+    float32, which cuts the state there: the last 1,024 rows' y and the
+    final state equal, bit for bit, the kernel's on those rows alone (the
+    same memory read from a base 2**31 - 2**22 elements on), and they
+    agree with the plain chunked version."""
+    b, s, h, g, p, n = 1, 524288, 64, 1, 64, 128
+    tail = 1024
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((b, s, h * p), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).reshape(b, s, h, p)
+    assert (s - 1) * x.stride(1) + (h - 1) * x.stride(2) + p - 1 \
+        == 2 ** 31 - 1
+    dt = 0.01 + 0.49 * torch.rand((b, s, h), generator=gen, device=cuda)
+    dt[:, s - tail] = 1e4
+    a_log = 2 * torch.rand(h, generator=gen, device=cuda) - 1
+    bc = torch.randn((b, s, 2 * g * n), generator=gen, device=cuda,
+                     dtype=torch.bfloat16)
+    bm = bc[..., :g * n].reshape(b, s, g, n)
+    cm = bc[..., g * n:].reshape(b, s, g, n)
+    ss.reset_launches()
+    y, state = ss.ssd_scan_cuda(x, dt, a_log, bm, cm, final_state=True)
+    last = (x[:, -tail:], dt[:, -tail:], a_log, bm[:, -tail:],
+            cm[:, -tail:])
+    assert all(ss.tma_ready(t) for t in (last[0], last[3], last[4]))
+    y1, state1 = ss.ssd_scan_cuda(*last, final_state=True)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == 2
+    assert bool(torch.isfinite(y1.float()).all())
+    assert torch.equal(y[:, -tail:], y1) and torch.equal(state, state1)
     want_y, want_state = ref.ssd_chunked_ref(*last, chunk=256)
     torch.testing.assert_close(y1.float(), want_y.float(), rtol=5e-2,
                                atol=5e-2)

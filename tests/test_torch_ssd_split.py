@@ -119,6 +119,31 @@ def test_split_does_not_depend_on_the_slice(p_slice):
     torch.testing.assert_close(state, state64, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("block", [1, 3, 1 << 40])
+def test_chunked_ref_in_blocks_equals_one_chunk_at_a_time(monkeypatch,
+                                                         block):
+    """``ssd_chunked_ref`` takes its chunks ``SSD_REF_BLOCK // (B q q H)``
+    at a time (at least one), carrying the state from block to block: one
+    chunk a block (the plain loop), three (a last block that is short) and
+    every chunk in one block give the same y and final state bit for bit,
+    and its gradients agree within float32 rounding (the other tests hold
+    the result against the references)."""
+    b, s, h, g, p, n, chunk = 2, 200, 4, 2, 8, 16, 16   # 20 chunks of 10
+    args = [torch.from_numpy(a) for a in _inputs(7, b, s, h, g, p, n)]
+    dy = torch.from_numpy(np.random.default_rng(8).normal(
+        0, 1, (b, s, h, p)).astype(np.float32))
+    q = 10
+    monkeypatch.setattr(ref, "SSD_REF_BLOCK", b * q * q * h)
+    want = ref.ssd_chunked_ref(*args, chunk=chunk)
+    want_grads = ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=chunk)
+    monkeypatch.setattr(ref, "SSD_REF_BLOCK", block * b * q * q * h)
+    got = ref.ssd_chunked_ref(*args, chunk=chunk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for gg, wg in zip(ref.ssd_chunked_bwd_ref(*args, dy, None, chunk=chunk),
+                      want_grads):
+        torch.testing.assert_close(gg, wg, rtol=1e-5, atol=1e-5)
+
+
 def test_split_bf16_matches_chunked():
     args = list(map(torch.from_numpy, _inputs(4, 1, 200, 4, 2, 64, 32)))
     for i in (0, 3, 4):
