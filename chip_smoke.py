@@ -199,6 +199,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 Each phase's wall is printed before the total.
 
+With ``--cards 4`` (``python3 chip_smoke.py --cards 4 [--log-dir DIR]``
+on a machine with four cards) it runs only the
+sharded path over the four cards under NCCL, one process a card, each its
+card's current device: every check of ``launch/mesh_checks.py`` (the gloo
+tests' checks, on CUDA tensors, each held to its test's tolerance), NCCL's
+walls for the collectives the sharded path issues, the 2-layer sharded
+against unsharded parity of qwen1.5-32b and mixtral-8x7b at full width
+(weights drawn shard by shard, ``models/shard_init.py``; card 0 draws the
+whole tree), and their production cells prefill_32k and decode_32k on
+(data 1, model 4) at full width and depth (``launch/cell_memory.py``'s
+MESH4_ROWS), each rank's flash calls and peaks held as in phase 20.  It
+refuses to run unless it sees four cards; each rank's log and numbers go
+to ``--log-dir`` (a temporary directory by default).
+
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
 joules and savings it prints come from power models in simulation (the
@@ -211,6 +225,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import gc
 import io
 import json
@@ -223,6 +238,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -258,7 +274,7 @@ from repro_torch.kernels import block_stats as bs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.launch import (cell_memory, dryrun,  # noqa: E402
-                                ssd_bwd_timing)
+                                mesh_checks, ssd_bwd_timing)
 from repro_torch.launch.block_stats_timing import (  # noqa: E402
     event_ms, traced)
 from repro_torch.launch.mesh import make_mesh, mesh_shape_dict  # noqa: E402
@@ -266,6 +282,7 @@ from repro_torch.launch.optconfig import (  # noqa: E402
     TRAIN_MICROBATCHES, build_cfg)
 from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import shard_init  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import LeafShape  # noqa: E402
 from repro_torch.models.convert import SEP, flatten  # noqa: E402
@@ -449,8 +466,18 @@ FLASH_CASES = (
 )
 
 
+# a rank of the four-card run collects its failed checks here and goes on,
+# so that the ranks stay in step through their collectives; None (the
+# one-card run) raises at the first
+FAILED: list | None = None
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
+        if FAILED is not None:
+            FAILED.append(what)
+            print(f"  CHECK FAILED: {what}")
+            return
         raise RuntimeError(f"chip_smoke: {what}")
 
 
@@ -466,11 +493,14 @@ def launches() -> dict:
     return {**bs.LAUNCHES, **fa.LAUNCHES, **ss.LAUNCHES}
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(every: bool = False) -> str:
+    """The first card's name and power limit as nvidia-smi gives them (with
+    ``every``, every card's, one line each)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+    lines = out.strip().splitlines()
+    return "\n".join(lines) if every else lines[0]
 
 
 def sync_seconds(fn):
@@ -2263,19 +2293,7 @@ def phase_mamba_serving() -> dict:
 ROUTE = MOE._route
 
 
-class RouteRecorder:
-    """A pass-through around the MoE FFN's router (``moe._route``, what
-    ``apply_moe`` dispatches by) that keeps every call's routes: the expert
-    of each (token, slot) and whether the slot is kept under the
-    capacity."""
-
-    def __init__(self):
-        self.routes: list = []
-
-    def __call__(self, *args):
-        out = ROUTE(*args)
-        self.routes.append((out[2], out[5]))       # e_flat, keep
-        return out
+RouteRecorder = mesh_checks.RouteRecorder
 
 
 def recorded_prefill(params, cfg, tokens, max_len, flash=None, route=None):
@@ -4016,11 +4034,16 @@ def rows_of(batch: dict, n: int) -> dict:
 
 
 def compare_logits(label: str, got: torch.Tensor, want: torch.Tensor,
-                   cfg) -> dict:
-    """``got`` (the kernel path's logits) against ``want`` (the plain
-    path's) within ``prod_logit_steps``; greedy tokens may flip only where
-    the plain top two lie within that tolerance of each other, and the
-    flips are counted."""
+                   cfg, route: dict | None = None) -> dict:
+    """``got`` (the kernel path's logits, one row) against ``want`` (the
+    plain path's) within ``prod_logit_steps``; greedy tokens may flip only
+    where the plain top two lie within that tolerance of each other, and
+    the flips are counted.  ``route`` is the compared token's MoE route
+    change (``mesh_checks.route_changes``), if its route differs between
+    the paths: logits past the tolerance are then printed and counted, not
+    failed, only where the change came first by a near tie (the two paths
+    then compute another function from there on)."""
+    got, want = whole(got), whole(want)
     steps = prod_logit_steps(cfg)
     step = bf16_step(want)
     err = _max_err(got, want)
@@ -4033,11 +4056,32 @@ def compare_logits(label: str, got: torch.Tensor, want: torch.Tensor,
           f"{int(flips.sum())} of {flips.numel()} greedy tokens flipped"
           + (f", at top-two gaps {gap[flips].tolist()}" if flips.any()
              else ""))
-    check(err <= steps * step, f"{label}: logits differ by {err}")
-    check(not bool((flips & (gap > steps * step)).any()),
-          f"{label}: a greedy token flipped at a gap above the tolerance")
+    held = err <= steps * step and not bool(
+        (flips & (gap > steps * step)).any())
+    excused = not held and route is not None and route["near_tie"]
+    if excused:
+        print(f"  {label}: past the tolerance, and the token's MoE route "
+              f"changed first by a near tie (layer {route['layer']}, router "
+              f"margins {route['margins']} within {route['tol']:.4g}): "
+              "counted, not failed")
+    else:
+        check(err <= steps * step, f"{label}: logits differ by {err}"
+              + (f"; the token's route changed ({route})" if route else ""))
+        check(not bool((flips & (gap > steps * step)).any()),
+              f"{label}: a greedy token flipped at a gap above the "
+              "tolerance")
     return {"max_abs_err": err, "steps": err / step, "tol_steps": steps,
-            "flips": int(flips.sum())}
+            "flips": int(flips.sum()), "route": route, "excused": excused}
+
+
+def margin_tol(steps_of, cfg):
+    """``route_changes``' tolerance of a router margin at layer ``l``:
+    ``steps_of`` (a logits tolerance in bfloat16 steps, by config) of the
+    model cut after layer l, in bfloat16 steps of the token's largest
+    |router logit|: the router reads the hidden stream after layer l's
+    mixer, perturbed as the logits would be by so many layers."""
+    return lambda layer, lg: steps_of(cfg.replace(n_layers=layer + 1)) \
+        * step_at(float(lg.abs().max()))
 
 
 def check_call(kernel: str, label: str, args, kw, out) -> tuple:
@@ -4129,43 +4173,44 @@ class EveryLayerCheck:
 
 
 def prod_kernel_times(cfg, rows: int, s: int, kernel: str, gen,
-                      cell: str = "prefill_32k") -> dict:
+                      cell: str = "prefill_32k", shards: int = 1) -> dict:
     """``cell``'s kernel at its prefill shape on seeded inputs laid out as
     the model hands them in: CUDA-event medians of ``PROD_TIMING_REPS``
     runs, the bound, scaled_dot_product_attention for flash (the plain
     version's (S, S) float32 scores, B H S^2 4 bytes, do not fit the card:
     its time is not measured) and the plain chunked SSD for the scan, with
-    the scan kernel's grid against the card's SMs."""
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    the scan kernel's grid against the card's SMs.  Flash takes the
+    arch's window and, with ``shards``, one rank's heads of that many (the
+    local shape of the sharded path)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
     dt_ = torch.bfloat16
     if kernel == "flash_attention":
-        hq, hkv, d = (T._dims(cfg).n_q_phys, T._dims(cfg).n_kv_phys,
-                      cfg.d_head)
-        q, k, v = (torch.randn((rows, s, h, d), generator=gen, device="cuda",
-                               dtype=dt_).transpose(1, 2)
+        hq, hkv, d = (T._dims(cfg).n_q_phys // shards,
+                      T._dims(cfg).n_kv_phys // shards, cfg.d_head)
+        window = cfg.swa_window
+        q, k, v = (torch.randn((rows, s, h, d), generator=gen,
+                               device=gen.device, dtype=dt_).transpose(1, 2)
                    for h in (hq, hkv, hkv))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
 
         def call():
-            return fa.flash_attention_cuda(q, k, v)
+            return fa.flash_attention_cuda(q, k, v, swa_window=window)
         ms = event_ms(call, flush, PROD_TIMING_REPS)
-        lib_ms = event_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                       enable_gqa=hq != hkv), flush,
-                          PROD_TIMING_REPS)
+        lib_ms = sdpa_ms(q, k, v, window, flush)
         plain_ms = None
-        bound, by, flops, nbytes = flash_bound(rows, hq, hkv, s, d, dt_)
-        shape = [rows, hq, hkv, s, d]
+        bound, by, flops, nbytes = flash_bound(rows, hq, hkv, s, d, dt_,
+                                               window)
+        shape = [rows, hq, hkv, s, d] + ([window] if window else [])
         load = clock_under_load(call)
     else:
         sc = cfg.ssm
         h, g, p, n = sc.n_heads, sc.n_groups, sc.head_dim, sc.d_state
-        x = torch.randn((rows, s, h * p), generator=gen, device="cuda",
+        x = torch.randn((rows, s, h * p), generator=gen, device=gen.device,
                         dtype=dt_).reshape(rows, s, h, p)
         dt = 0.01 + 0.49 * torch.rand((rows, s, h), generator=gen,
-                                      device="cuda")
-        a_log = 2 * torch.rand(h, generator=gen, device="cuda") - 1
-        bc = torch.randn((rows, s, 2 * g * n), generator=gen, device="cuda",
-                         dtype=dt_)
+                                      device=gen.device)
+        a_log = 2 * torch.rand(h, generator=gen, device=gen.device) - 1
+        bc = torch.randn((rows, s, 2 * g * n), generator=gen,
+                         device=gen.device, dtype=dt_)
         args = (x, dt, a_log, bc[..., :g * n].reshape(rows, s, g, n),
                 bc[..., g * n:].reshape(rows, s, g, n))
 
@@ -4328,11 +4373,14 @@ def kernel_entry(cfg) -> tuple:
         ss.SOURCE
 
 
-def decode_run(params, cfg, tok, cache, steps: int, label: str) -> tuple:
+def decode_run(params, cfg, tok, cache, steps: int, label: str,
+               wrap=None) -> tuple:
     """``steps`` greedy decode steps from the tokens ``tok`` on ``cache``,
     step ``PROD_TRACED_STEP`` traced, none of them launching a kernel:
     (the first step's logits on ``PROD_CHECK_ROWS`` rows, the untraced
-    steps' walls, the traced step's device seconds, the cache)."""
+    steps' walls, the traced step's device seconds, the cache).  On the
+    sharded path ``wrap`` lays each step's greedy tokens out for the next
+    (the logits are taken whole)."""
     reset_launches()
     walls, first, busy_s = [], None, None
     for i in range(steps):
@@ -4345,16 +4393,20 @@ def decode_run(params, cfg, tok, cache, steps: int, label: str) -> tuple:
         else:
             (logits, cache), w = sync_seconds(step)
             walls.append(w)
+        logits = whole(logits)
         check(bool(torch.isfinite(logits).all()),
               f"{label} step {i}: logits not finite")
         if i == 0:
             first = logits[:PROD_CHECK_ROWS].clone()
         tok = next_tokens(logits)
+        if wrap is not None:
+            tok = wrap(tok)
     check(not any(launches().values()), f"{label} launched {launches()}")
     return first, walls, busy_s, cache
 
 
-def plain_checks(params, cfg, batch, got_a, got_b, tok, target) -> dict:
+def plain_checks(params, cfg, batch, got_a, got_b, tok, target,
+                 moe_routes: bool = False) -> dict:
     """Both cells' logits on ``PROD_CHECK_ROWS`` rows against the plain
     path's: ``got_a`` (prefill_32k's last logits) and ``got_b``
     (decode_32k's first step, on the greedy tokens ``tok``); and, in a
@@ -4372,7 +4424,10 @@ def plain_checks(params, cfg, batch, got_a, got_b, tok, target) -> dict:
     MoE's capacity, and so its drops, depend on the rows dispatched
     together: its logits are the kernel path's on the plain's rows, rolled
     back the same way where the capacity of S and of S - steps tokens
-    rounds to the same (a slot's rank counts only earlier tokens)."""
+    rounds to the same (a slot's rank counts only earlier tokens).  With
+    ``moe_routes`` an MoE's routes are recorded on both paths, and a
+    compared token whose route changed first by a near tie is counted and
+    its logits not held (``compare_logits``)."""
     s = SHAPES["prefill_32k"].seq_len
     steps = cell_memory.DECODE_STEPS
     rows = rows_of(batch, PROD_CHECK_ROWS)
@@ -4396,7 +4451,11 @@ def plain_checks(params, cfg, batch, got_a, got_b, tok, target) -> dict:
         return T.prefill(params, cfg, b, s, dtype=torch.bfloat16)
     kernel = MIXER_KERNEL[cfg.pattern[0].mixer]
     every = EveryLayerCheck(target[2], kernel)
-    with in_place_of(target[0], target[1], every):
+    record = moe_routes and cfg.moe is not None
+    routes = {"kernel": RouteRecorder(), "plain": RouteRecorder()}
+    side = (lambda name: in_place_of(MOE, "_route", routes[name])) \
+        if record else (lambda name: contextlib.nullcontext())
+    with in_place_of(target[0], target[1], every), side("kernel"):
         got_row, kcache = kernel_prefill(rows)
     check(len(every.errs) == cfg.n_layers,
           f"{len(every.errs)} {kernel} calls in a {cfg.n_layers}-layer "
@@ -4412,21 +4471,41 @@ def plain_checks(params, cfg, batch, got_a, got_b, tok, target) -> dict:
            "every_layer_steps": [st for _, st in every.errs]}
     if cfg.moe is not None:
         got_a = got_row
-        kcache = decode_cache(kernel_prefill, kcache)
-        got_b = T.decode_step(params, cfg, tok, kcache)[0]
+        with side("kernel"):
+            kcache = decode_cache(kernel_prefill, kcache)
+            got_b = T.decode_step(params, cfg, tok, kcache)[0]
     del kcache, got_row
-    (want, pcache), plain_s = sync_seconds(lambda: plain_prefill(
-        params, cfg, rows, s))
-    out.update(plain_wall_s=plain_s, prefill_logits=compare_logits(
-        f"prefill_32k, {PROD_CHECK_ROWS} row(s) through the plain path "
-        f"({plain_s:.3f} s)", got_a, want, cfg))
-    pcache = decode_cache(lambda b: plain_prefill(params, cfg, b, s), pcache)
-    want = T.decode_step(params, cfg, tok, pcache)[0]
+    with side("plain"):
+        (want, pcache), plain_s = sync_seconds(lambda: plain_prefill(
+            params, cfg, rows, s))
+    changed = [None, None]
+    pl_label = (f"prefill_32k, {PROD_CHECK_ROWS} row(s) through the plain "
+                f"path ({plain_s:.3f} s)")
+    with side("plain"):
+        pcache = decode_cache(lambda b: plain_prefill(params, cfg, b, s),
+                              pcache)
+        want_b = T.decode_step(params, cfg, tok, pcache)[0]
     del pcache
+    if record:
+        calls = [s] + ([] if rollback else [s - steps]) + [1]
+        changes = mesh_checks.route_changes(
+            routes["kernel"].routes, routes["plain"].routes, calls,
+            cfg.n_layers, cfg.moe.top_k, margin_tol(prod_logit_steps, cfg))
+        changed = [next(iter(c["rows"]), None)
+                   for c in (changes[0], changes[-1])]
+        out["route_changes"] = [{k: c[k] for k in ("expert_slots",
+                                                   "keep_slots")}
+                                for c in changes]
+        print(f"  MoE routes, kernel path against plain, by call: "
+              f"{out['route_changes']} (token, slot)s whose expert or "
+              f"capacity keep alone differ; the compared tokens' first "
+              f"changes: prefill {changed[0]}, decode {changed[1]}")
+    out.update(plain_wall_s=plain_s, prefill_logits=compare_logits(
+        pl_label, got_a, want, cfg, changed[0]))
     out["decode_logits"] = compare_logits(
         f"decode_32k first step, {PROD_CHECK_ROWS} row(s) after a prefill "
         "through the plain path" + (" (rolled back)" if rollback else ""),
-        got_b, want, cfg)
+        got_b, want_b, cfg, changed[1])
     return out
 
 
@@ -4669,11 +4748,42 @@ def phase_times(main: dict, worst: dict) -> list:
     return entries
 
 
-def flash_bound(b, hq, hkv, s, d, dtype) -> tuple:
+def sdpa_ms(q, k, v, window, flush) -> float | None:
+    """CUDA-event median of ``scaled_dot_product_attention`` computing
+    causal attention (within ``window``) on ``q, k, v``, a yardstick: with
+    no window its causal flag (GQA enabled); with one, k and v expanded to
+    q's heads and the window as a boolean (S, S) mask, on the
+    memory-efficient backend only (the math backend would hold B H S^2
+    float32 scores); None where that backend refuses."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not window:
+        return event_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                     enable_gqa=q.shape[1] != k.shape[1]),
+                        flush, PROD_TIMING_REPS)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    s, rep = q.shape[2], q.shape[1] // k.shape[1]
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    ke, ve = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return event_ms(lambda: sdpa(q, ke, ve, attn_mask=mask), flush,
+                            PROD_TIMING_REPS)
+    except RuntimeError as e:
+        print(f"  scaled_dot_product_attention with a window mask not timed:"
+              f" {str(e).splitlines()[0]}")
+        return None
+
+
+def flash_bound(b, hq, hkv, s, d, dtype, window=None) -> tuple:
     """(bound ms, "operations" or "bytes", flops, bytes) of causal attention
-    at this shape: 4*D operations a visible (query, key) pair at the type's
-    peak rate; q, k, v read once and o written once at the memory rate."""
-    flops = 4 * d * b * hq * s * (s + 1) // 2
+    at this shape: 4*D operations a visible (query, key) pair (query i sees
+    min(i + 1, ``window``) keys) at the type's peak rate; q, k, v read once
+    and o written once at the memory rate."""
+    w = min(window or s, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    flops = 4 * d * b * hq * pairs
     nbytes = (2 * b * hq + 2 * b * hkv) * s * d * dtype.itemsize
     rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
@@ -4745,8 +4855,11 @@ def device_events(fn) -> list:
 
 def clock_under_load(fn, seconds: float = 1.0) -> dict:
     """Median SM clock (MHz) and board power (W) that nvidia-smi samples
-    every 100 ms while ``fn`` runs back to back for ``seconds``."""
-    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+    every 100 ms on this process's card while ``fn`` runs back to back for
+    ``seconds``."""
+    smi = subprocess.Popen(["nvidia-smi", "-i",
+                            str(torch.cuda.current_device()),
+                            "--query-gpu=clocks.sm,power.draw",
                             "--format=csv,noheader,nounits", "-lms", "100"],
                            stdout=subprocess.PIPE, text=True)
     try:
@@ -4928,7 +5041,571 @@ def phase_ssd_times(serving: dict, worst: dict) -> dict:
             "library_ms": None, "per_shape": per_shape}
 
 
-def main() -> int:
+# the four-card run (``--cards 4``): the sharded path under NCCL, one process
+# a card
+CARDS = 4
+CARDS_PG_TIMEOUT_S = 600   # a collective that waits longer fails its rank
+CARDS_WALL_S = 900         # every rank killed past this
+CARDS_GRACE_S = 30         # the others killed this long after a rank fails
+PARITY_LAYERS = 2
+PARITY_ROWS = 2
+PARITY_PROMPT = 8192       # past mixtral's window of 4,096: its ring wraps
+PARITY_STEPS = 16
+NCCL_REPS = 5
+NCCL_SHAPE = (50304, 2048)  # olmo-1b's embedding table, float32
+
+
+def parity_tol_steps(cfg) -> int:
+    """The sharded-against-unsharded logits' tolerance, in bfloat16 steps of
+    the largest |logit|: 3 sqrt(2 layers), rounded up.  The two differ only
+    in each layer's two row-parallel products (attention's and the FFN's
+    output projections): the sharded one rounds each rank's partial
+    product to bfloat16 and sums the four in bfloat16 (four more roundings,
+    each at most half a step of a partial no larger than the sum), where
+    one card rounds one float32 sum once; so each adds about one step of
+    its output to the hidden stream with a sign of its own, and such
+    errors add as sqrt(2 layers), with the factor of the kernel-against-
+    plain tolerance (``prod_logit_steps``).  The column-parallel products
+    and the vocab-split head take the same sums on both."""
+    return math.ceil(3 * math.sqrt(2 * cfg.n_layers))
+
+
+def local_bytes(tree) -> int:
+    """Bytes of this rank's shards of ``tree``'s tensors."""
+    return sum(t.to_local().numel() * t.element_size()
+               if hasattr(t, "to_local") else t.numel() * t.element_size()
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def cards_checks(rank: int, out_dir: str) -> dict:
+    """Step one: every check of ``mesh_checks.CHECKS`` on this rank with
+    its tensors and meshes on the card, each one's numbers, wall and
+    kernel launches.  A check that raises fails the rank (the others may
+    wait on its collectives)."""
+    out = {}
+    for name, fn in mesh_checks.CHECKS.items():
+        reset_launches()
+        r, wall = sync_seconds(lambda: fn(rank))
+        out[name] = {"result": r, "wall_s": wall, "launches": launches()}
+        print(f"  check {name}: {wall:.3f} s, launches "
+              f"{ {k: v for k, v in launches().items() if v} }")
+        dist.barrier()
+    return out
+
+
+def collective_walls() -> dict:
+    """NCCL's walls over the world for the collectives the sharded path
+    issues, on a (50304, 2048) float32 tensor a rank (olmo-1b's embedding
+    table, 412 MB): all-reduce, ``int8_all_reduce``, all-gather of a
+    quarter of it a rank, reduce-scatter and all-to-all; medians of
+    ``NCCL_REPS`` synchronised walls after a warm-up, with nccl-tests' bus
+    rate (the bytes times 2 (n - 1) / n for an all-reduce, (n - 1) / n for
+    the others, over the wall)."""
+    n = dist.get_world_size()
+    gen = torch.Generator(device="cuda").manual_seed(dist.get_rank())
+    x = torch.randn(NCCL_SHAPE, generator=gen, device="cuda")
+    nbytes = x.numel() * x.element_size()
+    part = x.reshape(-1)[:x.numel() // n].clone()
+    buf, out, gathered = x.clone(), torch.empty_like(part), \
+        torch.empty_like(x.reshape(-1))
+    ops_ = {
+        "all_reduce": (lambda: dist.all_reduce(buf), 2 * (n - 1) / n),
+        "int8_all_reduce": (lambda: int8_all_reduce(x), 2 * (n - 1) / n),
+        "all_gather": (lambda: dist.all_gather_into_tensor(gathered, part),
+                       (n - 1) / n),
+        "reduce_scatter": (lambda: dist.reduce_scatter_tensor(
+            out, x.reshape(-1)), (n - 1) / n),
+        "all_to_all": (lambda: dist.all_to_all_single(gathered,
+                                                      x.reshape(-1)),
+                       (n - 1) / n)}
+    res = {}
+    for name, (fn, factor) in ops_.items():
+        sync_seconds(fn)
+        walls = [sync_seconds(fn)[1] for _ in range(NCCL_REPS)]
+        ms = 1e3 * float(np.median(walls))
+        res[name] = {"ms": ms, "bytes": nbytes,
+                     "bus_gb_s": nbytes * factor / ms / 1e6}
+        print(f"  NCCL {name} of {nbytes} B a rank over {n} cards: "
+              f"{ms:.3f} ms median of {NCCL_REPS} "
+              f"({res[name]['bus_gb_s']:.1f} GB/s bus rate)")
+    dist.barrier()
+    return res
+
+
+def parity_run(params, cfg, batch, max_len: int, wrap, tokens=None) -> dict:
+    """A prefill of ``batch`` into ``max_len`` positions and
+    ``PARITY_STEPS`` decode steps, on greedy tokens (recorded) or on
+    ``tokens``: each one's whole logits, the routes, the launches, the
+    prefill's wall and peak."""
+    routes = RouteRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with in_place_of(MOE, "_route", routes):
+        (logits, cache), wall = sync_seconds(lambda: T.prefill(
+            params, cfg, batch, max_len, dtype=torch.bfloat16))
+        counts = launches()
+        out = {"logits": [whole(logits)], "wall_s": wall,
+               "launches": counts["flash_attention"]}
+        check(counts["flash_attention"] == cfg.n_layers
+              and sum(counts.values()) == cfg.n_layers,
+              f"{cfg.name} parity prefill launched {counts}")
+        chosen = []
+        for i in range(PARITY_STEPS):
+            tok = next_tokens(out["logits"][-1]) if tokens is None \
+                else tokens[i]
+            chosen.append(tok)
+            logits, cache = T.decode_step(params, cfg, wrap(tok), cache)
+            out["logits"].append(whole(logits))
+    out.update(tokens=chosen, routes=routes.routes,
+               peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def mesh_parity(arch: str, rank: int) -> dict:
+    """Part 4: ``arch`` cut to ``PARITY_LAYERS`` layers at full width, its
+    bfloat16 weights drawn shard by shard on the four cards and whole on
+    card 0 (``shard_init``: the same values), ``PARITY_ROWS`` rows of
+    ``PARITY_PROMPT`` tokens prefilled and ``PARITY_STEPS`` greedy steps
+    decoded, sharded; then on card 0 unsharded, fed the sharded run's
+    tokens: the prefill's and every step's logits within
+    ``parity_tol_steps`` bfloat16 steps of the largest (a row whose last
+    token's route changed first by a near tie, ``margin_tol``, excused and
+    counted), greedy flips and MoE route changes counted."""
+    free_device_memory()
+    mshape = cell_memory.MESH4
+    cfg = cell_memory.mesh_cfg(arch, mshape, "prefill").replace(
+        n_layers=PARITY_LAYERS)
+    mesh = mesh_checks.mesh_of_shape(mshape)
+    msd = mesh_shape_dict(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(PROD_SEED)
+    batch = cell_memory.prefill_inputs(cfg, PARITY_ROWS, PARITY_PROMPT,
+                                       "cuda", gen)
+
+    def wrap(t):
+        return distribute_tree(t, batch_specs(cfg, t, msd), mesh)
+
+    max_len = PARITY_PROMPT + PARITY_STEPS
+    params = shard_init.init_shards(cfg, mesh, PROD_SEED, torch.bfloat16,
+                                    "cuda")
+    got = parity_run(params, cfg, wrap(batch), max_len, wrap)
+    del params
+    print(f"parity {arch}, {PARITY_LAYERS} layers at full width, "
+          f"{PARITY_ROWS} x {PARITY_PROMPT} positions: sharded prefill "
+          f"{got['wall_s']:.3f} s on this rank's heads, "
+          f"{got['launches']} flash launches, peak {got['peak']} B")
+    out = {"sharded_wall_s": got["wall_s"], "sharded_peak": got["peak"],
+           "launches": got["launches"]}
+    dist.barrier()
+    if rank == 0:
+        whole_params = shard_init.init_whole(cfg, msd, PROD_SEED,
+                                             torch.bfloat16, "cuda")
+        want = parity_run(whole_params, cfg, batch, max_len, lambda t: t,
+                          got["tokens"])
+        del whole_params
+        out.update(judge_parity(arch, cfg, got, want))
+    dist.barrier()
+    return out
+
+
+def judge_parity(arch: str, cfg, got: dict, want: dict) -> dict:
+    """``mesh_parity``'s verdict on its two runs (``parity_run``'s numbers,
+    sharded ``got`` and unsharded ``want``): each call's rows within
+    ``parity_tol_steps``, a row past it excused where its last token's
+    route changed first by a near tie; greedy flips and route changes
+    counted."""
+    tol = parity_tol_steps(cfg)
+    moe = cfg.moe is not None
+    changes = mesh_checks.route_changes(
+        got["routes"], want["routes"],
+        [PARITY_PROMPT] + [1] * PARITY_STEPS, cfg.n_layers if moe else 0,
+        cfg.moe.top_k if moe else 1, margin_tol(parity_tol_steps, cfg))
+    steps, greedy, judged = [], 0, []
+    for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+        step = bf16_step(w)
+        per_row = ((g.float() - w.float()).abs().amax(-1) / step).tolist()
+        # a row past the tolerance whose last token's route changed
+        # first by a near tie is counted, not failed: the two runs then
+        # compute another function
+        judged.append(mesh_checks.judge_rows(per_row, tol, changes[i]))
+        steps.append(max(per_row))
+        greedy += int((g.argmax(-1) != w.argmax(-1)).sum())
+        what = "prefill" if i == 0 else f"step {i}"
+        check("failed" not in judged[-1], f"parity {arch} {what}: "
+              f"{[round(x, 2) for x in per_row]} bfloat16 steps by row "
+              f"(tol {tol}), route changes {changes[i]['rows']}")
+    excused = [dict(c, call=i) for i, j in enumerate(judged)
+               for c in changes[i]["rows"] if j[c["row"]] == "excused"]
+    out = dict(tol_steps=tol, steps=steps, greedy_flips=greedy,
+               expert_slots=sum(c["expert_slots"] for c in changes),
+               keep_slots=sum(c["keep_slots"] for c in changes),
+               excused_rows=len(excused), excused=excused,
+               unsharded_wall_s=want["wall_s"],
+               unsharded_peak=want["peak"],
+               unsharded_launches=want["launches"])
+    print(f"  against the unsharded model on card 0 (prefill "
+          f"{want['wall_s']:.3f} s, {want['launches']} flash launches, "
+          f"fed the sharded run's tokens): prefill logits "
+          f"{steps[0]:.2f} bfloat16 steps of the largest, decode steps "
+          f"up to {max(steps[1:]):.2f} (tol {tol}); {greedy} greedy "
+          f"flips in {PARITY_ROWS * (PARITY_STEPS + 1)}; MoE (token, "
+          f"slot)s whose expert differs {out['expert_slots']}, whose "
+          f"capacity keep alone differs {out['keep_slots']}; "
+          f"{len(excused)} of the {PARITY_ROWS * (PARITY_STEPS + 1)} "
+          f"rows past the tolerance, each with its last token's route "
+          f"changed first by a near tie (counted, not failed): "
+          f"{out['excused']}")
+    return out
+
+
+def mesh_cells(arch: str, rank: int) -> dict:
+    """Step two: ``arch``'s prefill_32k and decode_32k in bfloat16 on
+    (data 1, model 4) at full width and depth, ``cell_memory.MESH4_ROWS``
+    rows, ``build_cfg``'s tp-4 config, its weights drawn shard by shard
+    (``shard_init``); on each rank ``production_cells``' checks of its own
+    heads: one bfloat16 flash launch a layer in a prefill and none in
+    decode, layers 0 and last on rows 0 and B-1 and then every layer's
+    call on one row against the plain version, the logits of the prefill
+    and of the first decode step against the same sharded model with
+    plain attention, the kernel timed at the rank's local shape, walls
+    and the peak."""
+    free_device_memory()
+    mshape = cell_memory.MESH4
+    cfg = cell_memory.mesh_cfg(arch, mshape, "prefill")
+    mesh = mesh_checks.mesh_of_shape(mshape)
+    msd = mesh_shape_dict(mesh)
+    kernel, target, staged, source = kernel_entry(cfg)
+    rows, n_layers = cell_memory.MESH4_ROWS[arch], cfg.n_layers
+    s = SHAPES["prefill_32k"].seq_len
+    steps = cell_memory.DECODE_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(PROD_SEED)
+
+    def wrap(t):
+        return distribute_tree(t, batch_specs(cfg, t, msd), mesh)
+
+    params, init_s = sync_seconds(lambda: shard_init.init_shards(
+        cfg, mesh, PROD_SEED, torch.bfloat16, "cuda"))
+    batch = wrap(cell_memory.prefill_inputs(cfg, rows, s, "cuda", gen))
+    dims = T._dims(cfg)
+    print(f"production cells on {mshape}: {arch} ({n_layers} layers, "
+          f"d_model {cfg.d_model}, {dims.n_q_phys}/{dims.n_kv_phys} q/kv "
+          f"heads, {dims.n_q_phys // cfg.tp}/{dims.n_kv_phys // cfg.tp} on "
+          f"this rank, window {cfg.swa_window}, int8 KV cache "
+          f"{cfg.kv_quant}, vocab {cfg.vocab}), {int(cfg.param_count())} "
+          f"bfloat16 parameters, {local_bytes(params)} B on this rank "
+          f"(drawn shard by shard, seed {PROD_SEED}, {init_s:.3f} s), "
+          f"{rows} rows (launch/cell_memory.py MESH4_ROWS)")
+    out = {"rows": rows, "kernel": kernel, "weights_bytes":
+           local_bytes(params)}
+
+    # (a) prefill_32k
+    rec = RowRecorder(target[2], (0, n_layers - 1), (0, rows - 1), staged)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with in_place_of(target[0], target[1], rec):
+        (logits, cache), wall = sync_seconds(lambda: T.prefill(
+            params, cfg, batch, s, dtype=torch.bfloat16))
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts[kernel] == n_layers and sum(counts.values()) == n_layers,
+          f"{arch} prefill_32k launched {counts} on rank {rank}")
+    check(rec.n == n_layers, f"{arch}: {rec.n} {kernel} calls")
+    full = whole(logits)
+    check(full.dtype == torch.bfloat16 and tuple(full.shape)
+          == (rows, cfg.vocab) and bool(torch.isfinite(full).all()),
+          f"{arch} prefill logits {full.dtype} {tuple(full.shape)}")
+    want_leaves = flatten(T.cache_leaf_shapes(cfg, rows, s,
+                                              torch.bfloat16)["blocks"])
+    got_leaves = flatten(cache["blocks"])
+    check(cache["pos"] == s and all(
+        tuple(got_leaves[k].shape) == w.shape and got_leaves[k].dtype
+        == w.dtype for k, w in want_leaves.items()),
+        f"{arch}: the cache is not the bfloat16 cache of {s} positions")
+    cache_b = local_bytes(got_leaves)
+    check(peak < CARD_BYTES, f"{arch} prefill_32k peak {peak} B")
+    print(f"  prefill_32k: {rows} x {s} positions in {wall:.6f} s "
+          f"({rows * s / wall:.1f} tokens/s), {counts[kernel]} {kernel} "
+          f"launches on this rank ({source}); its cache shards {cache_b} B;"
+          f" peak {peak} B ({rec.held_bytes()} B of it the recorded rows)")
+    out["prefill"] = {"wall_s": wall, "tokens_per_s": rows * s / wall,
+                      "peak_bytes": peak, "launches": counts[kernel],
+                      "cache_bytes": cache_b}
+    del cache, got_leaves
+    out["layer_err"] = check_layers(kernel, rec, (0, rows - 1))
+    del rec
+    got_a = full[:PROD_CHECK_ROWS].clone()
+    del logits, full
+
+    # (b) decode_32k
+    short = {k: v[:, :v.shape[1] - steps] for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    (logits, cache), wall_b = sync_seconds(lambda: T.prefill(
+        params, cfg, short, s, dtype=torch.bfloat16))
+    counts = launches()
+    check(counts[kernel] == n_layers and sum(counts.values()) == n_layers,
+          f"{arch} decode_32k prefill launched {counts} on rank {rank}")
+    first_tok = wrap(next_tokens(whole(logits)))
+    del logits
+    got_b, walls, busy_s, cache = decode_run(
+        params, cfg, first_tok, cache, steps, f"{arch} decode_32k", wrap)
+    peak_b = torch.cuda.max_memory_allocated()
+    check(cache["pos"] == s, f"{arch}: decode ended at {cache['pos']}")
+    check(peak_b < CARD_BYTES, f"{arch} decode_32k peak {peak_b} B")
+    step_ms = 1e3 * float(np.median(walls))
+    print(f"  decode_32k: prefill of {rows} x {s - steps} positions in "
+          f"{wall_b:.6f} s, then {steps} greedy steps up to position "
+          f"{s - 1}: no launch; a step {step_ms:.3f} ms median (untraced "
+          f"steps {[round(1e3 * w, 3) for w in walls]} ms), "
+          f"{rows / step_ms * 1e3:.1f} tokens/s; peak {peak_b} B")
+    out["decode"] = {"prefill_wall_s": wall_b, "launches": counts[kernel],
+                     "step_ms": step_ms,
+                     "step_ms_all": [1e3 * w for w in walls],
+                     "tokens_per_s": rows / step_ms * 1e3,
+                     "peak_bytes": peak_b, "traced_busy_s": busy_s}
+    del cache
+    out.update(plain_checks(params, cfg, batch, got_a, got_b,
+                            first_tok[:PROD_CHECK_ROWS], target,
+                            moe_routes=True))
+    out["times"] = prod_kernel_times(cfg, rows, s, kernel, gen,
+                                     shards=cfg.tp)
+    del params, batch, short
+    dist.barrier()
+    return out
+
+
+def cards_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of the four-card run, a spawned process on card ``rank``:
+    its process group (a FileStore at ``store``), step one, NCCL's walls,
+    the parity runs and the cells; its log ``rank<r>.log`` and numbers
+    ``rank<r>.json`` in ``out_dir``.  Exits 0 when it raised nothing (its
+    failed checks are in the numbers)."""
+    global FAILED
+    FAILED = []
+    sys.stdout = open(os.path.join(out_dir, f"rank{rank}.log"), "w",
+                      buffering=1)
+    res: dict = {"rank": rank}
+    code = 1
+    try:
+        torch.manual_seed(0)
+        torch.cuda.set_device(rank)
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(store, CARDS), rank=rank,
+            world_size=CARDS,
+            timeout=datetime.timedelta(seconds=CARDS_PG_TIMEOUT_S),
+            device_id=torch.device("cuda", rank))
+        res["card"] = torch.cuda.get_device_name(rank)
+        mesh_checks.DEVICE, mesh_checks.OUT_DIR = "cuda", out_dir
+        res["checks"] = cards_checks(rank, out_dir)
+        res["nccl"] = collective_walls()
+        res["parity"] = {a: mesh_parity(a, rank)
+                         for a in cell_memory.MESH4_ROWS}
+        res["cells"] = {a: mesh_cells(a, rank)
+                        for a in cell_memory.MESH4_ROWS}
+        dist.barrier()
+        code = 0
+    except Exception:
+        res["error"] = traceback.format_exc()
+        print(res["error"])
+    finally:
+        res["failed"] = FAILED
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f, default=str)
+        sys.stdout.flush()
+    # no teardown of the NCCL communicators: destroying them once hung the
+    # ranks for minutes after every result was written; the process's end
+    # frees them
+    os._exit(code)
+
+
+def wait_ranks(procs: list, out_dir: str) -> list:
+    """The ranks' exit codes once all have ended; a rank still running
+    ``CARDS_GRACE_S`` after another failed or after every rank wrote its
+    numbers, or at ``CARDS_WALL_S``, is killed (None)."""
+    deadline = time.monotonic() + CARDS_WALL_S
+    failed_at = None
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if failed_at is None and (
+                any(p.exitcode not in (None, 0) for p in procs)
+                or all(os.path.exists(os.path.join(out_dir, f"rank{r}.json"))
+                       for r in range(len(procs)))):
+            failed_at = time.monotonic()
+        if failed_at is not None and \
+                time.monotonic() - failed_at > CARDS_GRACE_S:
+            break
+        time.sleep(1.0)
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+        codes.append(p.exitcode if p.exitcode in (0, 1) else None)
+    return codes
+
+
+def reckon_to(path: str) -> None:
+    """``reckon_cells`` in a process of its own, its numbers to ``path``."""
+    with open(path, "w") as f:
+        json.dump(reckon_cells(), f)
+
+
+def reckon_cells() -> dict:
+    """``cell_memory.reckon`` of each four-card cell for a device of the
+    mesh, on meta tensors over a fake process group (host work)."""
+    out = {}
+    with cell_memory.fake_mesh(cell_memory.MESH4) as mesh:
+        for arch, rows in cell_memory.MESH4_ROWS.items():
+            for name in ("prefill_32k", "decode_32k"):
+                cell = SHAPES[name]
+                cfg = cell_memory.mesh_cfg(arch, cell_memory.MESH4,
+                                           cell.kind)
+                out[f"{arch} {name}"] = cell_memory.reckon(cfg, cell, rows,
+                                                           mesh)
+    return out
+
+
+def judge_cards(results: list, reckoned: dict) -> dict:
+    """Every rank's numbers held: no failed check, step one within its
+    tests' tolerances (``mesh_checks.verdicts``), the launch counts, and
+    each cell's peaks under the card's bytes, printed beside the
+    reckoning; everything is printed before the first failure raises.
+    Returns the flash kernel's line."""
+    names = list(mesh_checks.CHECKS)
+    verdict = mesh_checks.verdicts({n: [res["checks"][n]["result"]
+                                        for res in results] for n in names})
+    for n in names:
+        walls = [res["checks"][n]["wall_s"] for res in results]
+        print(f"step one, {n}: {'held' if verdict[n] is None else 'FAILED'}"
+              f" on all {len(results)} ranks (walls {min(walls):.3f}-"
+              f"{max(walls):.3f} s)")
+    bad = {n: v for n, v in verdict.items() if v is not None}
+    by_path, errs, per_shape = {}, [], []
+    for arch in cell_memory.MESH4_ROWS:
+        par = results[0]["parity"][arch]
+        print(f"parity {arch}: prefill {par['steps'][0]:.2f} steps, decode "
+              f"up to {max(par['steps'][1:]):.2f} (tol {par['tol_steps']});"
+              f" greedy flips {par['greedy_flips']}; MoE slots whose expert "
+              f"differs {par['expert_slots']}, whose keep alone differs "
+              f"{par['keep_slots']}; rows past the tolerance whose route "
+              f"changed first by a near tie {par['excused_rows']}")
+        by_path[f"{arch} parity, {PARITY_LAYERS} layers, sharded"] = sum(
+            res["parity"][arch]["launches"] for res in results)
+        by_path[f"{arch} parity, unsharded on card 0"] = \
+            par["unsharded_launches"]
+        for name in ("prefill", "decode"):
+            cell = f"{arch} {name}_32k"
+            want = reckoned.get(cell)
+            peaks = [res["cells"][arch][name]["peak_bytes"]
+                     for res in results]
+            print(f"{cell} bfloat16 on {cell_memory.MESH4}: peaks "
+                  f"{peaks} B against " + (
+                      f"the reckoned {want['total']} B a device (weights "
+                      f"{want['params']}, cache {want['cache']}, peak "
+                      f"{want['peak']})" if want else "no reckoning (its "
+                      "process did not finish)"))
+            by_path[f"{cell} bfloat16, 4 cards"] = sum(
+                res["cells"][arch][name]["launches"] for res in results)
+        for res in results:
+            c = res["cells"][arch]
+            errs += [*c["layer_err"].values(), *c["every_layer_err"]]
+        per_shape.append(results[0]["cells"][arch]["times"])
+    for r, res in enumerate(results):
+        check(not res["failed"], f"rank {r}: {len(res['failed'])} failed "
+              f"checks: {res['failed'][:5]}")
+    check(not bad, f"step one outside its tests' tolerances: "
+          f"{json.dumps(bad)[:2000]}")
+    lib = [t["library_ms"] for t in per_shape]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+            + fa.route(torch.bfloat16),
+            "replaces": KERNELS["flash_attention"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": max(errs),
+            "ms": sum(t["ms"] for t in per_shape), "plain_ms": None,
+            "bound_ms": sum(t["bound_ms"] for t in per_shape),
+            "bound_by": per_shape[0]["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
+            "per_shape": per_shape,
+            "launches_in_step_one": {
+                n: {k: sum(res["checks"][n]["launches"][k]
+                           for res in results)
+                    for k in launches()} for n in names}}
+
+
+def main_cards(n: int, log_dir: str | None) -> int:
+    """``--cards n``: the four-card run (see the module docstring)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    seen = torch.cuda.device_count()
+    if n != CARDS or seen != n:
+        print(f"chip_smoke: --cards {n} runs on {CARDS} cards; torch sees "
+              f"{seen}", file=sys.stderr)
+        return 1
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t0 = time.perf_counter()
+    kind, _ = phase_card()
+    phase_build()
+    smi = nvidia_smi(every=True)
+    print(f"cards: {smi}")
+    out_dir = log_dir or tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    os.makedirs(out_dir, exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=cards_rank, args=(
+        r, os.path.join(store_dir, "store"), out_dir)) for r in range(n)]
+    for p in procs:
+        p.start()
+    # host work beside the ranks, in a process of its own
+    reckon_path = os.path.join(out_dir, "reckoned.json")
+    reckoner = ctx.Process(target=reckon_to, args=(reckon_path,))
+    reckoner.start()
+    try:
+        codes = wait_ranks(procs, out_dir)
+    finally:
+        reckoner.join(timeout=CARDS_GRACE_S)
+        if reckoner.is_alive():
+            reckoner.kill()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    reckoned = json.load(open(reckon_path)) \
+        if os.path.exists(reckon_path) else {}
+    results = []
+    for r in range(n):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path)
+                       else {"error": "no results"})
+    log0 = os.path.join(out_dir, "rank0.log")
+    if os.path.exists(log0):
+        print(open(log0).read(), end="")
+    for r, res in enumerate(results):
+        if "error" in res:
+            print(f"rank {r}: {res['error']}")
+    check(all(c == 0 for c in codes) and not any("error" in res
+                                                 for res in results),
+          f"ranks ended with {codes} (None: killed); logs in {out_dir}")
+    entry = judge_cards(results, reckoned)
+    print(f"total wall: {time.perf_counter() - t0:.3f} s; logs in "
+          f"{out_dir}")
+    print(json.dumps({"kernels": [entry]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": n}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port's main "
+                                 "paths on CUDA cards and check them.")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="1 (every phase on one card) or 4 (the sharded "
+                    "path on four cards under NCCL)")
+    ap.add_argument("--log-dir", default=None,
+                    help="with --cards 4: where each rank's log and "
+                    "numbers go (default: a temporary directory)")
+    args = ap.parse_args(argv)
+    if args.cards != 1:
+        return main_cards(args.cards, args.log_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -5046,4 +5723,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

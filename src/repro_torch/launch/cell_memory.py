@@ -1,6 +1,7 @@
 """One card's memory for a production cell, reckoned before it runs.
 
   PYTHONPATH=src python -m repro_torch.launch.cell_memory [--arch A ...]
+      [--mesh data=1,model=4]
 
 The reference's production cells (``configs/shapes.py``) run
 ``prefill_32k`` as ``T.prefill(params, cfg, batch, 32768,
@@ -34,6 +35,18 @@ in both 32k cells, ``LONG_ROWS`` in ``long_500k`` and ``TRAIN_ROWS`` in
 ``train_4k``: the rows ``chip_smoke.py`` runs
 (``tests/test_torch_cell_memory.py`` holds them together).
 
+On a mesh (``--mesh data=1,model=4``; ``reckon(..., mesh=)``) a cell is
+reckoned for one device of it: the config is ``build_cfg(arch, mesh shape,
+kind=...)`` (tp the 'model' axis), the weights, the batch and the cache are
+meta DTensors laid out by ``param_specs``, ``batch_specs`` and
+``cache_specs`` on a ``"fake"`` process group of the mesh's ranks
+(``dryrun.fake_world``), and every byte is this rank's shard, counted as
+the dry run counts it.  On (data 1, model 4) every rank holds the same
+bytes (the batch is replicated, every split even), so rank 0's are the
+fullest device's.  ``MESH4_ROWS`` holds what ``largest_batch`` gives there
+in both 32k cells for the archs one card cannot hold: the rows
+``chip_smoke.py --cards 4`` runs.
+
 These are counts from shapes, with no allocator: the caching allocator's
 rounding and fragmentation, the kernels' own scratch (the SSD kernel's
 float32 C B^T, B G S 64 4 bytes) and the CUDA context are not in them,
@@ -43,6 +56,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 
 import torch
@@ -50,15 +64,17 @@ import torch
 from repro_torch.configs import SHAPES, get_arch
 from repro_torch.configs.shapes import ShapeCell, cell_applicable
 from repro_torch.launch import specs as S
-from repro_torch.launch.dryrun import _CellCost
-from repro_torch.launch.optconfig import TRAIN_MICROBATCHES
+from repro_torch.launch.dryrun import _CellCost, _nbytes, fake_world
+from repro_torch.launch.mesh import make_mesh, mesh_shape_dict
+from repro_torch.launch.optconfig import TRAIN_MICROBATCHES, build_cfg
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.parallel import batch_specs, distribute_tree, param_specs
 from repro_torch.train.loop import make_train_step
-from repro_torch.tree import tree_leaves
 
-__all__ = ["ROWS", "LONG_ROWS", "TRAIN_ROWS", "DECODE_STEPS",
-           "BUDGET_BYTES", "prefill_inputs", "reckon", "largest_batch", "main"]
+__all__ = ["ROWS", "LONG_ROWS", "TRAIN_ROWS", "MESH4", "MESH4_ROWS",
+           "DECODE_STEPS", "BUDGET_BYTES", "prefill_inputs", "reckon",
+           "largest_batch", "fake_mesh", "mesh_cfg", "main"]
 
 # the production cells' archs one card holds whole in bfloat16, and the rows
 # of both cells that ``largest_batch`` gives them at ``BUDGET_BYTES``
@@ -70,6 +86,12 @@ LONG_ROWS = {"mamba2-1.3b": 1}
 # the archs whose train_4k step ``chip_smoke.py`` runs, and the rows
 # ``largest_batch`` gives them at ``BUDGET_BYTES``
 TRAIN_ROWS = {"olmo-1b": 16, "mamba2-1.3b": 64}
+# the mesh of the production cells one card cannot hold: the reference's
+# production layout ('model' the tensor-parallel axis) on four cards
+MESH4 = {"data": 1, "model": 4}
+# those archs, and the rows of both 32k cells that ``largest_batch`` gives
+# them on ``MESH4`` at ``BUDGET_BYTES`` a card
+MESH4_ROWS = {"qwen1.5-32b": 4, "mixtral-8x7b": 8}
 DECODE_STEPS = 16
 BUDGET_BYTES = 72e9     # of the card's 80 GB, see the module docstring
 
@@ -91,9 +113,20 @@ def prefill_inputs(cfg, rows: int, seq: int, device,
     return batch
 
 
-def _bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
-               if isinstance(t, torch.Tensor))
+@contextlib.contextmanager
+def fake_mesh(shape: dict):
+    """A cuda-typed ``DeviceMesh`` of ``shape`` on a ``"fake"`` process
+    group of its ranks, this process standing in for rank 0."""
+    with fake_world(int(torch.tensor(list(shape.values())).prod())):
+        yield make_mesh(shape, "cuda")
+
+
+def mesh_cfg(arch: str, mesh_shape: dict, kind: str):
+    """The config a cell of ``kind`` runs on a mesh of ``mesh_shape``:
+    ``build_cfg``'s (the reference's production layout), attention through
+    the flash kernel."""
+    return build_cfg(arch, mesh_shape, kind=kind).replace(
+        attn_impl_train="pallas")
 
 
 def _microbatches(cfg, cell: ShapeCell) -> int:
@@ -103,15 +136,21 @@ def _microbatches(cfg, cell: ShapeCell) -> int:
         else 1
 
 
-def reckon(cfg, cell: ShapeCell, rows: int) -> dict:
+def reckon(cfg, cell: ShapeCell, rows: int, mesh=None) -> dict:
     """Bytes of ``cell`` at ``rows`` rows, bfloat16 weights, from shapes:
     ``params``, ``cache`` (none in a train cell), ``opt`` (the optimizer
     state a train cell holds; none otherwise), ``peak`` (made during the
     call, above what it is handed) and ``total`` (weights, optimizer state
     and peak).  A train cell's step takes the arch's
-    ``TRAIN_MICROBATCHES`` microbatches."""
+    ``TRAIN_MICROBATCHES`` microbatches.  On ``mesh`` (a prefill or decode
+    cell) every byte is one device's: its shards."""
     params = T.init_params(cfg, dtype=torch.bfloat16, device="meta")
-    p = _bytes(params)
+    if mesh is not None:
+        if cell.kind == "train":
+            raise ValueError("a train cell is not reckoned on a mesh")
+        msd = mesh_shape_dict(mesh)
+        params = distribute_tree(params, param_specs(cfg, params, msd), mesh)
+    p = _nbytes(params)
     if cell.kind == "train":
         opt_cfg = AdamWConfig(moment_dtype=cfg.opt_dtype)
         opt = adamw_init(params, opt_cfg)
@@ -121,12 +160,14 @@ def reckon(cfg, cell: ShapeCell, rows: int) -> dict:
             cfg, cell))
         with _CellCost((params, opt, batch)) as cost:
             step(params, opt, batch)
-        o = _bytes(opt)
+        o = _nbytes(opt)
         return {"params": p, "cache": 0, "opt": o, "peak": cost.peak,
                 "total": p + o + cost.peak}
     decode = cell.kind == "decode"
     batch = prefill_inputs(cfg, rows, cell.seq_len - decode * DECODE_STEPS,
                            "meta")
+    if mesh is not None:
+        batch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
 
     def run():
         logits, cache = T.prefill(params, cfg, batch, cell.seq_len,
@@ -138,30 +179,59 @@ def reckon(cfg, cell: ShapeCell, rows: int) -> dict:
 
     with _CellCost((params, batch)) as cost:
         _, cache = run()
-    return {"params": p, "cache": _bytes(cache["blocks"]), "opt": 0,
+    return {"params": p, "cache": _nbytes(cache["blocks"]), "opt": 0,
             "peak": cost.peak, "total": p + cost.peak}
 
 
-def largest_batch(cfg, cell: ShapeCell, budget: float = BUDGET_BYTES
-                  ) -> tuple:
+def largest_batch(cfg, cell: ShapeCell, budget: float = BUDGET_BYTES,
+                  mesh=None) -> tuple:
     """(rows, ``reckon``'s bytes) of the largest power of two up to the
     cell's global batch that fits ``budget`` (in a train cell, divisible by
     its microbatches); (0, None) if none does."""
     m = _microbatches(cfg, cell)
     rows = cell.global_batch
     while rows >= m and rows % m == 0:
-        got = reckon(cfg, cell, rows)
+        got = reckon(cfg, cell, rows, mesh)
         if got["total"] <= budget:
             return rows, got
         rows //= 2
     return 0, None
 
 
+def _mesh_arg(text: str) -> dict:
+    """``data=1,model=4`` -> {"data": 1, "model": 4}, in that order."""
+    return {k: int(v) for k, v in (kv.split("=") for kv in text.split(","))}
+
+
+def _report(arch: str, name: str, cell: ShapeCell, rows: int, got,
+            where: str) -> None:
+    held = (f"cache {got['cache']} B" if cell.kind != "train"
+            else f"optimizer state {got['opt']} B") if got else ""
+    print(f"{arch} {name}: {rows} of {cell.global_batch} rows fit "
+          f"{BUDGET_BYTES / 1e9} GB{where}"
+          + (f" (weights {got['params']} B, {held}, "
+             f"peak {got['peak']} B, total {got['total']} B)"
+             if got else ""))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", nargs="*", default=list(ROWS))
+    ap.add_argument("--arch", nargs="*", default=None)
+    ap.add_argument("--mesh", type=_mesh_arg, default=None,
+                    help="reckon one device of this mesh, e.g. "
+                    "data=1,model=4 (the prefill and decode cells)")
     args = ap.parse_args(argv)
-    for arch in args.arch:
+    if args.mesh is not None:
+        with fake_mesh(args.mesh) as mesh:
+            for arch in args.arch or list(MESH4_ROWS):
+                for name in ("prefill_32k", "decode_32k"):
+                    cell = SHAPES[name]
+                    cfg = mesh_cfg(arch, args.mesh, cell.kind)
+                    rows, got = largest_batch(cfg, cell, mesh=mesh)
+                    _report(arch, name, cell, rows, got,
+                            f" a device of {args.mesh}")
+        return
+    for arch in args.arch or list(ROWS):
         cfg = get_arch(arch, attn_impl_train="pallas")
         names = ["prefill_32k", "decode_32k"]
         if cell_applicable(cfg, SHAPES["long_500k"]):
@@ -174,13 +244,7 @@ def main(argv=None) -> None:
                 # the reference trains through the chunked attention
                 cfg = get_arch(arch)
             rows, got = largest_batch(cfg, cell)
-            held = (f"cache {got['cache']} B" if cell.kind != "train"
-                    else f"optimizer state {got['opt']} B") if got else ""
-            print(f"{arch} {name}: {rows} of {cell.global_batch} rows fit "
-                  f"{BUDGET_BYTES / 1e9} GB"
-                  + (f" (weights {got['params']} B, {held}, "
-                     f"peak {got['peak']} B, total {got['total']} B)"
-                     if got else ""))
+            _report(arch, name, cell, rows, got, "")
 
 
 if __name__ == "__main__":

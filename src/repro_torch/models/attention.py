@@ -31,10 +31,10 @@ import dataclasses
 import functools
 import math
 
-import numpy as np
 import torch
 
-from repro_torch.models.common import LeafShape, apply_rope, normal
+from repro_torch.models.common import (LeafShape, apply_rope, init_scale,
+                                      normal)
 from repro_torch.parallel.shards import (head_roles, layout, mesh_of,
                                          on_shards, tp_matmul)
 
@@ -92,12 +92,11 @@ def init_attention(generator: torch.Generator, dims: AttnDims, dtype, *,
     expansion), on the generator's device."""
     d, dh = dims.d_model, dims.d_head
     dev = generator.device
-    s = float(1.0 / np.sqrt(d))
-    wq_l = normal(generator, (d, dims.n_q, dh), dtype, s)
-    wk_l = normal(generator, (d, dims.n_kv, dh), dtype, s)
-    wv_l = normal(generator, (d, dims.n_kv, dh), dtype, s)
+    wq_l = normal(generator, (d, dims.n_q, dh), dtype, init_scale("wq", d))
+    wk_l = normal(generator, (d, dims.n_kv, dh), dtype, init_scale("wk", d))
+    wv_l = normal(generator, (d, dims.n_kv, dh), dtype, init_scale("wv", d))
     wo_l = normal(generator, (dims.n_q, dh, d), dtype,
-                  float(1.0 / np.sqrt(dims.n_q * dh)))
+                  init_scale("wo", dims.n_q * dh))
 
     # expand to physical
     nq_p, nkv_p = dims.n_q_phys, dims.n_kv_phys
@@ -112,9 +111,9 @@ def init_attention(generator: torch.Generator, dims: AttnDims, dtype, *,
     p = {"wq": wq.reshape(d, nq_p * dh), "wk": wk.reshape(d, nkv_p * dh),
          "wv": wv.reshape(d, nkv_p * dh), "wo": wo.reshape(nq_p * dh, d)}
     if qkv_bias:
-        bq_l = normal(generator, (dims.n_q, dh), dtype, 0.01)
-        bk_l = normal(generator, (dims.n_kv, dh), dtype, 0.01)
-        bv_l = normal(generator, (dims.n_kv, dh), dtype, 0.01)
+        bq_l = normal(generator, (dims.n_q, dh), dtype, init_scale("bq"))
+        bk_l = normal(generator, (dims.n_kv, dh), dtype, init_scale("bk"))
+        bv_l = normal(generator, (dims.n_kv, dh), dtype, init_scale("bv"))
         bq = torch.zeros((nq_p, dh), dtype=dtype, device=dev)
         bq[:dims.n_q] = bq_l
         p["bq"] = bq.reshape(nq_p * dh)

@@ -21,8 +21,8 @@ from repro_torch.parallel.shards import gather_fsdp, nll_sum, \
 __all__ = ["rms_norm", "layer_norm_nonparam", "make_norm", "init_norm",
            "apply_norm", "rope_frequencies", "apply_rope", "init_mlp",
            "apply_mlp", "mlp_flops", "chunked_cross_entropy",
-           "init_embedding", "embed_tokens", "normal", "MetaGenerator",
-           "LeafShape"]
+           "init_embedding", "embed_tokens", "normal", "init_scale",
+           "MetaGenerator", "LeafShape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +48,28 @@ def normal(generator: torch.Generator, shape, dtype, scale: float
                     generator=None if isinstance(generator, MetaGenerator)
                     else generator)
     return (x * scale).to(dtype)
+
+
+# The scale of every weight drawn as ``normal``, by the leaf's name: a fixed
+# one, or 1 / sqrt(fan-in), the length of the sums its product takes (dim -2
+# of an unpadded leaf).  Every initialiser of the port and
+# ``models/shard_init.py`` take their scales from here.
+INIT_FIXED = {"table": 0.02, "lm_head": 0.02, "bq": 0.01, "bk": 0.01,
+              "bv": 0.01, "conv_wx": 0.2, "conv_wbc": 0.2}
+INIT_FAN_IN = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "router",
+                         "patch_proj", "wz", "wx", "wb", "wc", "wdt",
+                         "out_proj"})
+
+
+def init_scale(name: str, fan_in: int | None = None) -> float:
+    """The scale of the leaf ``name`` (``INIT_FIXED``, else 1 / sqrt(
+    ``fan_in``)); a leaf drawn otherwise raises ``ValueError``."""
+    if name in INIT_FIXED:
+        return INIT_FIXED[name]
+    if name in INIT_FAN_IN and fan_in:
+        return float(1.0 / math.sqrt(fan_in))
+    raise ValueError(f"the leaf {name!r} is not drawn as N(0, 1) times a "
+                     "scale")
 
 
 # ----------------------------------------------------------------- norms ----
@@ -124,12 +146,10 @@ def _act(kind: str):
 def init_mlp(generator: torch.Generator, d: int, ff: int, kind: str,
              dtype) -> dict:
     """kind: 'swiglu' | 'geglu' | 'relu2' | 'gelu'."""
-    s_in = float(1.0 / math.sqrt(d))
-    s_out = float(1.0 / math.sqrt(ff))
-    p = {"wi": normal(generator, (d, ff), dtype, s_in),
-         "wo": normal(generator, (ff, d), dtype, s_out)}
+    p = {"wi": normal(generator, (d, ff), dtype, init_scale("wi", d)),
+         "wo": normal(generator, (ff, d), dtype, init_scale("wo", ff))}
     if kind in ("swiglu", "geglu"):
-        p["wg"] = normal(generator, (d, ff), dtype, s_in)
+        p["wg"] = normal(generator, (d, ff), dtype, init_scale("wg", d))
     return p
 
 
@@ -192,7 +212,7 @@ def chunked_cross_entropy(hidden, labels, lm_head, *, chunk: int = 2048,
 def init_embedding(generator: torch.Generator, vocab: int, d: int, dtype,
                    n_codebooks: int = 0) -> dict:
     shape = (n_codebooks, vocab, d) if n_codebooks else (vocab, d)
-    return {"table": normal(generator, shape, dtype, 0.02)}
+    return {"table": normal(generator, shape, dtype, init_scale("table"))}
 
 
 def embed_tokens(params: dict, tokens):

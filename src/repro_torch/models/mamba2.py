@@ -26,7 +26,6 @@ rank's heads.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -34,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-from repro_torch.models.common import LeafShape, normal, rms_norm
+from repro_torch.models.common import (LeafShape, init_scale, normal,
+                                      rms_norm)
 from repro_torch.parallel.shards import (head_roles, layout, mesh_of,
                                          on_shards, tp_matmul)
 
@@ -74,18 +74,19 @@ def init_mamba(generator: torch.Generator, cfg: SSMConfig, dtype) -> dict:
     d, di, h = cfg.d_model, cfg.d_inner, cfg.n_heads
     gn = cfg.n_groups * cfg.d_state
     dev = generator.device
-    s = float(1.0 / np.sqrt(d))
     dt_init = np.exp(np.random.default_rng(0).uniform(
         np.log(1e-3), np.log(1e-1), h))
     return {
-        "wz": normal(generator, (d, di), dtype, s),
-        "wx": normal(generator, (d, di), dtype, s),
-        "wb": normal(generator, (d, gn), dtype, s),
-        "wc": normal(generator, (d, gn), dtype, s),
-        "wdt": normal(generator, (d, h), dtype, s),
-        "conv_wx": normal(generator, (cfg.d_conv, di), dtype, 0.2),
+        "wz": normal(generator, (d, di), dtype, init_scale("wz", d)),
+        "wx": normal(generator, (d, di), dtype, init_scale("wx", d)),
+        "wb": normal(generator, (d, gn), dtype, init_scale("wb", d)),
+        "wc": normal(generator, (d, gn), dtype, init_scale("wc", d)),
+        "wdt": normal(generator, (d, h), dtype, init_scale("wdt", d)),
+        "conv_wx": normal(generator, (cfg.d_conv, di), dtype,
+                          init_scale("conv_wx")),
         "conv_bx": torch.zeros((di,), dtype=dtype, device=dev),
-        "conv_wbc": normal(generator, (cfg.d_conv, 2 * gn), dtype, 0.2),
+        "conv_wbc": normal(generator, (cfg.d_conv, 2 * gn), dtype,
+                           init_scale("conv_wbc")),
         "conv_bbc": torch.zeros((2 * gn,), dtype=dtype, device=dev),
         "a_log": torch.from_numpy(np.log(np.linspace(
             1.0, 16.0, h, dtype=np.float32))).to(dev),
@@ -94,7 +95,7 @@ def init_mamba(generator: torch.Generator, cfg: SSMConfig, dtype) -> dict:
         "d_skip": torch.ones((h,), dtype=torch.float32, device=dev),
         "norm_scale": torch.ones((di,), dtype=dtype, device=dev),
         "out_proj": normal(generator, (di, d), dtype,
-                           float(1.0 / math.sqrt(di))),
+                           init_scale("out_proj", di)),
     }
 
 

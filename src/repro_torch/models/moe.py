@@ -32,12 +32,12 @@ not synchronise with the host either.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
-from repro_torch.models.common import apply_mlp, init_mlp, normal
+from repro_torch.models.common import (apply_mlp, init_mlp, init_scale,
+                                      normal)
 from repro_torch.parallel.shards import (gather_fsdp, layout, mesh_of,
                                         on_shards, roles)
 
@@ -71,12 +71,12 @@ def init_moe(generator: torch.Generator, d: int, cfg: MoEConfig, dtype
     """Router (float32, as the reference's), per-expert ``(E, d, ff)`` /
     ``(E, ff, d)`` weights and, with shared experts, their dense MLP."""
     e, ff = cfg.n_experts, cfg.d_ff_expert
-    s_in, s_out = float(1.0 / math.sqrt(d)), float(1.0 / math.sqrt(ff))
-    p = {"router": normal(generator, (d, e), torch.float32, s_in),
-         "wi": normal(generator, (e, d, ff), dtype, s_in),
-         "wo": normal(generator, (e, ff, d), dtype, s_out)}
+    p = {"router": normal(generator, (d, e), torch.float32,
+                          init_scale("router", d)),
+         "wi": normal(generator, (e, d, ff), dtype, init_scale("wi", d)),
+         "wo": normal(generator, (e, ff, d), dtype, init_scale("wo", ff))}
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        p["wg"] = normal(generator, (e, d, ff), dtype, s_in)
+        p["wg"] = normal(generator, (e, d, ff), dtype, init_scale("wg", d))
     if cfg.n_shared:
         ff_s = cfg.d_ff_shared or cfg.n_shared * ff
         p["shared"] = init_mlp(generator, d, ff_s, cfg.mlp_kind, dtype)

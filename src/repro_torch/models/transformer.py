@@ -46,7 +46,8 @@ from repro_torch.models import mamba2, moe
 from repro_torch.models.common import (LeafShape, MetaGenerator, apply_mlp,
                                        apply_norm, chunked_cross_entropy,
                                        embed_tokens, init_embedding,
-                                       init_mlp, init_norm, normal)
+                                       init_mlp, init_norm, init_scale,
+                                       normal)
 from repro_torch.parallel.sharding import (P, _batch_dim_spec, cache_specs,
                                            mesh_shape_dict, mesh_shape_size,
                                            placements)
@@ -143,14 +144,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     }
     if cfg.n_codebooks:
         params["lm_head"] = normal(
-            generator, (cfg.n_codebooks, cfg.d_model, cfg.vocab), dtype, 0.02)
+            generator, (cfg.n_codebooks, cfg.d_model, cfg.vocab), dtype,
+            init_scale("lm_head"))
     else:
         params["lm_head"] = normal(generator, (cfg.d_model, cfg.vocab), dtype,
-                                   0.02)
+                                   init_scale("lm_head"))
     if cfg.frontend == "patch":
         params["patch_proj"] = normal(
             generator, (cfg.patch_dim, cfg.d_model), dtype,
-            float(1.0 / np.sqrt(cfg.patch_dim)))
+            init_scale("patch_proj", cfg.patch_dim))
 
     # stacked blocks: tuple over pattern positions, leading dim = n_repeats
     params["blocks"] = tuple(_stacked_layers(cfg, spec, generator, dtype)

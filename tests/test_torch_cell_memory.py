@@ -20,6 +20,11 @@
   ``train_input_specs`` batch, whose new trees are made; ``largest_batch``
   keeps its rows divisible by the microbatches, and ``TRAIN_ROWS`` is what
   it gives at the cell's own shapes.
+* On a mesh (``reckon(..., mesh=)``, ``--mesh data=1,model=4``) a cell is
+  reckoned for one device over meta DTensors on a fake four-rank group:
+  its weights and cache are the shard arithmetic of ``param_specs`` and
+  ``cache_specs``, and ``MESH4_ROWS`` is what ``largest_batch`` gives
+  there at the production cells' shapes.
 """
 import math
 
@@ -237,3 +242,86 @@ def test_train_rows_are_the_largest_batch_that_fits(arch):
     assert rows % m == 0 and rows < cell.global_batch
     assert cm.reckon(cfg, cell, rows)["total"] <= cm.BUDGET_BYTES
     assert cm.reckon(cfg, cell, 2 * rows)["total"] > cm.BUDGET_BYTES
+
+
+def _shard_bytes(tree, specs, msd) -> int:
+    """Bytes of one device's shards of ``tree`` laid out by ``specs`` on a
+    mesh of ``msd``: each leaf's bytes over the ranks of every axis its
+    spec names (``test_torch_parallel.py``'s shard arithmetic)."""
+    from repro_torch.tree import tree_map_with_keys
+    out = []
+
+    def one(keys, leaf, spec):
+        if not isinstance(leaf, torch.Tensor) and not hasattr(leaf, "shape"):
+            return
+        n = math.prod(leaf.shape) * leaf.dtype.itemsize
+        for ax in tuple(spec):
+            for a in () if ax is None else ((ax,) if isinstance(ax, str)
+                                            else ax):
+                n //= msd[a]
+        out.append(n)
+    tree_map_with_keys(one, tree, specs)
+    return sum(out)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "mixtral-8x7b"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_mesh_reckon_bytes_are_the_shard_arithmetic(arch, kind):
+    """Smoke qwen1.5-32b (int8 cache) and mixtral-8x7b (ring cache, MoE)
+    at tp 4, reckoned for one device of a fake (data 1, model 4) mesh: the
+    weights are the shard arithmetic of ``param_specs`` and the cache that
+    of ``cache_specs`` on the cache's own leaf shapes, each under the
+    one-card reckoning's of the same tp-4 config."""
+    from repro_torch.parallel import cache_specs, param_specs
+    msd = cm.MESH4
+    cfg = smoke_config(arch, tp=4, attn_impl_train="pallas")
+    cell = ShapeCell("small", kind, 64, 8)
+    rows = 2
+    with cm.fake_mesh(msd) as mesh:
+        got = cm.reckon(cfg, cell, rows, mesh)
+    one_card = cm.reckon(cfg, cell, rows)
+    params = T.init_params(cfg, dtype=torch.bfloat16, device="meta")
+    assert got["params"] == _shard_bytes(
+        params, param_specs(cfg, params, msd), msd)
+    leaves = T.cache_leaf_shapes(cfg, rows, cell.seq_len, torch.bfloat16)
+    assert got["cache"] == _shard_bytes(
+        leaves["blocks"], cache_specs(cfg, leaves, msd)["blocks"], msd)
+    # a quarter of the K/V; the ring's slot positions are replicated
+    assert got["cache"] < one_card["cache"] <= 4 * got["cache"]
+    assert got["params"] < one_card["params"]
+    assert got["total"] == got["params"] + got["peak"] > got["cache"]
+
+
+@pytest.mark.parametrize("arch", list(cm.MESH4_ROWS))
+def test_mesh4_rows_are_the_largest_batch_that_fits(arch):
+    """``MESH4_ROWS``, the rows ``chip_smoke.py --cards 4`` runs, is what
+    ``largest_batch`` gives for a device of ``MESH4`` at the production
+    cells' own shapes, in both cells, with ``build_cfg``'s tp-4 config:
+    those rows fit the budget and twice as many do not, and one card could
+    not hold the weights whole."""
+    rows = cm.MESH4_ROWS[arch]
+    with cm.fake_mesh(cm.MESH4) as mesh:
+        for name in ("prefill_32k", "decode_32k"):
+            cell = SHAPES[name]
+            cfg = cm.mesh_cfg(arch, cm.MESH4, cell.kind)
+            assert cfg.tp == 4 and cfg.attn_impl_train == "pallas"
+            assert rows < cell.global_batch
+            got = cm.reckon(cfg, cell, rows, mesh)
+            assert got["total"] <= cm.BUDGET_BYTES
+            assert cm.reckon(cfg, cell, 2 * rows, mesh)["total"] > \
+                cm.BUDGET_BYTES
+    assert 4 * got["params"] > cm.BUDGET_BYTES
+
+
+def test_mesh_cli_reckons_each_cell_for_a_device(capsys):
+    """``--mesh data=1,model=4`` parses into the mesh in its order and
+    prints each 32k cell's rows for a device of it."""
+    assert cm._mesh_arg("data=1,model=4") == {"data": 1, "model": 4}
+    cm.main(["--arch", "mixtral-8x7b", "--mesh", "data=1,model=4"])
+    lines = capsys.readouterr().out.splitlines()
+    rows = cm.MESH4_ROWS["mixtral-8x7b"]
+    assert [line.split(" rows")[0] for line in lines] == [
+        f"mixtral-8x7b prefill_32k: {rows} of 32",
+        f"mixtral-8x7b decode_32k: {rows} of 128"]
+    assert all("a device of {'data': 1, 'model': 4}" in line
+               for line in lines)

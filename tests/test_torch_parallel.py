@@ -21,9 +21,16 @@
   expert-parallel MoE equal to plain, sharded smoke olmo-1b (train
   step, prefill, decode) and mamba2-1.3b (prefill, decode and a train
   step) against the unsharded port, decode steps past the end of a full
-  cache (float32 and int8) against the unsharded port, and the sharded
+  cache (float32 and int8) against the unsharded port, the sharded
   loss and its gradients against plain for a vocab-split, a d-split and an
-  FSDP head.
+  FSDP head, smoke qwen1.5-32b and mixtral-8x7b on (data 1, model 4)
+  against the unsharded port, the shard-seeded weights
+  (``models/shard_init.py``) against their whole tree, and the judgement of
+  MoE route changes, which refuses a moved router.  The checks and their
+  tolerances live in ``repro_torch.launch.mesh_checks``, which
+  ``chip_smoke.py --cards 4`` runs on four cards under NCCL and holds by
+  ``mesh_checks.verdicts``; each test below holds its case of the gloo run
+  by the same ``verdict``, beside its own structural asserts.
 """
 import dataclasses
 import json
@@ -341,9 +348,8 @@ def test_hierarchical_grad_reduce_multipod(gloo_results):
     """``tests/test_elastic.py:92-113``'s check: within scale / 64 of the
     mean over the four data-parallel shards with int8 across pods; the
     float mean of four values summed in another order within 1e-6."""
-    for r in _ok(gloo_results["hierarchical"]):
-        assert r["int8"] <= r["scale"] / 64, r
-        assert r["float"] <= 1e-6, r
+    _ok(gloo_results["hierarchical"])
+    assert W.verdict("hierarchical", gloo_results["hierarchical"]) is None
 
 
 def test_int8_all_reduce_four_ranks_error_bound(gloo_results):
@@ -352,15 +358,10 @@ def test_int8_all_reduce_four_ranks_error_bound(gloo_results):
     S = sum s_r of it; summed over n ranks and divided by n, the mean is
     within (n + 1) S / (2 n) of the float mean, which is at most
     (n + 1) / 2 = 2.5 of the largest rank's steps, so within 4 steps."""
-    n = W.WORLD
     results = _ok(gloo_results["int8"])
     for r in results:
         assert r == results[0]             # every rank holds the same mean
-        for err, big, shared in zip(r["err_by_chunk"],
-                                    r["max_step_by_chunk"],
-                                    r["shared_step_by_chunk"]):
-            assert err <= (n + 1) * shared / (2 * n) + 1e-6
-            assert err <= 4 * big
+    assert W.verdict("int8", results) is None
 
 
 def test_moe_expert_parallel_matches_plain(gloo_results):
@@ -369,7 +370,7 @@ def test_moe_expert_parallel_matches_plain(gloo_results):
     within 1e-6 (``tests/test_layouts.py``'s bound)."""
     for r in _ok(gloo_results["moe"]):
         assert r["wi_spec"] == ["data"] and r["wi_local"] == [1, 8, 16]
-        assert r["out"] <= 1e-6 and r["aux"] <= 1e-6, r
+    assert W.verdict("moe", gloo_results["moe"]) is None
 
 
 @pytest.mark.parametrize("experts", ["replicated_experts",
@@ -382,9 +383,8 @@ def test_moe_groups_keep_the_batch_sharding_without_group_axis(
     equals plain ``apply_moe`` within 1e-6."""
     for r in _ok(gloo_results["moe_batch"]):
         assert r["plain_buf"] == [4, 4 * 32, 8]
-        got = r[experts]
-        assert got["local_bufs"] == [[4, 32, 8]], got
-        assert got["out"] <= 1e-6 and got["aux"] <= 1e-6, got
+        assert r[experts]["local_bufs"] == [[4, 32, 8]], r[experts]
+    assert W.verdict("moe_batch", gloo_results["moe_batch"], experts) is None
 
 
 def test_olmo_sharded_train_step_matches_unsharded(gloo_results):
@@ -398,13 +398,8 @@ def test_olmo_sharded_train_step_matches_unsharded(gloo_results):
     wrong update shows.  New weights keep the parameters' layout, the
     ZeRO-1 moments theirs."""
     for r in _ok(gloo_results["olmo"]):
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(*r[key], rtol=1e-5)
-        assert r["update"] >= 5e-4, r["update"]
-        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
-        for key in ("m", "v"):
-            assert r[key]["err"] <= 1e-5 * r[key]["scale"], (key, r[key])
         assert r["kept_layout"] == {"params": True, "m": True, "v": True}
+    assert W.verdict("olmo", gloo_results["olmo"], "train") is None
 
 
 def test_olmo_sharded_prefill_and_decode_match_unsharded(gloo_results):
@@ -414,11 +409,11 @@ def test_olmo_sharded_prefill_and_decode_match_unsharded(gloo_results):
     the KV cache lies as ``cache_specs`` puts it, batch over 'data' and kv
     heads over 'model'."""
     for r in _ok(gloo_results["olmo"]):
-        assert r["prefill"] <= 1e-5 and r["decode"] <= 1e-5, r
         assert r["cache_global"] == [1, 4, 40, 4, 16]
         assert r["cache_local"] == [1, 2, 40, 2, 16]
         storage, shard = r["cache_storage"]     # allocated at its shard
         assert storage == shard == 1 * 2 * 40 * 2 * 16 * 4
+    assert W.verdict("olmo", gloo_results["olmo"], "serve") is None
 
 
 @pytest.mark.parametrize("cache", ["float", "int8"])
@@ -431,8 +426,9 @@ def test_sharded_decode_past_the_cache_end_matches_unsharded(gloo_results,
     codes equal)."""
     for r in _ok(gloo_results["decode_past_end"]):
         r = r[cache]
-        assert r["decode"] <= 1e-5 * max(1.0, r["scale"]), r
         assert r["last_slot"] == 0 and r["last_slot_written"], r
+    assert W.verdict("decode_past_end", gloo_results["decode_past_end"],
+                     cache) is None
 
 
 def test_sharded_cache_is_allocated_at_its_shards(gloo_results):
@@ -453,6 +449,7 @@ def test_sharded_cache_is_allocated_at_its_shards(gloo_results):
                 assert storage == shard, (arch, key, storage, shard)
             assert got["largest_made"] == max(
                 shard for _, shard in got["storage"].values()), arch
+    assert W.verdict("cache_alloc", gloo_results["cache_alloc"]) is None
 
 
 def test_mamba_sharded_prefill_matches_unsharded(gloo_results):
@@ -462,10 +459,10 @@ def test_mamba_sharded_prefill_matches_unsharded(gloo_results):
     results = _ok(gloo_results["mamba"])
     assert results[2] == results[3] == {}      # not in the mesh
     for r in results[:2]:
-        assert r["prefill"] <= 1e-5 and r["decode"] <= 1e-5, r
         assert r["ssm_global"] == [1, 2, 8, 16, 16]
         assert r["ssm_local"] == [1, 2, 4, 16, 16]
         assert r["ssm_storage"] == [1 * 2 * 4 * 16 * 16 * 4] * 2
+    assert W.verdict("mamba", results) is None
 
 
 @pytest.mark.parametrize("layout", ["tp", "dp_tp"])
@@ -474,8 +471,9 @@ def test_mamba_sharded_train_step_matches_unsharded(gloo_results, layout):
     backward of its four of the eight heads under ``local_map``: on (data
     1, model 2) ("tp", ranks 0 and 1) and on (data 2, model 2) with the
     batch over 'data' ("dp_tp").  Loss and grad norm within 1e-5 relative
-    and the new weights within 1e-5 of the unsharded step (the tolerance of
-    the olmo step above); the step moves the weights by about the lr, so a
+    and the new weights within 1e-5 of the unsharded step, each leaf's
+    moments within 1e-5 of their largest value (``mesh_checks._step_ok``,
+    the tolerance of the olmo step above); the step moves the weights by about the lr, so a
     lost share of a gradient shows (B/C, read by every head, and the conv
     weights, read by every batch row, take theirs from every rank)."""
     results = _ok([r[layout] for r in _ok(gloo_results["mamba_train"])])
@@ -483,11 +481,9 @@ def test_mamba_sharded_train_step_matches_unsharded(gloo_results, layout):
         assert results[2] == results[3] == {}      # not in the mesh
         results = results[:2]
     for r in results:
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(*r[key], rtol=1e-5)
-        assert r["update"] >= 5e-4, r["update"]
-        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
         assert r["a_log_local"] == [1, 4]        # (repeats, local heads)
+    assert W.verdict("mamba_train", gloo_results["mamba_train"],
+                     layout) is None
 
 
 def test_jamba_fsdp_train_step_matches_unsharded(gloo_results):
@@ -496,12 +492,11 @@ def test_jamba_fsdp_train_step_matches_unsharded(gloo_results):
     both batch axes): each layer's FSDP weights gathered over
     'data' at its entry (``shards.gather_fsdp``), one train step against the
     unsharded step on the same weights, at the olmo and mamba steps'
-    tolerances (loss and grad norm 1e-5 relative, weights 1e-5)."""
-    for r in _ok(gloo_results["jamba_fsdp_train"]):
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(*r[key], rtol=1e-5)
-        assert r["update"] >= 5e-4, r["update"]
-        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+    tolerances (loss and grad norm 1e-5 relative, weights 1e-5, each
+    leaf's moments 1e-5 of their largest value)."""
+    _ok(gloo_results["jamba_fsdp_train"])
+    assert W.verdict("jamba_fsdp_train",
+                     gloo_results["jamba_fsdp_train"]) is None
 
 
 @pytest.mark.parametrize("case", sorted(W.DP_CASES))
@@ -513,14 +508,12 @@ def test_dp_layout_train_step_matches_unsharded(gloo_results, case):
     moments' shard (``shards.relayout``) and the norm is a sum over shards
     and one all-reduce, so its float32 sums run in another order than the
     unsharded step's: one step against that step at the olmo step's
-    tolerances (loss and grad norm 1e-5 relative, weights 1e-5); the step
+    tolerances (loss and grad norm 1e-5 relative, weights 1e-5, each leaf's
+    moments 1e-5 of their largest value); the step
     moves the weights by about the lr, so a gradient reduced twice or not
     at all shows."""
-    for r in [r[case] for r in _ok(gloo_results["dp_train"])]:
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(*r[key], rtol=1e-5)
-        assert r["update"] >= 5e-4, r["update"]
-        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+    _ok([r[case] for r in _ok(gloo_results["dp_train"])])
+    assert W.verdict("dp_train", gloo_results["dp_train"], case) is None
 
 
 def _uneven_results(gloo_results, case: str) -> list:
@@ -539,13 +532,16 @@ def test_uneven_pinned_rows_train_step_matches_unsharded(gloo_results,
     batch axes, one row on the ranks of 'data' 0 and none on those of
     'data' 1, as ``torch.chunk`` splits two rows over four ranks; one
     train step against the unsharded step on the same weights (loss and
-    grad norm 1e-5 relative, weights 1e-5)."""
+    grad norm 1e-5 relative, weights 1e-5, each leaf's moments 1e-5 of
+    their largest value)."""
     for rank, r in enumerate(_uneven_results(gloo_results, case)):
         assert r["pinned_rows"] == [1 - rank % 2], (rank, r["pinned_rows"])
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(*r[key], rtol=1e-5)
-        assert r["update"] >= 5e-4, r["update"]
-        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+    if case == "jamba":
+        assert W.verdict("jamba_fsdp_train",
+                         gloo_results["jamba_fsdp_train"]) is None
+    else:
+        assert W.verdict("uneven_pin", gloo_results["uneven_pin"],
+                         case) is None
 
 
 def test_merge_and_split_rows_of_an_uneven_batch(gloo_results):
@@ -557,7 +553,7 @@ def test_merge_and_split_rows_of_an_uneven_batch(gloo_results):
     for rank, r in enumerate(_ok(gloo_results["uneven_pin"])):
         r = r["rows"]
         assert r["rows_local"] == 4 and r["back_local"] == 1 - rank % 2
-        assert r["merged"] == r["split"] == r["grad"] == 0.0, r
+    assert W.verdict("uneven_pin", gloo_results["uneven_pin"], "rows") is None
 
 
 @pytest.mark.parametrize("head", sorted(W.LOSS_HEADS))
@@ -571,12 +567,9 @@ def test_sharded_loss_matches_plain_for_each_head(gloo_results, head):
     Labels -1, on each vocab shard's first and last column, and a chunk
     all masked."""
     for r in _ok(gloo_results["loss_heads"]):
-        r = r[head]
-        np.testing.assert_allclose(*r["loss"], rtol=1e-5)
-        for key in ("hidden", "head", "scale"):
-            assert r[key]["err"] <= 1e-5 * r[key]["scale"], (key, r[key])
-        assert r["head_local"] == {"vocab": [16, 256], "d": [8, 511],
-                                   "fsdp": [8, 256]}[head]
+        assert r[head]["head_local"] == {"vocab": [16, 256], "d": [8, 511],
+                                         "fsdp": [8, 256]}[head]
+    assert W.verdict("loss_heads", gloo_results["loss_heads"], head) is None
 
 
 def test_gqa_heads_sharded_per_rank_match_unsharded(gloo_results):
@@ -588,7 +581,7 @@ def test_gqa_heads_sharded_per_rank_match_unsharded(gloo_results):
         assert r["kv_global"] == [1, 2, 40, 4, 16]
         assert r["kv_local"] == [1, 2, 40, 1, 16]
         assert r["wq_local"] == [1, 64, 16]
-        assert r["prefill"] <= 1e-5 and r["decode"] <= 1e-5, r
+    assert W.verdict("gqa", gloo_results["gqa"]) is None
 
 
 def test_olmo_microbatches_of_a_data_sharded_batch(gloo_results, gloo_dir):
@@ -624,11 +617,148 @@ def test_olmo_microbatches_of_a_data_sharded_batch(gloo_results, gloo_dir):
             np.testing.assert_allclose(*r[key], rtol=1e-5, err_msg=key)
             np.testing.assert_allclose(r[key][0], float(jm[key]), rtol=1e-5,
                                        err_msg=key)
-        assert r["update"] >= 5e-4, r["update"]
-        assert r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
+    assert W.verdict("olmo_microbatches",
+                     gloo_results["olmo_microbatches"]) is None
     got = np.load(gloo_dir / "olmo_microbatches.npz")
     want = flatten(jax.tree.map(np.asarray, jnew))
     assert sorted(got.files) == sorted(want)
     for k, w in want.items():
         np.testing.assert_allclose(got[k], w, rtol=1e-5, atol=1e-5,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("arch", sorted(W.MESH4_SERVE))
+def test_mesh4_smoke_serving_matches_unsharded(gloo_results, arch):
+    """Smoke qwen1.5-32b (MHA, QKV bias, the int8 KV cache) and smoke
+    mixtral-8x7b (GQA, a window of 16 under a 40-token prompt, so its ring
+    cache wraps; the MoE top-2) on (data 1, model 4), the production
+    cells' mesh: one kv head a rank; the prefill through the flash
+    kernel's path and four greedy decode steps within 1e-5 of the
+    unsharded port on the same tp-4 weights (float32; the row-parallel
+    products sum four ranks' partial sums)."""
+    for r in _ok(gloo_results["mesh4_serve"]):
+        r = r[arch]
+        assert r["kv_local"][3] == 1 and r["kv_global"][3] == W.WORLD, r
+        assert r["pos"] == 40 + W.MESH4_DECODE_STEPS
+        assert r["ring"] == (arch == "mixtral-8x7b")
+        if arch == "mixtral-8x7b":      # the ring holds the window only
+            assert r["kv_global"][2] == 16
+    assert W.verdict("mesh4_serve", gloo_results["mesh4_serve"], arch) is None
+
+
+@pytest.mark.parametrize("arch", sorted(W.SHARD_INIT))
+def test_shard_init_shards_are_slices_of_the_whole_tree(gloo_results, arch):
+    """``init_shards`` on (data 1, model 4): every leaf's shard on every
+    rank equals its slice of ``init_whole``'s tree bit for bit (and the
+    gathered tree the whole one), so one card can make the whole of a
+    2-layer model that four cards hold in shards; the sharded tree's
+    prefill and decode within 1e-5 of the unsharded port on the whole
+    tree."""
+    for r in _ok(gloo_results["shard_init"]):
+        r = r[arch]
+        assert r["sliced_equal"] and r["gathered_equal"], r
+        assert r["wq_local"][2] * W.WORLD == (8 if arch == "mixtral-8x7b"
+                                              else 4) * 16
+    assert W.verdict("shard_init", gloo_results["shard_init"], arch) is None
+
+
+def test_shard_init_refuses_duplicated_heads():
+    """Smoke mixtral-8x7b at tp 4 duplicates its two kv heads: a drawn
+    block of a copy would not equal its original, so the scheme refuses."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import shard_init as SI
+    with pytest.raises(ValueError, match="duplicates"):
+        SI.init_whole(smoke_config("mixtral-8x7b", tp=4),
+                      {"data": 1, "model": 4}, 0, device="cpu")
+
+
+def test_card_verdicts_agree_with_these_tests(gloo_results):
+    """``mesh_checks.verdicts``, by which ``chip_smoke.py --cards 4`` holds
+    the NCCL run and the tests above the gloo run, passes every check of
+    the gloo run and refuses a result moved past a tolerance or off its
+    shape, each in its own check, rank and case alone."""
+    assert W.verdicts(gloo_results) == {k: None for k in W.CHECKS}
+    worse = json.loads(json.dumps(gloo_results))
+    worse["olmo"][1]["prefill"] = 2e-5
+    worse["shard_init"][2]["qwen1.5-32b"]["sliced_equal"] = False
+    worse["shard_init"][3]["mixtral-8x7b"]["wq_local"][2] *= 2
+    worse["mesh4_serve"][0]["mixtral-8x7b"]["kv_global"][2] = 40
+    # the largest moment 2e-5 of its value off; a quarter of the smallest
+    # leaf's gradient lost (a_log's, 1e-3 of the largest)
+    moments = worse["dp_train"][1]["mamba"]["moments"]
+    big = max(moments, key=lambda k: moments[k][1])
+    moments[big][0] = 2e-5 * moments[big][1]
+    moments = worse["mamba_train"][2]["dp_tp"]["moments"]
+    small = min(moments, key=lambda k: moments[k][1] or float("inf"))
+    moments[small][0] = 0.25 * moments[small][1]
+    got = W.verdicts(worse)
+    assert set(got["olmo"]) == {1} and set(got["shard_init"]) == {2, 3}
+    assert set(got["mesh4_serve"]) == {0} and set(got["dp_train"]) == {1}
+    assert set(got["mamba_train"]) == {2}
+    assert [k for k, v in got.items() if v] == [
+        "olmo", "mamba_train", "dp_train", "mesh4_serve", "shard_init"]
+    assert W.verdict("olmo", worse["olmo"], "train") is None
+    assert W.verdict("mesh4_serve", worse["mesh4_serve"],
+                     "qwen1.5-32b") is None
+    assert W.verdict("dp_train", worse["dp_train"], "olmo") is None
+
+
+def test_route_excuse_refuses_a_moved_router(gloo_results):
+    """Smoke mixtral-8x7b on (data 1, model 4): every compared row of the
+    sharded port (the prefill's last token, four decode steps) holds
+    against the unsharded port with no route changed; with the sharded
+    copy's routers moved by N(0, 1) times their scale, rows past the
+    tolerance whose own routes changed are refused (``judge_rows``), since
+    the changes lie far past a near tie: a perturbed MoE weight is not
+    excused by the routes it moves."""
+    for r in _ok(gloo_results["route_excuse"]):
+        assert r["same"]["expert_slots"] == r["same"]["keep_slots"] == 0
+        assert all(v == "held" for call in r["same"]["judged"]
+                   for v in call), r["same"]
+        moved = r["moved"]
+        assert moved["expert_slots"] > 0
+        assert any(rows for rows in moved["changed_rows"])
+        assert all(not m["near_tie"] and min(m["margins"]) > m["tol"]
+                   for m in moved["margins"]), moved["margins"]
+        assert "excused" not in {v for call in moved["judged"]
+                                 for v in call}
+    assert W.verdict("route_excuse", gloo_results["route_excuse"]) is None
+
+
+def _routes(experts: list, keep: list, logits=None) -> tuple:
+    """One recorded MoE call of one group (``RouteRecorder`` layout)."""
+    rec = (torch.tensor([experts]), torch.tensor([keep]))
+    return rec if logits is None else rec + (torch.tensor(logits),)
+
+
+@pytest.mark.parametrize("case", ["near_tie", "far", "keep_only", "none"])
+def test_route_changes_excuse_only_a_near_tie(case):
+    """Two rows of two tokens, top-1 of three experts, one layer: the
+    second row's last token takes expert 1 in the reference and, in the
+    other run, expert 2 (its router logits 0.02 apart), or expert 0 (0.5
+    apart), or expert 1 with its capacity keep alone changed, or nothing
+    changes.  Past the tolerance, that row is excused only for the
+    change within the margin's tolerance (0.05); the first row, unchanged
+    and past it, fails; rows within it hold."""
+    from repro_torch.launch.mesh_checks import judge_rows, route_changes
+    logits = [[0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0],
+              [0.1, 0.6, 0.58]]
+    want = _routes([2, 1, 0, 1], [True] * 4, logits)
+    got_e, got_k = {"near_tie": ([2, 1, 0, 2], [True] * 4),
+                    "far": ([2, 1, 0, 0], [True] * 4),
+                    "keep_only": ([2, 1, 0, 1], [True, True, True, False]),
+                    "none": ([2, 1, 0, 1], [True] * 4)}[case]
+    changes = route_changes([_routes(got_e, got_k)], [want], [2], 1, 1,
+                            lambda layer, lg: 0.05)
+    rows = changes[0]["rows"]
+    if case == "none":
+        assert rows == []
+    else:
+        assert [c["row"] for c in rows] == [1]
+        assert rows[0]["keep_only"] == (case == "keep_only")
+        assert rows[0]["near_tie"] == (case == "near_tie")
+    assert changes[0]["expert_slots"] == int(case in ("near_tie", "far"))
+    assert changes[0]["keep_slots"] == int(case == "keep_only")
+    got = judge_rows([0.5, 0.5], 0.1, changes[0])
+    assert got == ["failed", "excused" if case == "near_tie" else "failed"]
+    assert judge_rows([0.01, 0.01], 0.1, changes[0]) == ["held", "held"]
