@@ -150,7 +150,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      opt_dtype, at the rows of the cell's 256 one card holds
      (launch/cell_memory.py's TRAIN_ROWS, reckoned from shapes) of 4,096
      packed tokens, make_train_step with the arch's TRAIN_MICROBATCHES,
-     four steps on one batch (mamba2-1.3b three): losses finite and
+     four steps on one batch (mamba2-1.3b two): losses finite and
      falling, the leaves'
      dtypes kept, no kernel wrapper launched for olmo-1b (attention trains
      through chunked), 96 x m ssd_scan and 48 x m ssd_scan_bwd launches a
@@ -158,7 +158,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      47's bfloat16 SSD backward on the step's real inputs and cotangents
      against the plain version's, the backward kernels timed at that shape
      beside their bound; step walls, tokens/s, model TFLOP/s, and each
-     step's peak under 80 GB and beside cell_memory.reckon's;
+     step's peak under 80 GB and beside cell_memory.reckon's (reckoned in
+     processes of their own, started with phase 17);
  20. the reference's production cells in bfloat16 (configs/shapes.py;
      launch/dryrun.py runs them on meta): olmo-1b, mamba2-1.3b,
      qwen2-moe-a2.7b, musicgen-large, pixtral-12b, yi-6b and minitron-8b,
@@ -193,25 +194,43 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      gradient) and decode_32k (an int8 KV cache); no cell launches a
      kernel; each cell a child process on the host
      (meta DTensors over a 256/512-rank fake process group, nothing on
-     the card), four at a time, started with phase 19 (whose steps keep
-     the card busy) and read before phase 20, with each record's trace
+     the card), four at a time, started with phase 17 (phases 17-19 are
+     checkpoint I/O and steps that keep the card busy) and read before
+     phase 20, with each record's trace
      wall, FLOPs, collective bytes by kind and memory a device.
 
 Each phase's wall is printed before the total.
 
-With ``--cards 4`` (``python3 chip_smoke.py --cards 4 [--log-dir DIR]``
-on a machine with four cards) it runs only the
-sharded path over the four cards under NCCL, one process a card, each its
-card's current device: every check of ``launch/mesh_checks.py`` (the gloo
-tests' checks, on CUDA tensors, each held to its test's tolerance), NCCL's
-walls for the collectives the sharded path issues, the 2-layer sharded
-against unsharded parity of qwen1.5-32b and mixtral-8x7b at full width
-(weights drawn shard by shard, ``models/shard_init.py``; card 0 draws the
-whole tree), and their production cells prefill_32k and decode_32k on
-(data 1, model 4) at full width and depth (``launch/cell_memory.py``'s
-MESH4_ROWS), each rank's flash calls and peaks held as in phase 20.  It
-refuses to run unless it sees four cards; each rank's log and numbers go
-to ``--log-dir`` (a temporary directory by default).
+With ``--cards 4`` (``python3 chip_smoke.py --cards 4 [--log-dir DIR]
+[--phases checks,nccl,parity,cells,train]`` on a machine with four cards)
+it runs only the sharded path over the four cards under NCCL, one process
+a card, each its card's current device: every check of
+``launch/mesh_checks.py`` (the gloo tests' checks, on CUDA tensors, each
+held to its test's tolerance), NCCL's walls for the collectives the
+sharded path issues, the 2-layer sharded against unsharded parity of
+qwen1.5-32b and mixtral-8x7b at full width (weights drawn shard by shard,
+``models/shard_init.py``; card 0 draws the whole tree), their production
+cells prefill_32k and decode_32k on (data 1, model 4) at full width and
+depth (``launch/cell_memory.py``'s MESH4_ROWS), each rank's flash calls
+and peaks held as in phase 20, and the train_4k cells of
+``cell_memory.MESH4_TRAIN`` (yi-6b on (data 1, model 4), musicgen-large on
+(data 2, model 2)) at full width and depth in bfloat16: the reference's
+config (chunked attention with remat, its microbatches, ZeRO-1 moments at
+opt_dtype on their shards, the packed batch over 'data'), three steps on
+one batch with losses finite and equal on every rank, the first within
+0.25 of the init's cross-entropy (``loss_at_init``), a step lowering
+it, and a rise after AdamW's first update matched by card 0's unsharded
+2-layer steps on the same batch, leaf
+dtypes and placements kept, no kernel launched, each step's walls split
+into microbatches and the update, tokens/s and model TFLOP/s of the mesh,
+each peak under 80 GB and within 2 GB of ``cell_memory.reckon(mesh=)``'s,
+step 0's collectives equal by kind and bytes to the dry run's count of the
+same cell on a fake mesh of that shape, rank 0's NCCL share of one traced
+step, and the arch cut to 2 layers trained two steps sharded against card
+0 unsharded within ``mesh_checks.BF16_STEP_TOL``.  ``--phases`` runs a
+subset, in that order.  It refuses to run unless it sees four cards; each
+rank's log and numbers go to ``--log-dir`` (a temporary directory by
+default).
 
 It ends with one JSON line of per-kernel numbers, the nvidia-smi name and
 power limit, and ``{"ok": true, "device": {...}}`` as the last line.  The
@@ -284,7 +303,7 @@ from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import shard_init  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.common import LeafShape  # noqa: E402
+from repro_torch.models.common import LeafShape, init_scale  # noqa: E402
 from repro_torch.models.convert import SEP, flatten  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.parallel import (batch_specs,  # noqa: E402
@@ -411,7 +430,7 @@ SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # arch, four steps on one repeated batch (so the loss must fall)
 # steps on one batch: olmo-1b's loss rises for two steps before it falls
 # (PR 31's run), mamba2-1.3b's falls from the first, and its steps take 25 s
-TRAIN_4K = dict(steps={"olmo-1b": 4, "mamba2-1.3b": 3}, seed=0)
+TRAIN_4K = dict(steps={"olmo-1b": 4, "mamba2-1.3b": 2}, seed=0)
 # a step's device memory peak against cell_memory.reckon's (weights,
 # moments and what the step makes, from shapes): within this many bytes
 # either way (the allocator's rounding, cuBLAS' workspaces, the packed
@@ -1678,6 +1697,18 @@ def counts_flops(arch: str, shape: str, multi_pod: bool,
                             n_devices).values())
 
 
+def start_reckonings() -> tuple:
+    """``cell_memory.reckon`` of each cell of ``phase_train_4k``, host work on
+    meta tensors, started in processes of their own so that it runs beside
+    the device's phases: (the pool, a future by arch)."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(cell_memory.TRAIN_ROWS),
+        mp_context=torch.multiprocessing.get_context("spawn"))
+    return pool, {arch: pool.submit(cell_memory.reckon, get_arch(arch),
+                                    SHAPES["train_4k"], rows)
+                  for arch, rows in cell_memory.TRAIN_ROWS.items()}
+
+
 def start_dryrun() -> tuple:
     """The dry run's child processes (``phase_dryrun``), started
     ``DRYRUN_JOBS`` at a time on a thread pool: (pool, one future a cell
@@ -1736,9 +1767,10 @@ def phase_dryrun(started: tuple) -> list:
     moments' shard), and olmo-1b decode_32k with the int8 KV cache.  No
     cell launches a kernel (``kernel_launches``: the SSD wrapper on meta
     counts its bound, never a launch).  The children run ``DRYRUN_JOBS``
-    at a time beside ``phase_train_4k``, whose steps keep the card over
-    99% busy (so its step walls are the device's); this waits for them
-    before the production cells, whose decode steps the host bounds."""
+    at a time beside the training phases (``phase_training``'s checkpoint
+    I/O, then ``phase_train_4k``, whose steps keep the card over 99% busy,
+    so its step walls are the device's); this waits for them before the
+    production cells, whose decode steps the host bounds."""
     pool, futures, out_dir, t0 = started
     records = []
     try:
@@ -1816,7 +1848,7 @@ def phase_dryrun(started: tuple) -> list:
     print(f"dry run: {len(records)} cells in "
           f"{time.perf_counter() - t0:.3f} s of host wall from their start "
           f"(one process a cell, {DRYRUN_JOBS} at a time, beside the "
-          "train_4k phase)")
+          "training phases)")
     return records
 
 
@@ -2684,8 +2716,19 @@ def packed_batch(cfg, batch: int, seq_len: int) -> dict:
                       records_per_block=max(512, 2 * batch * seq_len // 128),
                       max_len=128, vocab=cfg.vocab, seed=0)
     packed = pack_tokens(ds.block(0)["tokens"], batch, seq_len)
-    return {"tokens": torch.from_numpy(packed.tokens).cuda(),
-            "labels": torch.from_numpy(packed.labels).cuda()}
+    tokens, labels = packed.tokens, packed.labels
+    if cfg.n_codebooks:
+        # a codebook model's K streams: the packed ids moved by k within
+        # 1 .. vocab - 1 (padding and masked labels kept), stacked last
+        k = np.arange(cfg.n_codebooks, dtype=np.int32)
+
+        def move(ids):
+            return np.where(ids[..., None] > 0,
+                            (ids[..., None] - 1 + k) % (cfg.vocab - 1) + 1,
+                            ids[..., None]).astype(np.int32)
+        tokens, labels = move(tokens), move(labels)
+    return {"tokens": torch.from_numpy(tokens).cuda(),
+            "labels": torch.from_numpy(labels).cuda()}
 
 
 def differing_grads(params, cfg, batch) -> list:
@@ -3125,8 +3168,10 @@ def check_train_dtypes(params, opt, cfg, steps: int, label: str) -> None:
           f"{label}: step counter {opt['step']}")
 
 
-def train_4k_cell(arch: str) -> dict:
-    """One arch's train_4k step (see ``phase_train_4k``)."""
+def train_4k_cell(arch: str, reckoning=None) -> dict:
+    """One arch's train_4k step (see ``phase_train_4k``); ``reckoning``, a
+    future of its cell's ``cell_memory.reckon`` (``start_reckonings``), or
+    None to reckon here."""
     free_device_memory()
     cell = SHAPES["train_4k"]
     cfg = get_arch(arch)
@@ -3262,7 +3307,8 @@ def train_4k_cell(arch: str) -> dict:
     scratch = ss.bwd_scratch_bytes(rows // m, seq, cfg.ssm.n_heads,
                                    cfg.ssm.n_groups, cfg.ssm.head_dim,
                                    cfg.ssm.d_state) if mamba else 0
-    got = out["reckoned"] = cell_memory.reckon(cfg, cell, rows)
+    got = out["reckoned"] = reckoning.result() if reckoning is not None \
+        else cell_memory.reckon(cfg, cell, rows)
     peak = max(peaks[1:])
     low = got["total"] - TRAIN_4K_PEAK_MARGIN
     high = got["total"] + TRAIN_4K_PEAK_MARGIN + scratch
@@ -3346,7 +3392,7 @@ def train_4k_ssd_checks(cfg, rec: SsdGradRecorder) -> dict:
                       "plain_ms": plain_ms, "library_ms": None, **t}}
 
 
-def phase_train_4k() -> dict:
+def phase_train_4k(reckonings: dict | None = None) -> dict:
     """The reference's train_4k cell in bfloat16 (``launch/dryrun.py:
     _lower_cell``'s train branch, which the dry run runs on meta): olmo-1b
     and mamba2-1.3b at full width, bfloat16 weights from a seed, moments
@@ -3359,8 +3405,11 @@ def phase_train_4k() -> dict:
     launches a step, all on bfloat16 inputs, and layers 0 and 47's
     backward against the plain version; step walls split into the
     microbatches and the update, tokens/s, model TFLOP/s, one microbatch
-    traced, and each step's peak beside ``cell_memory.reckon``'s."""
-    return {arch: train_4k_cell(arch) for arch in cell_memory.TRAIN_ROWS}
+    traced, and each step's peak beside ``cell_memory.reckon``'s (futures
+    by arch in ``reckonings``, from ``start_reckonings``, or reckoned
+    here)."""
+    return {arch: train_4k_cell(arch, (reckonings or {}).get(arch))
+            for arch in cell_memory.TRAIN_ROWS}
 
 
 def training_report(trainer, res, cfg, tokens, flops, n_params, run_s
@@ -5047,6 +5096,7 @@ CARDS = 4
 CARDS_PG_TIMEOUT_S = 600   # a collective that waits longer fails its rank
 CARDS_WALL_S = 900         # every rank killed past this
 CARDS_GRACE_S = 30         # the others killed this long after a rank fails
+RECKON_GRACE_S = 120       # the reckonings' wait once the ranks have ended
 PARITY_LAYERS = 2
 PARITY_ROWS = 2
 PARITY_PROMPT = 8192       # past mixtral's window of 4,096: its ring wraps
@@ -5373,12 +5423,238 @@ def mesh_cells(arch: str, rank: int) -> dict:
     return out
 
 
-def cards_rank(rank: int, store: str, out_dir: str) -> None:
+# the four-card train cells' 2-layer parity (``mesh_train``): its steps
+TRAIN_PARITY_STEPS = 2
+# a train cell's loss before its first update, against ``loss_at_init``:
+# within this many nats (4-card call 2, PR 34: yi-6b 11.811 against
+# 11.887, musicgen-large 8.027 against 8.034); a loss summed over the tp
+# ranks, padding counted in its mean or a codebook left out moves it by
+# more than a nat
+TRAIN_LOSS0_BAND = 0.25
+
+
+def loss_at_init(cfg) -> float:
+    """The cross-entropy a train cell starts from: the lm_head's init
+    (``common.init_scale('lm_head')``, sigma) makes each logit a Gaussian of
+    variance d_model sigma^2 over the final norm's output (RMS 1) and
+    independent of the label, so the mean of log-sum-exp over the vocab
+    less the label's logit is ln(vocab) + d_model sigma^2 / 2."""
+    sigma = init_scale("lm_head")
+    return math.log(cfg.vocab) + cfg.d_model * sigma ** 2 / 2
+
+
+def nccl_share(fn, label: str) -> tuple:
+    """(``fn()``, its numbers) of one call of ``fn`` (a train step) traced by
+    torch.profiler on this rank, its device activity alone: its wall, its
+    kernels' device seconds and the NCCL kernels' among them, summed over
+    the profiler's raw events (its tables, ``key_averages``, make a Python
+    object of each of a step's million events: minutes for musicgen-large's
+    step, past the run's limit, in 4-card call 2, PR 34)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, traced_s = sync_seconds(fn)
+    busy_ns = nccl_ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+            if "nccl" in e.name().lower():
+                nccl_ns += e.duration_ns()
+    busy_s, nccl_s = 1e-9 * busy_ns, 1e-9 * nccl_ns
+    print(f"  {label}: one step traced on this rank, {traced_s:.6f} s: "
+          f"device kernels {busy_s:.6f} s ({100 * busy_s / traced_s:.2f}% "
+          f"of the traced step), NCCL kernels {nccl_s:.6f} s = "
+          f"{100 * nccl_s / traced_s:.2f}% of it"
+          + (f", {100 * nccl_s / busy_s:.2f}% of the device time"
+             if busy_s > 0 else "; no device time recorded"))
+    return out, {"traced_s": traced_s, "busy_s": busy_s, "nccl_s": nccl_s}
+
+
+def mesh_train(arch: str, rank: int) -> dict:
+    """Step three: ``arch``'s train_4k step in bfloat16 on its mesh of
+    ``cell_memory.MESH4_TRAIN`` at full width and depth, at that table's
+    rows: the reference's config (``build_cfg``'s, attention through the
+    chunked schedule with remat, ``make_train_step(cfg, AdamWConfig(
+    moment_dtype=cfg.opt_dtype), num_microbatches=TRAIN_MICROBATCHES[arch]
+    )``), weights drawn shard by shard, ZeRO-1 moments at ``opt_dtype``
+    made on their shards, the packed batch laid out by ``batch_specs``.
+    Three steps on the one batch: step 0 under ``CollectiveCounter`` (its
+    collectives; the counter slows it), step 1 timed and split into its
+    microbatches and its update (``StepSplit``), step 2 traced on rank 0
+    (the NCCL kernels' share); after each, its loss and grad norm, every
+    leaf's placements, the kernel launches (none: attention trains through
+    ``chunked``) and the peak; then the leaf dtypes, and the 2-layer parity
+    (``mesh_checks.train_parity``: the same arch cut to 2 layers on the
+    same shard-drawn weights, its steps sharded against card 0's
+    unsharded).  ``judge_cards`` holds the ranks' numbers together, and
+    against the reckoning and the dry run's collectives."""
+    from repro_torch.launch.commcount import CollectiveCounter
+    free_device_memory()
+    mshape, rows = cell_memory.MESH4_TRAIN[arch]
+    cell = SHAPES["train_4k"]
+    seq, m = cell.seq_len, TRAIN_MICROBATCHES[arch]
+    cfg = cell_memory.mesh_cfg(arch, mshape, "train")
+    check(cfg.attn_impl_train == "chunked" and cfg.remat,
+          f"{arch} does not train as the reference's config does")
+    mesh = mesh_checks.mesh_of_shape(mshape)
+    msd = mesh_shape_dict(mesh)
+    tokens = rows * seq
+    flops = T.model_flops(cfg, tokens, seq)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_dtype)
+
+    def init():
+        p = shard_init.init_shards(cfg, mesh, PROD_SEED, torch.bfloat16,
+                                   "cuda")
+        return p, shard_init.zero1_state(cfg, p, mesh, opt_cfg)
+    (params, opt), init_s = sync_seconds(init)
+    label = f"{arch} train_4k on {mshape}"
+    check_train_dtypes(params, opt, cfg, 0, f"{label} at init")
+    plain = packed_batch(cfg, rows, seq)
+    batch = distribute_tree(plain, batch_specs(cfg, plain, msd), mesh)
+    tok = plain["tokens"]
+    nonpad = int((tok[..., 0] if cfg.n_codebooks else tok).ne(0).sum())
+    layout = mesh_checks.train_layout(params, opt)
+    step = make_train_step(cfg, opt_cfg, num_microbatches=m)
+    print(f"train_4k on {mshape}: {arch} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, tp {cfg.tp}, batch over "
+          f"{cfg.batch_axes}, remat, attention {cfg.attn_impl_train}), "
+          f"{int(cfg.param_count())} bfloat16 parameters drawn shard by "
+          f"shard (seed {PROD_SEED}, {init_s:.3f} s): {local_bytes(params)}"
+          f" B of weights and {local_bytes(opt)} B of {cfg.opt_dtype} "
+          f"moments (ZeRO-1 over {shard_init.zero1_axes(cfg)}) on this "
+          f"rank; {rows} rows of the cell's {cell.global_batch} x {seq} "
+          f"tokens (launch/cell_memory.py MESH4_TRAIN), {nonpad} of "
+          f"{tokens} not padding, "
+          f"{batch['tokens'].to_local().shape[0]} rows on this rank, {m} "
+          "microbatches (TRAIN_MICROBATCHES); step 0 counted, step 1 "
+          "timed, step 2 traced")
+    losses, gnorms, walls, peaks, counts, kept = [], [], [], [], [], []
+    colls = nccl = None
+    micro, update_s = [], None
+    for i in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        if i == 0:
+            with CollectiveCounter() as counter:
+                (params, opt, metrics), wall = sync_seconds(
+                    lambda: step(params, opt, batch))
+            colls = counter.result()
+        elif i == 1:
+            with StepSplit() as split:
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            check(len(split.marks) == m + 1, f"{label}: step 1 entered "
+                  f"loss_fn and the clip {len(split.marks)} times, "
+                  f"expected {m + 1}")
+            micro = [b - a for a, b in zip(split.marks, split.marks[1:])]
+            update_s = t0 + wall - split.marks[-1]
+        elif rank == 0:
+            (params, opt, metrics), nccl = nccl_share(
+                lambda: step(params, opt, batch), label)
+            wall = nccl["traced_s"]
+        else:
+            (params, opt, metrics), wall = sync_seconds(
+                lambda: step(params, opt, batch))
+        counts.append(launches())
+        peaks.append(torch.cuda.max_memory_allocated())
+        walls.append(wall)
+        losses.append(float(whole(metrics["loss"])))
+        gnorms.append(float(whole(metrics["grad_norm"])))
+        kept.append(mesh_checks.train_layout(params, opt) == layout)
+        check(kept[-1], f"{label} step {i}: a weight or moment left the "
+              "layout param_specs and zero1_specs gave it")
+        print(f"    step {i} ({('counted', 'timed', 'traced')[i]}): loss "
+              f"{losses[-1]:.6f}, grad norm {gnorms[-1]:.6f}, wall "
+              f"{wall:.6f} s"
+              + (f" = {m} microbatches " + " + ".join(
+                  f"{t:.6f}" for t in micro) + f" s + update {update_s:.6f}"
+                 " s" if i == 1 else "")
+              + f"; peak {peaks[-1] / 1e9:.3f} GB; launches "
+              f"{json.dumps(counts[-1])}")
+    check(all(map(math.isfinite, losses + gnorms))
+          and abs(losses[0] - loss_at_init(cfg)) <= TRAIN_LOSS0_BAND,
+          f"{label}: losses {losses}, grad norms {gnorms}: not finite, or "
+          f"the first not within {TRAIN_LOSS0_BAND} of the init's "
+          f"{loss_at_init(cfg):.6f}")
+    check(not any(v for c in counts for v in c.values()),
+          f"{label}: launches {counts}: attention trains through chunked")
+    check_train_dtypes(params, opt, cfg, len(losses), label)
+    print(f"  {label}: step 0's collectives on this rank "
+          f"{json.dumps(colls['counts'])}, result bytes "
+          f"{json.dumps(colls['looped'])}")
+    wall = walls[1]
+    micro_s = statistics.median(micro)
+    out = {"mesh": mshape, "rows": rows, "microbatches": m,
+           "tokens": tokens, "nonpad": nonpad, "losses": losses,
+           "grad_norms": gnorms, "loss_init": loss_at_init(cfg),
+           "walls": walls, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "model_tflops": flops / wall / 1e12,
+           "peaks": peaks, "launches_per_step": counts, "kept_layout": kept,
+           "microbatch_walls": micro, "update_s": update_s,
+           "microbatch_s": micro_s, "weights_bytes": local_bytes(params),
+           "opt_bytes": local_bytes(opt), "collectives": colls,
+           "nccl": nccl}
+    print(f"  {label}: step 1's wall {wall:.6f} s, {tokens / wall:.1f} "
+          f"tokens/s and {flops / wall / 1e12:.3f} model TFLOP/s on the "
+          f"mesh; median microbatch {micro_s:.6f} s (x {m} = "
+          f"{m * micro_s:.6f} s), update {update_s:.6f} s; peaks "
+          + ", ".join(f"{p / 1e9:.3f}" for p in peaks) + " GB")
+    del params, opt, batch, metrics
+    free_device_memory()
+    cfg2 = cfg.replace(n_layers=PARITY_LAYERS)
+    par, par_s = sync_seconds(lambda: mesh_checks.train_parity(
+        cfg2, mesh, plain, steps=TRAIN_PARITY_STEPS,
+        microbatches=m, seed=PROD_SEED, unsharded_on=0))
+    out.update(parity=par, parity_s=par_s)
+    print(f"  {arch} 2-layer train parity ({TRAIN_PARITY_STEPS} "
+          f"steps, {par_s:.3f} s): " + train_parity_line(par))
+    dist.barrier()
+    return out
+
+
+def train_parity_line(r: dict) -> str:
+    """``mesh_checks.train_parity``'s numbers against
+    ``mesh_checks.BF16_STEP_TOL``, in words."""
+    if "weights" not in r:
+        return (f"sharded losses {r['loss']}, layouts kept "
+                f"{r['kept_layout']} (compared on card 0)")
+    tol, lr, steps = mesh_checks.BF16_STEP_TOL, r["lr"], len(r["loss"])
+    rel = [[abs(a - b) / abs(b) for a, b in r[k]] for k in ("loss",
+                                                             "grad_norm")]
+    w = r["weights"]
+    worst = max(w["leaves"].items(), key=lambda kv: kv[1][0] - kv[1][1])
+    l2 = {k: max(math.sqrt(v[i] / v[i + 1]) if v[i + 1] else 0.0
+                 for v in r["moments"].values())
+          for k, i in (("m", 4), ("v", 6))}
+    return (f"loss relative {[f'{x:.3g}' for x in rel[0]]} (tol "
+            f"{tol['loss']}, then {tol['loss_own']}), grad norm "
+            f"{[f'{x:.3g}' for x in rel[1]]} (tol {tol['grad_norm']} x "
+            f"{r['layers']} layers); weights: worst leaf {worst[0]} "
+            f"{worst[1][0] / lr:.3f} lr (tol {tol['lr_a_step'] * steps} lr"
+            f" + its bfloat16 step {worst[1][1] / lr:.3f} lr); "
+            f"{w['past']} of {w['total']} weights "
+            f"({100 * w['past'] / w['total']:.4f}%) past 0.5 lr plus a "
+            f"step of their own value (tol "
+            f"{100 * tol['flips'] * steps:.2f}%); moments' worst leaf "
+            f"relative L2 m {l2['m']:.4f}, v {l2['v']:.4f} (tol {tol['m']}, "
+            f"{tol['v']}); update {r['update'] / lr:.3f} lr; layouts kept "
+            f"{r['kept_layout']}; held: {mesh_checks._bf16_step_ok(r)}")
+
+
+CARDS_PHASES = ("checks", "nccl", "parity", "cells", "train")
+
+
+def cards_rank(rank: int, store: str, out_dir: str,
+               phases: tuple = CARDS_PHASES) -> None:
     """One rank of the four-card run, a spawned process on card ``rank``:
-    its process group (a FileStore at ``store``), step one, NCCL's walls,
-    the parity runs and the cells; its log ``rank<r>.log`` and numbers
-    ``rank<r>.json`` in ``out_dir``.  Exits 0 when it raised nothing (its
-    failed checks are in the numbers)."""
+    its process group (a FileStore at ``store``), then of ``phases`` in
+    their order step one, NCCL's walls, the parity runs, the 32k cells and
+    the train cells; its log ``rank<r>.log`` and numbers ``rank<r>.json``
+    in ``out_dir``.  Exits 0 when it raised nothing (its failed checks are
+    in the numbers)."""
     global FAILED
     FAILED = []
     sys.stdout = open(os.path.join(out_dir, f"rank{rank}.log"), "w",
@@ -5396,12 +5672,23 @@ def cards_rank(rank: int, store: str, out_dir: str) -> None:
             device_id=torch.device("cuda", rank))
         res["card"] = torch.cuda.get_device_name(rank)
         mesh_checks.DEVICE, mesh_checks.OUT_DIR = "cuda", out_dir
-        res["checks"] = cards_checks(rank, out_dir)
-        res["nccl"] = collective_walls()
-        res["parity"] = {a: mesh_parity(a, rank)
-                         for a in cell_memory.MESH4_ROWS}
-        res["cells"] = {a: mesh_cells(a, rank)
-                        for a in cell_memory.MESH4_ROWS}
+        run = {"checks": lambda: cards_checks(rank, out_dir),
+               "nccl": collective_walls,
+               "parity": lambda: {a: mesh_parity(a, rank)
+                                  for a in cell_memory.MESH4_ROWS},
+               "cells": lambda: {a: mesh_cells(a, rank)
+                                 for a in cell_memory.MESH4_ROWS},
+               "train": lambda: {a: mesh_train(a, rank)
+                                 for a in cell_memory.MESH4_TRAIN}}
+        for name in phases:
+            t0 = time.perf_counter()
+            res[name] = run[name]()
+            res.setdefault("walls", {})[name] = time.perf_counter() - t0
+            print(f"phase {name}: {res['walls'][name]:.3f} s")
+            # what a rank killed at CARDS_WALL_S leaves to read
+            with open(os.path.join(out_dir, f"rank{rank}.partial.json"),
+                      "w") as f:
+                json.dump(dict(res, failed=FAILED), f, default=str)
         dist.barrier()
         code = 0
     except Exception:
@@ -5443,44 +5730,65 @@ def wait_ranks(procs: list, out_dir: str) -> list:
     return codes
 
 
-def reckon_to(path: str) -> None:
-    """``reckon_cells`` in a process of its own, its numbers to ``path``."""
+def reckon_to(path: str, arch: str, names: tuple) -> None:
+    """``reckon_cells(arch, names)`` in a process of its own, its numbers
+    to ``path``."""
     with open(path, "w") as f:
-        json.dump(reckon_cells(), f)
+        json.dump(reckon_cells(arch, names), f)
 
 
-def reckon_cells() -> dict:
-    """``cell_memory.reckon`` of each four-card cell for a device of the
-    mesh, on meta tensors over a fake process group (host work)."""
+def reckon_cells(arch: str, names: tuple) -> dict:
+    """``cell_memory.reckon`` of ``arch``'s four-card cells ``names`` for a
+    device of their mesh (the 32k cells' ``MESH4`` at ``MESH4_ROWS``, the
+    train cell's mesh and rows of ``MESH4_TRAIN``), on meta tensors over a
+    fake process group (host work); a train cell's also holds the dry
+    run's count of its step's collectives."""
     out = {}
-    with cell_memory.fake_mesh(cell_memory.MESH4) as mesh:
-        for arch, rows in cell_memory.MESH4_ROWS.items():
-            for name in ("prefill_32k", "decode_32k"):
-                cell = SHAPES[name]
-                cfg = cell_memory.mesh_cfg(arch, cell_memory.MESH4,
-                                           cell.kind)
-                out[f"{arch} {name}"] = cell_memory.reckon(cfg, cell, rows,
-                                                           mesh)
+    for name in names:
+        cell = SHAPES[name]
+        mshape, rows = cell_memory.MESH4_TRAIN[arch] \
+            if cell.kind == "train" else (cell_memory.MESH4,
+                                          cell_memory.MESH4_ROWS[arch])
+        with cell_memory.fake_mesh(mshape) as mesh:
+            cfg = cell_memory.mesh_cfg(arch, mshape, cell.kind)
+            out[f"{arch} {name}"] = cell_memory.reckon(cfg, cell, rows, mesh)
     return out
 
 
-def judge_cards(results: list, reckoned: dict) -> dict:
+def reckonings(phases: tuple) -> list:
+    """(arch, cell names) of the reckonings ``phases`` are judged by, one
+    process each."""
+    out = []
+    if "cells" in phases:
+        out += [(a, ("prefill_32k", "decode_32k"))
+                for a in cell_memory.MESH4_ROWS]
+    if "train" in phases:
+        out += [(a, ("train_4k",)) for a in cell_memory.MESH4_TRAIN]
+    return out
+
+
+def judge_cards(results: list, reckoned: dict) -> list:
     """Every rank's numbers held: no failed check, step one within its
-    tests' tolerances (``mesh_checks.verdicts``), the launch counts, and
-    each cell's peaks under the card's bytes, printed beside the
-    reckoning; everything is printed before the first failure raises.
-    Returns the flash kernel's line."""
-    names = list(mesh_checks.CHECKS)
-    verdict = mesh_checks.verdicts({n: [res["checks"][n]["result"]
-                                        for res in results] for n in names})
-    for n in names:
-        walls = [res["checks"][n]["wall_s"] for res in results]
-        print(f"step one, {n}: {'held' if verdict[n] is None else 'FAILED'}"
-              f" on all {len(results)} ranks (walls {min(walls):.3f}-"
-              f"{max(walls):.3f} s)")
-    bad = {n: v for n, v in verdict.items() if v is not None}
+    tests' tolerances (``mesh_checks.verdicts``), the launch counts, each
+    32k cell's peaks under the card's bytes, printed beside the reckoning,
+    and the train cells (``judge_train``); everything is printed before the
+    first failure raises.  Returns the kernels' lines: the flash kernel's,
+    when the 32k cells ran."""
+    bad = {}
+    if "checks" in results[0]:
+        names = list(mesh_checks.CHECKS)
+        verdict = mesh_checks.verdicts({n: [res["checks"][n]["result"]
+                                            for res in results]
+                                        for n in names})
+        for n in names:
+            walls = [res["checks"][n]["wall_s"] for res in results]
+            print(f"step one, {n}: "
+                  f"{'held' if verdict[n] is None else 'FAILED'} on all "
+                  f"{len(results)} ranks (walls {min(walls):.3f}-"
+                  f"{max(walls):.3f} s)")
+        bad = {n: v for n, v in verdict.items() if v is not None}
     by_path, errs, per_shape = {}, [], []
-    for arch in cell_memory.MESH4_ROWS:
+    for arch in cell_memory.MESH4_ROWS if "parity" in results[0] else ():
         par = results[0]["parity"][arch]
         print(f"parity {arch}: prefill {par['steps'][0]:.2f} steps, decode "
               f"up to {max(par['steps'][1:]):.2f} (tol {par['tol_steps']});"
@@ -5492,6 +5800,7 @@ def judge_cards(results: list, reckoned: dict) -> dict:
             res["parity"][arch]["launches"] for res in results)
         by_path[f"{arch} parity, unsharded on card 0"] = \
             par["unsharded_launches"]
+    for arch in cell_memory.MESH4_ROWS if "cells" in results[0] else ():
         for name in ("prefill", "decode"):
             cell = f"{arch} {name}_32k"
             want = reckoned.get(cell)
@@ -5509,31 +5818,128 @@ def judge_cards(results: list, reckoned: dict) -> dict:
             c = res["cells"][arch]
             errs += [*c["layer_err"].values(), *c["every_layer_err"]]
         per_shape.append(results[0]["cells"][arch]["times"])
+    if "train" in results[0]:
+        judge_train(results, reckoned)
     for r, res in enumerate(results):
         check(not res["failed"], f"rank {r}: {len(res['failed'])} failed "
               f"checks: {res['failed'][:5]}")
     check(not bad, f"step one outside its tests' tolerances: "
           f"{json.dumps(bad)[:2000]}")
+    if not per_shape:
+        return []
     lib = [t["library_ms"] for t in per_shape]
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-            + fa.route(torch.bfloat16),
-            "replaces": KERNELS["flash_attention"],
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": max(errs),
-            "ms": sum(t["ms"] for t in per_shape), "plain_ms": None,
-            "bound_ms": sum(t["bound_ms"] for t in per_shape),
-            "bound_by": per_shape[0]["bound_by"],
-            "library_ms": None if None in lib else sum(lib),
-            "per_shape": per_shape,
-            "launches_in_step_one": {
-                n: {k: sum(res["checks"][n]["launches"][k]
-                           for res in results)
-                    for k in launches()} for n in names}}
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/"
+             + fa.route(torch.bfloat16),
+             "replaces": KERNELS["flash_attention"],
+             "launches": sum(by_path.values()),
+             "launches_by_path": by_path, "max_abs_err": max(errs),
+             "ms": sum(t["ms"] for t in per_shape), "plain_ms": None,
+             "bound_ms": sum(t["bound_ms"] for t in per_shape),
+             "bound_by": per_shape[0]["bound_by"],
+             "library_ms": None if None in lib else sum(lib),
+             "per_shape": per_shape}
+    if "checks" in results[0]:
+        entry["launches_in_step_one"] = {
+            n: {k: sum(res["checks"][n]["launches"][k] for res in results)
+                for k in launches()} for n in mesh_checks.CHECKS}
+    return [entry]
 
 
-def main_cards(n: int, log_dir: str | None) -> int:
-    """``--cards n``: the four-card run (see the module docstring)."""
+def judge_train(results: list, reckoned: dict) -> None:
+    """The train cells (``mesh_train``) of every rank: losses and grad
+    norms finite and equal on every rank, the first loss within
+    ``TRAIN_LOSS0_BAND`` of ``loss_at_init``, a step among them lowering
+    the loss, and a loss that AdamW's first update raises raised by it in
+    card 0's unsharded 2-layer steps on the same weights, batch and lr too
+    (the parity's: the rise is the step's own at the reference's lr, not
+    the sharding's), no kernel launched in any step, every leaf in its layout after each step, each
+    step's peak under the card's bytes and those of steps 1-2 within
+    ``TRAIN_4K_PEAK_MARGIN`` of the reckoning for a device of the mesh,
+    each rank's collectives of step 0 equal by kind, count and bytes to
+    the dry run's for the same cell on a fake mesh of that shape (the
+    reckoning's), and the 2-layer parity within
+    ``mesh_checks.BF16_STEP_TOL`` (card 0's comparison, every rank's
+    layouts and losses)."""
+    for arch in cell_memory.MESH4_TRAIN:
+        t0 = results[0]["train"][arch]
+        want = reckoned.get(f"{arch} train_4k")
+        label = f"{arch} train_4k on {t0['mesh']}"
+        nccl = t0["nccl"]
+        print(f"{label}, {t0['rows']} rows x 4096 tokens, "
+              f"{t0['microbatches']} microbatches: losses "
+              f"{[round(x, 6) for x in t0['losses']]}; step walls "
+              f"{[round(x, 6) for x in t0['walls']]} s (counted, timed, "
+              f"traced); the timed step {t0['wall_s']:.6f} s, "
+              f"{t0['tokens_per_s']:.1f} tokens/s and "
+              f"{t0['model_tflops']:.3f} model TFLOP/s on the mesh, its "
+              f"median microbatch {t0['microbatch_s']:.6f} s, its update "
+              f"{t0['update_s']:.6f} s; rank 0's traced step: NCCL kernels "
+              + (f"{nccl['nccl_s']:.6f} s of its {nccl['traced_s']:.6f} s "
+                 f"({100 * nccl['nccl_s'] / nccl['traced_s']:.2f}%), every "
+                 f"kernel {nccl['busy_s']:.6f} s" if nccl
+                 else "not measured"))
+        for r, res in enumerate(results):
+            t = res["train"][arch]
+            peak = max(t["peaks"][1:])
+            print(f"  rank {r}: peaks {[round(p / 1e9, 3) for p in t['peaks']]}"
+                  f" GB against " + (
+                      f"the reckoned {want['total'] / 1e9:.3f} GB a device "
+                      f"(weights {want['params'] / 1e9:.3f}, moments "
+                      f"{want['opt'] / 1e9:.3f}, made {want['peak'] / 1e9:.3f})"
+                      if want else "no reckoning (its process did not "
+                      "finish)") + f"; collectives {t['collectives']['counts']}"
+                  f", bytes {t['collectives']['looped']['total']}")
+            check(all(map(math.isfinite, t["losses"] + t["grad_norms"]))
+                  and t["losses"] == t0["losses"]
+                  and t["grad_norms"] == t0["grad_norms"],
+                  f"rank {r}: {label} losses {t['losses']}, grad norms "
+                  f"{t['grad_norms']} (rank 0: {t0['losses']}, "
+                  f"{t0['grad_norms']})")
+            check(all(t["kept_layout"]) and t["parity"]["kept_layout"],
+                  f"rank {r}: {label} moved a leaf's layout")
+            check(t["launches_per_step"] and all(
+                c and not any(c.values()) for c in t["launches_per_step"]),
+                f"rank {r}: {label} launched {t['launches_per_step']}")
+            check(max(t["peaks"]) < CARD_BYTES,
+                  f"rank {r}: {label} peak {max(t['peaks'])} B")
+            check(want is not None and abs(peak - want["total"])
+                  <= TRAIN_4K_PEAK_MARGIN, f"rank {r}: {label} peak {peak}"
+                  f" B against the reckoned {want and want['total']} B")
+            got_c = {k: t["collectives"][k] for k in ("counts", "looped")}
+            check(want is not None and got_c == {
+                k: want["collectives"][k] for k in ("counts", "looped")},
+                f"rank {r}: {label} collectives {got_c} against the dry "
+                f"run's {want and want['collectives']}")
+            check([x[0] for x in t["parity"]["loss"]]
+                  == [x[0] for x in t0["parity"]["loss"]],
+                  f"rank {r}: {arch} parity losses differ from rank 0's")
+        losses, init = t0["losses"], t0["loss_init"]
+        # card 0's unsharded 2-layer losses, before and after one update
+        witness = [x[-1] for x in t0["parity"]["loss"]]
+        print(f"  {label}: first loss {losses[0]:.6f} against the init's "
+              f"{init:.6f} (band {TRAIN_LOSS0_BAND}); after AdamW's first "
+              f"update {losses[0]:.6f} -> {losses[1]:.6f}, card 0's "
+              f"unsharded 2-layer steps {witness[0]:.6f} -> "
+              f"{witness[1]:.6f}")
+        check(abs(losses[0] - init) <= TRAIN_LOSS0_BAND,
+              f"{label}: first loss {losses[0]} against {init}")
+        check(any(b < a for a, b in zip(losses, losses[1:])),
+              f"{label}: losses {losses}: no step lowered the loss")
+        check(losses[1] <= losses[0] or witness[1] > witness[0],
+              f"{label}: the first update raised the loss ({losses[:2]}) "
+              f"but not card 0's unsharded 2-layer loss ({witness})")
+        print(f"  {arch} 2-layer train parity, sharded against card 0 "
+              f"unsharded: {train_parity_line(t0['parity'])}")
+        check(mesh_checks._bf16_step_ok(t0["parity"]),
+              f"{arch} 2-layer train parity outside "
+              f"{mesh_checks.BF16_STEP_TOL}")
+
+
+def main_cards(n: int, log_dir: str | None,
+               phases: tuple = CARDS_PHASES) -> int:
+    """``--cards n``: the four-card run of ``phases`` (see the module
+    docstring)."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -5553,22 +5959,30 @@ def main_cards(n: int, log_dir: str | None) -> int:
     store_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=cards_rank, args=(
-        r, os.path.join(store_dir, "store"), out_dir)) for r in range(n)]
+        r, os.path.join(store_dir, "store"), out_dir, phases))
+        for r in range(n)]
     for p in procs:
         p.start()
-    # host work beside the ranks, in a process of its own
-    reckon_path = os.path.join(out_dir, "reckoned.json")
-    reckoner = ctx.Process(target=reckon_to, args=(reckon_path,))
-    reckoner.start()
+    # host work beside the ranks, a process for each arch's cells
+    paths = [os.path.join(out_dir, f"reckoned_{i}.json")
+             for i, _ in enumerate(reckonings(phases))]
+    reckoners = [ctx.Process(target=reckon_to, args=(path, *job))
+                 for path, job in zip(paths, reckonings(phases))]
+    for p in reckoners:
+        p.start()
     try:
         codes = wait_ranks(procs, out_dir)
     finally:
-        reckoner.join(timeout=CARDS_GRACE_S)
-        if reckoner.is_alive():
-            reckoner.kill()
+        until = time.monotonic() + RECKON_GRACE_S
+        for p in reckoners:
+            p.join(timeout=max(1.0, until - time.monotonic()))
+            if p.is_alive():
+                p.kill()
         shutil.rmtree(store_dir, ignore_errors=True)
-    reckoned = json.load(open(reckon_path)) \
-        if os.path.exists(reckon_path) else {}
+    reckoned = {}
+    for path in paths:
+        if os.path.exists(path):
+            reckoned.update(json.load(open(path)))
     results = []
     for r in range(n):
         path = os.path.join(out_dir, f"rank{r}.json")
@@ -5583,10 +5997,13 @@ def main_cards(n: int, log_dir: str | None) -> int:
     check(all(c == 0 for c in codes) and not any("error" in res
                                                  for res in results),
           f"ranks ended with {codes} (None: killed); logs in {out_dir}")
-    entry = judge_cards(results, reckoned)
+    entries = judge_cards(results, reckoned)
+    walls = results[0].get("walls", {})
+    print("phase walls (rank 0): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()))
     print(f"total wall: {time.perf_counter() - t0:.3f} s; logs in "
           f"{out_dir}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": n}}))
@@ -5603,9 +6020,15 @@ def main(argv=None) -> int:
     ap.add_argument("--log-dir", default=None,
                     help="with --cards 4: where each rank's log and "
                     "numbers go (default: a temporary directory)")
+    ap.add_argument("--phases", default=",".join(CARDS_PHASES),
+                    help="with --cards 4: the phases to run, in their order"
+                    f", of {','.join(CARDS_PHASES)} (default: all)")
     args = ap.parse_args(argv)
+    phases = tuple(p for p in CARDS_PHASES if p in args.phases.split(","))
+    if set(args.phases.split(",")) - set(CARDS_PHASES) or not phases:
+        ap.error(f"--phases takes names of {CARDS_PHASES}")
     if args.cards != 1:
-        return main_cards(args.cards, args.log_dir)
+        return main_cards(args.cards, args.log_dir, phases)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -5662,36 +6085,41 @@ def main(argv=None) -> int:
         "ssd_scan_bwd": par["mamba_train"]["launches"]["ssd_scan_bwd"]}
     for k in kernels:
         k["launches_sharded"] = sharded_launches.get(k["name"], 0)
-    # after the timed phases: run before them once, it was followed by six
-    # profiler sessions in a row that recorded too few device events
-    run(phase_training)
-    mtrain = run(phase_mamba_training)
-    # the forward kernel held against the plain version at the training shape
-    ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"],
-                                   mtrain["fwd_max_abs_err"])
-    main_bwd = mtrain["per_shape"][0]       # the training step's shape
-    bwd_entry = {
-        "name": "ssd_scan_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/" + ss.BWD_SOURCE,
-        "replaces": KERNELS["ssd_scan_bwd"],
-        "launches": mtrain["launches"]["ssd_scan_bwd"],
-        "launches_per_step": mtrain["per_step"]["ssd_scan_bwd"],
-        "launches_sharded": sharded_launches["ssd_scan_bwd"],
-        # the float32 route's, which the main path trains through; each
-        # input type's beside it, also as a share of the largest gradient
-        "max_abs_err": mtrain["max_err"]["float32"]["max_abs_err"],
-        "max_err_by_dtype": mtrain["max_err"],
-        "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
-        "bound_ms": main_bwd["bound_ms"], "bound_by": main_bwd["bound_by"],
-        "library_ms": None, "ptxas": mtrain["ptxas"],
-        "per_shape": mtrain["per_shape"]}
-    kernels.append(bwd_entry)
-    # the dry run's CPU children beside the device-bound train_4k steps
-    dry = start_dryrun()
+    # the dry run's CPU children and the train_4k cells' reckonings, beside
+    # the training phases (checkpoint I/O, then device-bound steps)
+    dry, (reckoners, train_reckoned) = start_dryrun(), start_reckonings()
     try:
-        train_4k = run(phase_train_4k)["mamba2-1.3b"]
+        # after the timed phases: run before them once, it was followed by
+        # six profiler sessions in a row that recorded too few device events
+        run(phase_training)
+        mtrain = run(phase_mamba_training)
+        # the forward kernel held against the plain version at the training
+        # shape
+        ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"],
+                                       mtrain["fwd_max_abs_err"])
+        main_bwd = mtrain["per_shape"][0]       # the training step's shape
+        bwd_entry = {
+            "name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + ss.BWD_SOURCE,
+            "replaces": KERNELS["ssd_scan_bwd"],
+            "launches": mtrain["launches"]["ssd_scan_bwd"],
+            "launches_per_step": mtrain["per_step"]["ssd_scan_bwd"],
+            "launches_sharded": sharded_launches["ssd_scan_bwd"],
+            # the float32 route's, which the main path trains through; each
+            # input type's beside it, also as a share of the largest
+            # gradient
+            "max_abs_err": mtrain["max_err"]["float32"]["max_abs_err"],
+            "max_err_by_dtype": mtrain["max_err"],
+            "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
+            "bound_ms": main_bwd["bound_ms"],
+            "bound_by": main_bwd["bound_by"],
+            "library_ms": None, "ptxas": mtrain["ptxas"],
+            "per_shape": mtrain["per_shape"]}
+        kernels.append(bwd_entry)
+        train_4k = run(phase_train_4k, train_reckoned)["mamba2-1.3b"]
     finally:
         run(phase_dryrun, dry)
+        reckoners.shutdown(cancel_futures=True)
     path = "mamba2-1.3b train_4k bfloat16"
     for entry in (ssd_entry, bwd_entry):
         n = train_4k["launches"][entry["name"]]

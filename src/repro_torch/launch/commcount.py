@@ -131,9 +131,15 @@ class CollectiveCounter(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if is_local(args, kwargs):
+        if self.wants(func) and is_local(args, kwargs):
             self.local_op(func, args, kwargs, out)
         return out
+
+    def wants(self, func) -> bool:
+        """Whether ``local_op`` counts ``func``: the collectives alone here
+        (so the other ops skip ``is_local``'s walk of their arguments); a
+        subclass that counts every op returns True."""
+        return str(func.overloadpacket) in _OPS
 
     def local_op(self, func, args, kwargs, out) -> None:
         hit = _OPS.get(str(func.overloadpacket))

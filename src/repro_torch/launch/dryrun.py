@@ -127,6 +127,9 @@ class _CellCost(CollectiveCounter):
         self.peak = 0
         self._known = {id(t.untyped_storage()) for t in _tensors(args)}
 
+    def wants(self, func) -> bool:
+        return True
+
     def _freed(self, key: int, nbytes: int) -> None:
         self._known.discard(key)
         self.live -= nbytes

@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
@@ -435,18 +437,24 @@ def _mamba_step(mesh, arch: str = "mamba2-1.3b", rows: int = 4,
 
 def _moments(got_o, want_o) -> dict:
     """Each leaf's moments after the step against the unsharded step's:
-    [largest |difference| of m, largest |m|, the same of v].  The first
-    moment is linear in the gradient and the second in its square, so a
-    gradient entry off by a share shows here at any eps, where the new
-    weight moves by lr g / (sqrt(v) + eps) and barely sees an entry far
-    below eps."""
+    [largest |difference| of m, largest |m|, the same of v, then the sums
+    of squares of m's difference, of m, of v's difference and of v].  The
+    first moment is linear in the gradient and the second in its square,
+    so a gradient entry off by a share shows here at any eps, where the
+    new weight moves by lr g / (sqrt(v) + eps) and barely sees an entry
+    far below eps.  Each sharded leaf is gathered whole on every rank
+    (``full_tensor``, a collective), so every rank calls this."""
     out = {}
     for key in ("m", "v"):
         g, w = flatten(got_o[key]), flatten(want_o[key])
         for k in w:
-            out.setdefault(k.replace(SEP, "/"), []).extend(
-                [_err(g[k], w[k]), float(w[k].detach().float().abs().max())])
-    return out
+            gw = _full(g[k]).detach().float()
+            ww = w[k].detach().float()
+            out.setdefault(k.replace(SEP, "/"), []).append(
+                [float((gw - ww).abs().max()), float(ww.abs().max()),
+                 float(((gw - ww) ** 2).sum()), float((ww ** 2).sum())])
+    return {k: [a[0], a[1], b[0], b[1], a[2], a[3], b[2], b[3]]
+            for k, (a, b) in out.items()}
 
 
 def _worst_leaves(got_p, want_p, got_m, want_m, n: int = 3) -> list:
@@ -977,6 +985,134 @@ def check_route_excuse(rank: int) -> dict:
     return out
 
 
+# ------------------------------------------------------ bf16 train cells ---
+
+# the archs of the four-card train cells at smoke size, two layers, with
+# heads that tp 4 neither pads nor duplicates (one kv head a rank, as
+# yi-6b's 4 at tp 4), each on both meshes the cells run on
+TRAIN_CELLS = {"yi-6b": {"n_heads": 8, "n_kv_heads": 4},
+               "minitron-8b": {"n_heads": 8, "n_kv_heads": 4},
+               "musicgen-large": {"n_heads": 8, "n_kv_heads": 8}}
+TRAIN_MESHES = {"tp4": {"data": 1, "model": 4},
+                "dp2_tp2": {"data": 2, "model": 2}}
+TRAIN_CELL_ROWS = 4
+TRAIN_CELL_SEQ = 32
+TRAIN_CELL_MICROBATCHES = 2
+TRAIN_CELL_STEPS = 2
+
+
+def train_cell_cfg(arch: str, mesh_shape: dict):
+    """Smoke ``arch`` laid out as ``build_cfg`` lays out a train cell on
+    ``mesh_shape`` (tp the 'model' size, the batch over 'data'), with remat
+    (the production config's), two layers and ``TRAIN_CELLS``' heads."""
+    return smoke_config(arch, tp=mesh_shape["model"], batch_axes=("data",),
+                        remat=True, n_layers=2, **TRAIN_CELLS[arch])
+
+
+def train_batch(cfg, rows: int, seq: int, seed: int) -> dict:
+    """Seeded token ids and labels of ``rows`` x ``seq`` (x codebooks),
+    the last 5 labels of each row masked (-1), on ``DEVICE``."""
+    rng = np.random.default_rng(seed)
+    shape = (rows, seq) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    labels = rng.integers(0, cfg.vocab, shape).astype(np.int32)
+    labels[:, -5:] = -1
+    return {"tokens": _t(rng.integers(1, cfg.vocab, shape).astype(np.int32)),
+            "labels": _t(labels)}
+
+
+def train_layout(params, opt) -> list:
+    """Every weight's and moment's placements, in one order."""
+    return [t.placements for t in (*flatten(params).values(),
+                                   *flatten(opt["m"]).values(),
+                                   *flatten(opt["v"]).values())]
+
+
+def train_parity(cfg, mesh, batch: dict, *, steps: int, microbatches: int,
+                 seed: int = 0, unsharded_on: int | None = None,
+                 count: bool = False) -> dict:
+    """``steps`` bfloat16 train steps of ``cfg`` at the reference's optimizer
+    config (``AdamWConfig(moment_dtype=cfg.opt_dtype)``) on ``mesh``: the
+    weights drawn shard by shard (``shard_init.init_shards``), the moments
+    laid out by ``zero1_specs`` (``shard_init.zero1_state``), ``batch``
+    (whole, the same on every rank) by ``batch_specs``; against the same
+    steps of the unsharded port on the same values
+    (``shard_init.init_whole``), taken on every rank, or on rank
+    ``unsharded_on`` alone while the others wait.  Returns the sharded and
+    unsharded losses and grad norms by step, whether every leaf kept its
+    layout, and where the unsharded side ran, the new weights
+    (``_bf16_weights``) and moments (``_moments``) against it; with
+    ``count``, the first step's collectives (``CollectiveCounter``)."""
+    from repro_torch.launch.commcount import CollectiveCounter
+    from repro_torch.models import shard_init as SI
+    msd = mesh_shape_dict(mesh)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_dtype)
+    step = make_train_step(cfg, opt_cfg, num_microbatches=microbatches)
+    params = SI.init_shards(cfg, mesh, seed, torch.bfloat16, DEVICE)
+    opt = SI.zero1_state(cfg, params, mesh, opt_cfg)
+    dbatch = distribute_tree(batch, batch_specs(cfg, batch, msd), mesh)
+    was = train_layout(params, opt)
+    out = {"lr": opt_cfg.lr, "layers": cfg.n_layers, "rows":
+           int(batch["tokens"].shape[0]), "data": msd.get("data", 1),
+           "tokens_local": list(dbatch["tokens"].to_local().shape),
+           "kept_layout": True, "loss": [], "grad_norm": []}
+    for i in range(steps):
+        if count and i == 0:
+            with CollectiveCounter() as counter:
+                params, opt, met = step(params, opt, dbatch)
+            out["collectives"] = counter.result()
+        else:
+            params, opt, met = step(params, opt, dbatch)
+        out["loss"].append([float(_full(met["loss"]))])
+        out["grad_norm"].append([float(_full(met["grad_norm"]))])
+        out["kept_layout"] &= train_layout(params, opt) == was
+    if unsharded_on is not None and dist.get_rank() != unsharded_on:
+        dist.barrier()
+        # the gathers ``_bf16_weights`` and ``_moments`` make, in their order
+        for tree in (params, opt["m"], opt["v"]):
+            for t in flatten(tree).values():
+                _full(t)
+        return out
+    first = SI.init_whole(cfg, msd, seed, torch.bfloat16, DEVICE)
+    want_p, want_o = first, adamw_init(first, opt_cfg)
+    for i in range(steps):
+        want_p, want_o, met = step(want_p, want_o, batch)
+        out["loss"][i].append(float(met["loss"]))
+        out["grad_norm"][i].append(float(met["grad_norm"]))
+    out["update"] = _tree_err(want_p, first)["err"]
+    del first
+    if unsharded_on is not None:
+        dist.barrier()
+    out["weights"] = _bf16_weights(params, want_p, opt_cfg.lr)
+    out["moments"] = _moments(opt, want_o)
+    return out
+
+
+def check_train_cells(rank: int) -> dict:
+    """Smoke yi-6b, minitron-8b and musicgen-large in bfloat16 on (data 1,
+    model 4) and (data 2, model 2): ``TRAIN_CELL_STEPS`` steps of
+    ``TRAIN_CELL_MICROBATCHES`` microbatches (the float32 microbatch sum,
+    each gradient reduced once into its ZeRO-1 moments' shard) against the
+    unsharded steps on the same weights (``train_parity``), and the first
+    step's collectives.  On the CPU each rank computes on one thread: the
+    four ranks share the host's cores, and at smoke size a rank's many
+    threads cost it ten times the step."""
+    out, threads = {}, torch.get_num_threads()
+    if DEVICE == "cpu":
+        torch.set_num_threads(1)
+    try:
+        for arch in TRAIN_CELLS:
+            for name, shape in TRAIN_MESHES.items():
+                cfg = train_cell_cfg(arch, shape)
+                out[f"{arch} {name}"] = train_parity(
+                    cfg, mesh_of_shape(shape),
+                    train_batch(cfg, TRAIN_CELL_ROWS, TRAIN_CELL_SEQ, 12),
+                    steps=TRAIN_CELL_STEPS,
+                    microbatches=TRAIN_CELL_MICROBATCHES, count=True)
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
 CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "moe": check_moe, "moe_batch": check_moe_batch, "olmo": check_olmo,
           "mamba": check_mamba,
@@ -988,7 +1124,8 @@ CHECKS = {"hierarchical": check_hierarchical, "int8": check_int8,
           "loss_heads": check_loss_heads, "dp_train": check_dp_train,
           "decode_past_end": check_decode_past_end,
           "mesh4_serve": check_mesh4_serve, "shard_init": check_shard_init,
-          "route_excuse": check_route_excuse}
+          "route_excuse": check_route_excuse,
+          "train_cells": check_train_cells}
 
 
 # ------------------------------------------------------------- verdicts ---
@@ -1002,8 +1139,15 @@ def _close(pair, rtol: float = 1e-5) -> bool:
     return abs(got - want) <= rtol * abs(want)
 
 
-def _moments_ok(moments: dict) -> bool:
-    """Each leaf's moments (``_moments``) within 1e-5 of their own largest
+def _moments_ok(moments: dict, l2: dict | None = None) -> bool:
+    """With ``l2`` (a bfloat16 step, ``BF16_STEP_TOL``): each leaf's moments
+    (``_moments``) within ``l2["m"]`` / ``l2["v"]`` relative L2 of the
+    unsharded step's, those of the float32 leaves whose gradients are
+    cancelling sums (``FLOAT32_LEAVES``) within ``l2["sums"]``, and the
+    whole tree's within ``l2["m"]`` / ``l2["v"]``
+    (``tests/test_torch_bf16_train.py``'s rule and numbers).
+
+    Without it (float32), each leaf's moments within 1e-5 of their own largest
     value, or of ``MOMENT_FLOOR`` times the tree's largest where the leaf's
     own lie below that (its square for v, which holds g squared): a leaf
     whose gradient is a long sum that cancels to a small value (Mamba's
@@ -1011,11 +1155,21 @@ def _moments_ok(moments: dict) -> bool:
     gradients) keeps the rounding of its terms, not of its value.  A share
     of a gradient lost or counted twice moves its leaf's moments by that
     share, 1e4 times the tolerance or more."""
-    top_m = max(ms for _, ms, _, _ in moments.values())
-    top_v = max(vs for _, _, _, vs in moments.values())
+    if l2 is not None:
+        def lim(leaf: str, name: str) -> float:
+            sums = leaf.split("/")[-1] in FLOAT32_LEAVES
+            return l2["sums"] if sums else l2[name]
+        tree = [sum(r[i] for r in moments.values()) for i in range(4, 8)]
+        return all(r[4] <= lim(k, "m") ** 2 * r[5]
+                   and r[6] <= lim(k, "v") ** 2 * r[7]
+                   for k, r in moments.items()) \
+            and tree[0] <= l2["m"] ** 2 * tree[1] \
+            and tree[2] <= l2["v"] ** 2 * tree[3]
+    top_m = max(r[1] for r in moments.values())
+    top_v = max(r[3] for r in moments.values())
     return all(me <= 1e-5 * max(ms, MOMENT_FLOOR * top_m)
                and ve <= 1e-5 * max(vs, MOMENT_FLOOR ** 2 * top_v)
-               for me, ms, ve, vs in moments.values())
+               for me, ms, ve, vs, *_ in moments.values())
 
 
 # the floor of a leaf's moment scale, as a share of the tree's largest
@@ -1032,6 +1186,66 @@ def _step_ok(r: dict) -> bool:
             and r["update"] >= 5e-4
             and r["params"]["err"] <= 1e-5 * max(1.0, r["params"]["scale"])
             and _moments_ok(r["moments"]))
+
+
+# A bfloat16 train step sharded against unsharded: the tolerances
+# ``tests/test_torch_bf16_train.py`` argues for the port's step against the
+# reference's (its docstring), as the two differ in the same way: each
+# side rounds its own bfloat16 products, here the row-parallel products'
+# partial sums on each rank and their sum across ranks against one card's
+# float32 sum rounded once.  The loss within 5e-4 relative from the same
+# state (1e-3 after a step from each side's own state); the grad norm
+# within 4e-3 a layer; every weight within 2 lr a step plus one bfloat16
+# step of its leaf's largest |value| (AdamW moves a weight at most
+# lr |m / sqrt(v)| <= 1.0003 lr a step in the first three, so a gradient
+# rounded to the other sign moves it 2 lr, once a step); the weights past
+# 0.5 lr plus a bfloat16 step of their own value (an update whose sign
+# flipped) under 0.5% of the elements a step; each leaf's moments, and the
+# tree's, within 0.08 relative L2, those of float32 leaves of cancelling
+# sums 0.15.
+BF16_STEP_TOL = {"loss": 5e-4, "loss_own": 1e-3, "grad_norm": 4e-3,
+                 "lr_a_step": 2.0, "flips": 0.005, "m": 0.08, "v": 0.08,
+                 "sums": 0.15}
+FLOAT32_LEAVES = ("a_log", "dt_bias", "d_skip", "router")
+
+
+def _bf16_weights(got_p, want_p, lr: float) -> dict:
+    """The sharded step's new weights against the unsharded one's (every
+    rank gathers each leaf, ``full_tensor``): {leaf: [largest |difference|,
+    one bfloat16 step of the leaf's largest |value| (0 for a float32
+    leaf)]}, and the elements past 0.5 lr plus one bfloat16 step of their
+    own value, of all."""
+    g, w = flatten(got_p), flatten(want_p)
+    leaves, past, total = {}, 0, 0
+    for k in w:
+        gw, ww = _full(g[k]).detach().float(), w[k].detach().float()
+        err = (gw - ww).abs()
+        bf16 = w[k].dtype == torch.bfloat16
+        own = torch.where(ww != 0, torch.exp2(torch.floor(torch.log2(
+            ww.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7),
+            torch.zeros_like(ww)) if bf16 else torch.zeros_like(ww)
+        top = float(ww.abs().max())
+        leaves[k.replace(SEP, "/")] = [
+            float(err.max()),
+            2.0 ** (math.floor(math.log2(top)) - 7) if bf16 and top else 0.0]
+        past += int((err > 0.5 * lr + own).sum())
+        total += err.numel()
+    return {"leaves": leaves, "past": past, "total": total}
+
+
+def _bf16_step_ok(r: dict) -> bool:
+    """``train_parity``'s numbers within ``BF16_STEP_TOL``."""
+    tol, lr, steps = BF16_STEP_TOL, r["lr"], len(r["loss"])
+    return (all(_close(pair, tol["loss"] if i == 0 else tol["loss_own"])
+                for i, pair in enumerate(r["loss"]))
+            and all(_close(pair, tol["grad_norm"] * r["layers"])
+                    for pair in r["grad_norm"])
+            and r["update"] >= 0.5 * lr
+            and all(err <= tol["lr_a_step"] * steps * lr + step
+                    for err, step in r["weights"]["leaves"].values())
+            and r["weights"]["past"]
+            <= tol["flips"] * steps * r["weights"]["total"]
+            and _moments_ok(r["moments"], tol))
 
 
 def _serve_ok(r: dict) -> bool:
@@ -1139,6 +1353,10 @@ def _cases(name: str, rank: int, r: dict) -> dict:
                     for call, rows in zip(moved["judged"],
                                           moved["changed_rows"])
                     for row, v in enumerate(call))}
+    if name == "train_cells":
+        return {case: _bf16_step_ok(c) and c["kept_layout"]
+                and c["tokens_local"][0] * c["data"] == c["rows"]
+                for case, c in r.items()}
     raise KeyError(name)
 
 

@@ -30,11 +30,14 @@ from torch.distributed.tensor import DTensor
 from repro_torch.device import resolve_device
 from repro_torch.models.common import init_scale
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import _DTYPES
 from repro_torch.parallel.sharding import (mesh_shape_dict, mesh_shape_size,
-                                           param_specs, placements)
-from repro_torch.tree import tree_map_with_keys
+                                           param_specs, placements,
+                                           zero1_specs)
+from repro_torch.parallel.shards import local_shape, replicate_like
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_keys
 
-__all__ = ["init_shards", "init_whole"]
+__all__ = ["init_shards", "init_whole", "zero1_axes", "zero1_state"]
 
 
 def block_seed(seed: int, path: str, layer: int, block: tuple) -> int:
@@ -165,3 +168,36 @@ def init_shards(cfg, mesh, seed: int, dtype=torch.bfloat16,
             stride=torch.empty(leaf.shape, device="meta").stride())
 
     return tree_map_with_keys(one, meta, specs)
+
+
+def zero1_axes(cfg) -> tuple:
+    """The mesh axes ZeRO-1 shards the moments over: 'data', and 'model'
+    too in the ``dp`` and ``fsdp2d`` layouts (the reference's rule,
+    ``launch/dryrun.py:_trace_cell``)."""
+    return ("data", "model") if cfg.layout in ("dp", "fsdp2d") \
+        else ("data",)
+
+
+def zero1_state(cfg, params, mesh, opt_cfg) -> dict:
+    """AdamW's zero state for the DTensor weights ``params`` (laid out by
+    ``param_specs``): each moment at ``opt_cfg.moment_dtype`` laid out by
+    ``zero1_specs`` over ``zero1_axes(cfg)``, each rank allocating its own
+    shard alone; the step counter an int32 zero, replicated."""
+    msd = mesh_shape_dict(mesh)
+    specs = zero1_specs(param_specs(cfg, params, msd), params, msd,
+                        axes=zero1_axes(cfg))
+    dt = _DTYPES[opt_cfg.moment_dtype]
+    dev = tree_leaves(params)[0].to_local().device
+
+    def zeros(p, spec):
+        pl = placements(spec, mesh)
+        return DTensor.from_local(
+            torch.zeros(local_shape(p.shape, mesh, pl), dtype=dt, device=dev),
+            mesh, pl, run_check=False, shape=p.shape,
+            stride=torch.empty(p.shape, device="meta").stride())
+
+    first = tree_leaves(params)[0]
+    return {"m": tree_map(zeros, params, specs),
+            "v": tree_map(zeros, params, specs),
+            "step": replicate_like(torch.zeros((), dtype=torch.int32,
+                                               device=dev), first)}

@@ -24,7 +24,12 @@
   reckoned for one device over meta DTensors on a fake four-rank group:
   its weights and cache are the shard arithmetic of ``param_specs`` and
   ``cache_specs``, and ``MESH4_ROWS`` is what ``largest_batch`` gives
-  there at the production cells' shapes.
+  there at the production cells' shapes.  A train cell there is laid out
+  as the dry run lays it out: its weights are the shard arithmetic of
+  ``param_specs`` and its moments that of ``zero1_specs``, on (data 1,
+  model 4) and on (data 2, model 2), and ``--mesh`` prints it
+  (``tests/test_torch_mesh_train_rows_*.py`` reckon ``MESH4_TRAIN`` at
+  full size).
 """
 import math
 
@@ -325,3 +330,62 @@ def test_mesh_cli_reckons_each_cell_for_a_device(capsys):
         f"mixtral-8x7b decode_32k: {rows} of 128"]
     assert all("a device of {'data': 1, 'model': 4}" in line
                for line in lines)
+
+
+@pytest.mark.parametrize("mesh_shape", [{"data": 1, "model": 4},
+                                        {"data": 2, "model": 2}])
+def test_mesh_train_reckon_bytes_are_the_shard_arithmetic(mesh_shape):
+    """Smoke yi-6b's train cell (tp the 'model' size, the batch over
+    'data', 8 microbatches), reckoned for one device of a fake mesh: the
+    weights are the shard arithmetic of ``param_specs`` (over tp), the
+    moments that of ``zero1_specs`` over 'data' (m and v at float32, and
+    the step counter), the step's collectives are counted, and the total
+    holds weights, moments and the step's peak."""
+    from repro_torch.parallel import param_specs, zero1_specs
+    cfg = smoke_config("yi-6b", tp=mesh_shape["model"],
+                       batch_axes=("data",), n_heads=8, n_kv_heads=4)
+    cell = ShapeCell("small", "train", 64, 256)
+    rows = 8 * mesh_shape["data"]
+    with cm.fake_mesh(mesh_shape) as mesh:
+        got = cm.reckon(cfg, cell, rows, mesh)
+    params = T.init_params(cfg, dtype=torch.bfloat16, device="meta")
+    specs = param_specs(cfg, params, mesh_shape)
+    moments = adamw_init(params, AdamWConfig(moment_dtype=cfg.opt_dtype))
+    zs = zero1_specs(specs, params, mesh_shape, axes=("data",))
+    assert got["params"] == _shard_bytes(params, specs, mesh_shape)
+    assert got["opt"] == 2 * _shard_bytes(moments["m"], zs, mesh_shape) + 4
+    one_card = cm.reckon(cfg, cell, rows)
+    assert got["params"] < one_card["params"]
+    assert got["opt"] < one_card["opt"]
+    assert got["total"] == got["params"] + got["opt"] + got["peak"]
+    counts = got["collectives"]["counts"]
+    assert counts["all-reduce"] > 0
+    # over 'data' each gradient is reduce-scattered into its moments' shard
+    # and the new weights all-gathered; on a data axis of one, neither
+    assert (counts["reduce-scatter"] > 0) == (mesh_shape["data"] > 1)
+    assert (counts["all-gather"] > 0) == (mesh_shape["data"] > 1)
+
+
+def test_mesh_cli_reckons_the_train_cell(capsys, monkeypatch):
+    """``--mesh data=2,model=2 --shape train_4k`` reckons the train cell for
+    a device of that mesh at ``MESH4_TRAIN``'s rows, and an arch it does
+    not hold at its smallest rows (its microbatches times 'data'; smoke
+    archs in place of the full ones, the cell cut to 64 tokens)."""
+    monkeypatch.setattr(cm, "SHAPES", dict(SHAPES, train_4k=ShapeCell(
+        "train_4k", "train", 64, 256)))
+    monkeypatch.setattr(cm, "mesh_cfg", lambda arch, msd, kind: smoke_config(
+        arch, tp=msd["model"], batch_axes=("data",)))
+    where = "on a device of {'data': 2, 'model': 2}: weights "
+    rows = cm.MESH4_TRAIN["musicgen-large"][1]
+    for argv, want in ((["--arch", "musicgen-large"], rows),
+                       (["--arch", "minitron-8b"], 8 * 2)):
+        cm.main(argv + ["--mesh", "data=2,model=2", "--shape", "train_4k"])
+        lines = capsys.readouterr().out.splitlines()
+        assert len(lines) == 1
+        assert lines[0].startswith(
+            f"{argv[1]} train_4k: {want} of 256 rows (8 microbatches) "
+            + where)
+        assert "optimizer state" in lines[0]
+        assert lines[0].endswith(f"within {cm.BUDGET_BYTES / 1e9} GB")
+    assert cm.mesh_cells("musicgen-large") == ["train_4k"]
+    assert cm.mesh_cells("mixtral-8x7b") == ["prefill_32k", "decode_32k"]

@@ -25,8 +25,11 @@
   loss and its gradients against plain for a vocab-split, a d-split and an
   FSDP head, smoke qwen1.5-32b and mixtral-8x7b on (data 1, model 4)
   against the unsharded port, the shard-seeded weights
-  (``models/shard_init.py``) against their whole tree, and the judgement of
-  MoE route changes, which refuses a moved router.  The checks and their
+  (``models/shard_init.py``) against their whole tree, the judgement of
+  MoE route changes, which refuses a moved router, and a bfloat16 train
+  step of smoke yi-6b, minitron-8b and musicgen-large on (data 1, model 4)
+  and (data 2, model 2) against the unsharded step, its collectives equal
+  to the dry run's on a fake mesh of the same shape.  The checks and their
   tolerances live in ``repro_torch.launch.mesh_checks``, which
   ``chip_smoke.py --cards 4`` runs on four cards under NCCL and holds by
   ``mesh_checks.verdicts``; each test below holds its case of the gloo run
@@ -672,6 +675,65 @@ def test_shard_init_refuses_duplicated_heads():
                       {"data": 1, "model": 4}, 0, device="cpu")
 
 
+TRAIN_CASES = [f"{a} {m}" for a in W.TRAIN_CELLS for m in W.TRAIN_MESHES]
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_train_cell_bf16_step_matches_unsharded(gloo_results, case):
+    """A bfloat16 step (two microbatches, the reference's AdamW config,
+    moments at ``opt_dtype``) of the four-card train cells' archs at smoke
+    size, their weights drawn shard by shard, ZeRO-1 moments over 'data',
+    against the unsharded step on the same weights: within
+    ``mesh_checks.BF16_STEP_TOL``, the tolerances
+    ``tests/test_torch_bf16_train.py`` argues for the port's step against
+    the reference's (loss 5e-4 relative, grad norm 4e-3 a layer, every
+    weight within 2 lr plus a bfloat16 step of its leaf, under 0.5% of
+    them past 0.5 lr plus a step of their own value, each leaf's moments
+    within 0.08 relative L2); every leaf keeps its layout, and each rank
+    holds its share of the batch's rows."""
+    arch, mesh = case.split()
+    data = W.TRAIN_MESHES[mesh]["data"]
+    for r in _ok(gloo_results["train_cells"]):
+        c = r[case]
+        assert c["kept_layout"] and c["layers"] == 2
+        assert c["tokens_local"][:2] == [W.TRAIN_CELL_ROWS // data,
+                                         W.TRAIN_CELL_SEQ]
+        assert len(c["loss"]) == W.TRAIN_CELL_STEPS
+        assert c["update"] >= 0.5 * c["lr"]
+    assert W.verdict("train_cells", gloo_results["train_cells"], case) is None
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_train_cell_collectives_equal_the_dry_runs(gloo_results, case):
+    """Each gloo rank's collectives in the train cell's step
+    (``commcount.CollectiveCounter``), by kind, count and result bytes,
+    equal the dry run's count of the same smoke cell
+    (``dryrun._trace_cell`` under the same counter) on a fake mesh of that
+    shape, the cuda-typed one the dry run lays out on: each gradient
+    reduced once, the batch and the new weights gathered where 'data'
+    splits them, and nothing per microbatch that the dry run does not
+    count."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch.cell_memory import fake_mesh
+    from repro_torch.launch.commcount import CollectiveCounter
+    from repro_torch.launch.dryrun import _trace_cell
+    arch, mesh = case.split()
+    shape = W.TRAIN_MESHES[mesh]
+    cfg = W.train_cell_cfg(arch, shape)
+    cell = ShapeCell("small", "train", W.TRAIN_CELL_SEQ, W.TRAIN_CELL_ROWS)
+    with fake_mesh(shape) as fake:
+        fn, args = _trace_cell(cfg, cell, fake,
+                               microbatches=W.TRAIN_CELL_MICROBATCHES)
+        with CollectiveCounter() as counter:
+            fn(*args)
+    want = counter.result()
+    assert want["counts"]["all-reduce"] > 0
+    for r in _ok(gloo_results["train_cells"]):
+        got = r[case]["collectives"]
+        assert got["counts"] == want["counts"]
+        assert got["looped"] == want["looped"]
+
+
 def test_card_verdicts_agree_with_these_tests(gloo_results):
     """``mesh_checks.verdicts``, by which ``chip_smoke.py --cards 4`` holds
     the NCCL run and the tests above the gloo run, passes every check of
@@ -691,12 +753,26 @@ def test_card_verdicts_agree_with_these_tests(gloo_results):
     moments = worse["mamba_train"][2]["dp_tp"]["moments"]
     small = min(moments, key=lambda k: moments[k][1] or float("inf"))
     moments[small][0] = 0.25 * moments[small][1]
+    # a bfloat16 train cell: one weight 3 lr past its bound, and one leaf's
+    # first moment 10% off in L2 (as a tenth of its gradient lost)
+    cell = worse["train_cells"][3]["yi-6b dp2_tp2"]
+    leaf = next(iter(cell["weights"]["leaves"]))
+    cell["weights"]["leaves"][leaf][0] += (
+        2 * W.TRAIN_CELL_STEPS + 3) * cell["lr"]
+    cell = worse["train_cells"][1]["musicgen-large tp4"]
+    moments = cell["moments"]
+    big = max(moments, key=lambda k: moments[k][5])
+    moments[big][4] = 0.1 ** 2 * moments[big][5]
     got = W.verdicts(worse)
     assert set(got["olmo"]) == {1} and set(got["shard_init"]) == {2, 3}
     assert set(got["mesh4_serve"]) == {0} and set(got["dp_train"]) == {1}
     assert set(got["mamba_train"]) == {2}
+    assert set(got["train_cells"]) == {1, 3}
     assert [k for k, v in got.items() if v] == [
-        "olmo", "mamba_train", "dp_train", "mesh4_serve", "shard_init"]
+        "olmo", "mamba_train", "dp_train", "mesh4_serve", "shard_init",
+        "train_cells"]
+    assert W.verdict("train_cells", worse["train_cells"],
+                     "minitron-8b tp4") is None
     assert W.verdict("olmo", worse["olmo"], "train") is None
     assert W.verdict("mesh4_serve", worse["mesh4_serve"],
                      "qwen1.5-32b") is None
